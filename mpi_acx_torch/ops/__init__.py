@@ -1,0 +1,5 @@
+"""The port's kernels and their plain versions.
+
+``attention`` holds the prefill flash-attention kernel (K1), ``flash_decode``
+the decode-attention kernel (K2); ``_build`` compiles and loads both.
+"""
