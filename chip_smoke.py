@@ -24,7 +24,21 @@ in the repository. Phases, each of which exits non-zero on failure:
              (device time: the calls are replayed from a CUDA graph), and
              one decode step as the server issues it against its device
              time (the device's busy share of a step).
-6. the kernels line (JSON), the card's name and power limit, and last the
+6. flags   — the flag kernels B1-B5 (csrc/flags.cu) against their plain
+             versions with exact equality over tables of 1 to 4096 slots,
+             indices in and out of range, repeated, as ints and as tensors
+             on the card, and B5's payload bit for bit at 8x128 and at the
+             4 MiB partition; then each timed by CUDA-graph replay beside
+             its plain version and its one-call PyTorch equivalent.
+7. exchange — `make lib tools`, then two ranks on the card under
+             build/acxrun: 64 MiB of f32 in 16 partitions produced and
+             flagged by the kernels, published through stream triggers,
+             polled by B3/B4 on the receiver and checked value by value
+             there (GB/s per publish mode, best of 3 sets of 20 rounds);
+             the in-program twin; the 8-byte triggered ping-pong on CUDA
+             tensors; and build/bench_pingpong, the host plane alone, for
+             comparison in the same run. Every flag kernel must launch.
+8. the kernels line (JSON), the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 """
 
@@ -32,9 +46,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -73,6 +89,7 @@ TIE = {torch.float32: 1e-4, torch.bfloat16: 8e-2}
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 H, D = 12, 64           # GPT-2 124M heads and head dim
+ROOT = Path(__file__).resolve().parent
 
 
 def fail(msg: str) -> None:
@@ -461,6 +478,283 @@ def phase_step(params16, k2_ms, card_str) -> None:
           f"of device time [{card_str}]", flush=True)
 
 
+# --- phase 6 ---------------------------------------------------------------
+
+FLAG_KERNELS = ("pready", "pready_many", "parrived", "parrived_all",
+                "produce_and_pready")
+
+
+def same(a, b) -> bool:
+    """Exact equality, bit for bit for floats (NaN-safe)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def phase_flags() -> dict:
+    """B1-B5 against their plain versions on the card, with exact equality
+    (int32 tables, 0/1 polls, f32 payloads bit for bit): tables of n = 1,
+    16, 1000, 4096 slots in random states 0-5; indices in range, outside
+    it (both sides, and past int32 as a Python int) and repeated; each
+    single index as a Python int and as a 0-d int32 tensor on the card; B5
+    at 8x128 and at the exchange's 4 MiB partition (1024x1024 f32) with
+    each producer the card has. Returns the max abs error and the number
+    of cases per kernel."""
+    from mpi_acx_torch.ops import flags as fl
+    kern = dict(zip(FLAG_KERNELS, fl.select_flags(True)))
+    plain = dict(zip(FLAG_KERNELS, fl.select_flags(False)))
+    rng = np.random.default_rng(6)
+    res = {name: {"abs": 0.0, "cases": 0} for name in FLAG_KERNELS}
+
+    def hold(name, got, want, desc):
+        for g, w in zip(got, want):
+            if not same(g, w):
+                fail(f"{name} {desc}: kernel {g.flatten()[:8].tolist()} != "
+                     f"plain {w.flatten()[:8].tolist()}")
+            err = (g.double() - w.double()).abs().max().item() if g.numel() \
+                else 0.0
+            res[name]["abs"] = max(res[name]["abs"], err)
+        res[name]["cases"] += 1
+
+    def cuda_i32(v):
+        return torch.tensor(v, dtype=torch.int32, device="cuda")
+
+    for n in (1, 16, 1000, 4096):
+        for trial in range(2):
+            table = cuda_i32(rng.integers(0, 6, n))
+            singles = sorted({0, n - 1, n // 2, int(rng.integers(0, n)), -1,
+                              n, n + 5, 1023, 4096, -100, 2 ** 31 - 1,
+                              -2 ** 31})
+            for idx in singles + [2 ** 40]:
+                forms = [idx] if idx == 2 ** 40 else [idx, cuda_i32(idx)]
+                for i in forms:
+                    desc = f"n={n} idx={idx} ({type(i).__name__})"
+                    hold("pready", [kern["pready"](table.clone(), i)],
+                         [plain["pready"](table.clone(), i)], desc)
+                    hold("parrived", [kern["parrived"](table, i)],
+                         [plain["parrived"](table, i)], desc)
+            lists = [[], list(range(n)), [n // 2] * 5 + [0, 0],
+                     [-1, n, 0, n + 300, n - 1],
+                     rng.integers(-3, n + 3, 64).tolist()]
+            for idxs in lists:
+                it = cuda_i32(idxs)
+                desc = f"n={n} idxs[{len(idxs)}]={idxs[:6]}"
+                hold("pready_many", [kern["pready_many"](table.clone(), it)],
+                     [plain["pready_many"](table.clone(), it)], desc)
+                hold("parrived_all", [kern["parrived_all"](table, it)],
+                     [plain["parrived_all"](table, it)], desc)
+            # Tables that are all COMPLETED, so parrived_all reads 1.
+            done = torch.full_like(table, fl.COMPLETED)
+            for idxs in lists[:3]:
+                it = cuda_i32(idxs)
+                hold("parrived_all", [kern["parrived_all"](done, it)],
+                     [plain["parrived_all"](done, it)], f"n={n} completed")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for shape in ((8, 128), (1024, 1024)):
+        x = torch.randn(shape, generator=gen, device="cuda") * 100
+        table = cuda_i32(rng.integers(0, 6, 16))
+        for produce in (fl.Affine(2.0, 1.0), fl.Affine(-0.37, 5.25),
+                        fl.identity):
+            for idx in (5, cuda_i32(15), 16, -1):
+                desc = f"x {shape} idx={idx}"
+                pk, fk = kern["produce_and_pready"](produce, x, table.clone(),
+                                                    idx)
+                pp, fp = plain["produce_and_pready"](produce, x,
+                                                     table.clone(), idx)
+                hold("produce_and_pready", [pk, fk], [pp, fp], desc)
+    torch.cuda.synchronize()
+    for name in FLAG_KERNELS:
+        print(f"kernel {name}: {res[name]['cases']} cases equal to the plain "
+              f"version exactly (max_abs_err {res[name]['abs']:.1f})",
+              flush=True)
+    return res
+
+
+def phase_flag_timing(card_str) -> dict:
+    """B1-B5, their plain versions and the one-call PyTorch equivalents at
+    the exchange path's shapes (a 16-slot table, 16 indices, a 4 MiB f32
+    partition), by CUDA-graph replay. The bound counts the bytes each call
+    must move: the index words read, the flag words written or read, the
+    0/1 result, and for B5 the payload read and written."""
+    from mpi_acx_torch.ops import flags as fl
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    table = torch.full((16,), fl.RESERVED, dtype=torch.int32, device="cuda")
+    idxs = torch.arange(16, dtype=torch.int32, device="cuda")
+    idxs64 = idxs.long()
+    x = torch.randn((1024, 1024), generator=gen, device="cuda")
+    produce = fl.Affine(2.0, 1.0)
+    cases = {
+        "pready": (lambda: fl.pready(table, 5),
+                   lambda: fl.pready_reference(table, 5),
+                   lambda: table[5].fill_(fl.PENDING), 4),
+        "pready_many": (lambda: fl.pready_many(table, idxs),
+                        lambda: fl.pready_many_reference(table, idxs),
+                        lambda: table.index_fill_(0, idxs64, fl.PENDING),
+                        16 * 4 * 2),
+        "parrived": (lambda: fl.parrived(table, 5),
+                     lambda: fl.parrived_reference(table, 5),
+                     lambda: (table[5] == fl.COMPLETED).int(), 4 + 4),
+        "parrived_all": (lambda: fl.parrived_all(table, idxs),
+                         lambda: fl.parrived_all_reference(table, idxs),
+                         lambda: (table[idxs] == fl.COMPLETED).all(),
+                         16 * 4 * 2 + 4),
+        "produce_and_pready": (
+            lambda: fl.produce_and_pready(produce, x, table, 5),
+            lambda: fl.produce_and_pready_reference(produce, x, table, 5),
+            None, 2 * x.numel() * 4 + 4),
+    }
+    out = {}
+    for name, (k_fn, p_fn, l_fn, nbytes) in cases.items():
+        t_k = time_ms(k_fn)
+        t_p = time_ms(p_fn)
+        t_l = time_ms(l_fn) if l_fn is not None else None
+        b_ms, b_by = bound_ms(0, nbytes, torch.float32)
+        print(f"time {name}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+              f"library {'-' if t_l is None else f'{t_l:.4f} ms'}, bound "
+              f"{b_ms:.6f} ms ({b_by}, {nbytes} bytes) [{card_str}]",
+              flush=True)
+        out[name] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                         bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+# --- phase 7 ---------------------------------------------------------------
+
+# The exchange at build/bench_pingpong's size: 64 MiB of f32 in 16
+# partitions of 1024x1024, best of 3 sets of 20 rounds, per publish mode.
+PARTS, PART_SHAPE, SETS, ROUNDS = 16, (1024, 1024), 3, 20
+PINGPONG_ITERS = 2000
+RANK_TIMEOUT_S = 300
+
+
+def run_ranks(args, label) -> str:
+    """``build/acxrun -np 2`` on ``args``; fails the run unless both ranks
+    exit 0. Returns their standard output."""
+    cmd = [str(ROOT / "build" / "acxrun"), "-np", "2", "-timeout",
+           str(RANK_TIMEOUT_S), *map(str, args)]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                             timeout=RANK_TIMEOUT_S + 60)
+    except subprocess.TimeoutExpired:
+        fail(f"{label}: acxrun outlived its timeout")
+    if res.returncode != 0:
+        fail(f"{label}: exit {res.returncode}\n{res.stdout[-4000:]}\n"
+             f"{res.stderr[-4000:]}")
+    print(f"{label}: both ranks exit 0 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return res.stdout
+
+
+def field(out, tag, key) -> float:
+    """The number after ``key=`` in the rank output's ``tag`` record (the
+    ranks share one pipe, so a record may not start a line)."""
+    m = re.search(rf"{tag}\b[^\n]*?\b{key}=([-\d.]+)", out)
+    if m is None:
+        fail(f"no {tag} {key}= in the ranks' output\n{out}")
+    return float(m.group(1))
+
+
+def worker_launches(out) -> dict:
+    """The flag kernels' launch counts printed by each rank (LAUNCHES
+    records, counted from 0 just before the rank's exchange), summed."""
+    total = dict.fromkeys(FLAG_KERNELS, 0)
+    for js in re.findall(r"LAUNCHES (\{[^}]*\})", out):
+        for name, n in json.loads(js).items():
+            total[name] += n
+    return total
+
+
+def phase_exchange(card_str) -> dict:
+    """The device-triggered exchange between two ranks on the card, over
+    the native host plane: builds it, runs the bridge worker at full size
+    in each publish mode (B5, plain producer + B1, plain producer + B2;
+    the receiver polls with B3 and B4 and checks every value on its card),
+    the in-program twin at full size (overlap proved by order), the
+    triggered 8-byte ping-pong on CUDA tensors (and, to split its time,
+    with the echoing rank on CPU tensors and with both there), and
+    build/bench_pingpong, the host plane alone, on the same machine.
+    Returns the flag kernels'
+    launch counts in the full-size exchange, summed over its two ranks."""
+    t0 = time.perf_counter()
+    res = subprocess.run(["make", "-C", str(ROOT), "-j8", "lib", "tools"],
+                         capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        fail(f"make lib tools: exit {res.returncode}\n{res.stdout[-3000:]}\n"
+             f"{res.stderr[-3000:]}")
+    print(f"native host plane: make lib tools {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    py = sys.executable
+    mib = PARTS * PART_SHAPE[0] * PART_SHAPE[1] * 4 / 2 ** 20
+    shape = [str(v) for v in PART_SHAPE]
+    out = run_ranks([py, "tests/torch_bridge_worker.py", "--device", "cuda",
+                     "--parts", PARTS, "--part-shape", *shape, "--modes",
+                     "produce_and_pready", "pready", "pready_many",
+                     "--sets", SETS, "--rounds", ROUNDS],
+                    f"exchange ({mib:.0f} MiB in {PARTS} partitions)")
+    if out.count(f"BRIDGE_OK {PARTS}") != 2:
+        fail(f"exchange: BRIDGE_OK missing\n{out}")
+    counts = worker_launches(out)
+    bw = {mode: float(gbps) for mode, gbps in
+          re.findall(r"BRIDGE_BW mode=(\w+) gbps=([\d.]+)", out)}
+    if len(bw) != 3:
+        fail(f"exchange: a BRIDGE_BW record is missing\n{out}")
+    for mode, gbps in bw.items():
+        print(f"exchange torch {mib:.0f} MiB / {PARTS} partitions, publish "
+              f"by {mode}, every value checked on the receiving card: "
+              f"{gbps:.3f} GB/s (best of {SETS} sets x {ROUNDS} rounds) "
+              f"[{card_str}]", flush=True)
+    out = run_ranks([py, "tests/torch_bridge_inprogram_worker.py",
+                     "--device", "cuda", "--parts", PARTS, "--part-shape",
+                     *shape], "in-program exchange (held last partition)")
+    if out.count(f"INPROGRAM_OK {PARTS}") != 2:
+        fail(f"in-program exchange: INPROGRAM_OK missing\n{out}")
+    out = run_ranks([py, "tests/torch_triggers_worker.py", "--device",
+                     "cuda", "--pingpong", PINGPONG_ITERS],
+                    "triggers (+ 8-byte ping-pong)")
+    if out.count("TRIG_OK") != 2:
+        fail(f"triggers: TRIG_OK missing\n{out}")
+    p50 = field(out, "PINGPONG", "p50_us")
+    p99 = field(out, "PINGPONG", "p99_us")
+    print("ping-pong legs, CUDA tensors: " + " ".join(re.findall(
+        r"\w+_us=[\d.]+", out.split("PINGPONG_SPLIT", 1)[1])[:4]),
+        flush=True)
+    # Where the ping-pong's time goes: the same exchange with the echoing
+    # rank on CPU tensors (one process on the card), and with both ranks on
+    # CPU tensors (the binding and trigger threads alone).
+    pp = {}
+    for label, devs in (("echo on CPU", ["cuda", "--echo-device", "cpu"]),
+                        ("CPU tensors", ["cpu"])):
+        out = run_ranks([py, "tests/torch_triggers_worker.py", "--device",
+                         *devs, "--pingpong", PINGPONG_ITERS],
+                        f"triggered ping-pong, {label}")
+        pp[label] = (field(out, "PINGPONG", "p50_us"),
+                     field(out, "PINGPONG", "p99_us"))
+        print(f"ping-pong legs, {label}: " + " ".join(re.findall(
+            r"\w+_us=[\d.]+", out.split("PINGPONG_SPLIT", 1)[1])[:4]),
+            flush=True)
+    out = run_ranks([ROOT / "build" / "bench_pingpong"],
+                    "build/bench_pingpong (host plane alone)")
+    host_bw = field(out, "BENCH", "part_bw_gbps")
+    host_p50 = field(out, "BENCH", "pingpong_p50_us")
+    host_p99 = field(out, "BENCH", "pingpong_p99_us")
+    print(f"triggered ping-pong torch, 8-byte CUDA tensors: p50 {p50:.3f} "
+          f"us, p99 {p99:.3f} us ({PINGPONG_ITERS} iters); " + "; ".join(
+              f"{k}: p50 {v[0]:.3f} us, p99 {v[1]:.3f} us"
+              for k, v in pp.items()) + f" [{card_str}]", flush=True)
+
+    print(f"bench_pingpong host plane, same machine: 8-byte ping-pong p50 "
+          f"{host_p50:.3f} us, p99 {host_p99:.3f} us; partitioned 64 MiB / "
+          f"16: {host_bw:.3f} GB/s [{card_str}]", flush=True)
+    print(f"port over host plane: ping-pong p50 {p50 / host_p50:.2f}x, "
+          f"exchange GB/s {bw['produce_and_pready'] / host_bw:.3f}x (B5 "
+          f"path) [{card_str}]", flush=True)
+    print(f"launches during the exchanges: {json.dumps(counts)}", flush=True)
+    if min(counts.values()) == 0:
+        fail(f"a flag kernel of the exchange never launched: {counts}")
+    return counts
+
+
 KERNELS = {
     "flash_attention": dict(
         source="mpi_acx_torch/csrc/flash_attention.cu",
@@ -468,6 +762,16 @@ KERNELS = {
     "flash_decode_attend": dict(
         source="mpi_acx_torch/csrc/flash_decode.cu",
         replaces="mpi_acx_tpu/ops/flash_decode.py:80"),
+    "pready": dict(source="mpi_acx_torch/csrc/flags.cu",
+                   replaces="mpi_acx_tpu/ops/flags.py:76"),
+    "pready_many": dict(source="mpi_acx_torch/csrc/flags.cu",
+                        replaces="mpi_acx_tpu/ops/flags.py:105"),
+    "parrived": dict(source="mpi_acx_torch/csrc/flags.cu",
+                     replaces="mpi_acx_tpu/ops/flags.py:135"),
+    "parrived_all": dict(source="mpi_acx_torch/csrc/flags.cu",
+                         replaces="mpi_acx_tpu/ops/flags.py:159"),
+    "produce_and_pready": dict(source="mpi_acx_torch/csrc/flags.cu",
+                               replaces="mpi_acx_tpu/ops/flags.py:210"),
 }
 
 
@@ -498,20 +802,31 @@ def main() -> int:
     counts = phase_serve(params16, card_str)
     times = phase_timing(card_str)
     phase_step(params16, times["flash_decode_attend"]["ms"], card_str)
+    del params16
+    torch.cuda.empty_cache()
+
+    flag_errs = phase_flags()
+    times.update(phase_flag_timing(card_str))
+    counts.update(phase_exchange(card_str))
 
     line = []
     for name, meta in KERNELS.items():
         t = times[name]
-        line.append({
-            "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": counts[name],
-            "max_abs_err": errs[(name, torch.bfloat16)]["abs"],
-            "max_row_err": errs[(name, torch.bfloat16)]["row"],
-            "max_abs_err_f32": errs[(name, torch.float32)]["abs"],
-            "max_row_err_f32": errs[(name, torch.float32)]["row"],
-            "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]})
+        entry = {"name": name, "route": "cuda", "source": meta["source"],
+                 "replaces": meta["replaces"], "launches": counts[name]}
+        if name in flag_errs:
+            entry.update(max_abs_err=flag_errs[name]["abs"],
+                         exact_cases=flag_errs[name]["cases"])
+        else:
+            entry.update(
+                max_abs_err=errs[(name, torch.bfloat16)]["abs"],
+                max_row_err=errs[(name, torch.bfloat16)]["row"],
+                max_abs_err_f32=errs[(name, torch.float32)]["abs"],
+                max_row_err_f32=errs[(name, torch.float32)]["row"])
+        entry.update(ms=t["ms"], plain_ms=t["plain_ms"],
+                     bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+                     library_ms=t["library_ms"])
+        line.append(entry)
     print(json.dumps({"kernels": line}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card(), flush=True)

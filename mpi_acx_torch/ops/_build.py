@@ -22,7 +22,7 @@ from typing import List, Optional, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_attention.cu", "flash_decode.cu")
+SOURCES = ("flash_attention.cu", "flash_decode.cu", "flags.cu")
 HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 LIB_NAME = "libacx_torch_kernels.so"
@@ -110,6 +110,14 @@ def lib() -> ctypes.CDLL:
         so.acx_flash_decode.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                         s, p]
         so.acx_flash_decode.restype = i
+        so.acx_flags_pready.argtypes = [p, i, p, i, i, p]
+        so.acx_flags_pready.restype = i
+        so.acx_flags_parrived.argtypes = [p, i, p, i, i, p, p]
+        so.acx_flags_parrived.restype = i
+        f = ctypes.c_float
+        so.acx_flags_produce_and_pready.argtypes = [
+            p, p, ctypes.c_longlong, i, f, f, p, i, p, i, p, p]
+        so.acx_flags_produce_and_pready.restype = i
         _lib = so
     return _lib
 

@@ -48,14 +48,17 @@ def test_port_imports_no_jax():
 def test_import_loads_neither_jax_nor_cuda():
     code = (
         "import sys, torch, mpi_acx_torch\n"
-        "from mpi_acx_torch import device, reqlog\n"
+        "from mpi_acx_torch import device, reqlog, runtime, triggers\n"
         "from mpi_acx_torch.models import decoding, serving, transformer\n"
-        "from mpi_acx_torch.ops import _build, attention, flash_decode\n"
+        "from mpi_acx_torch.ops import _build, attention, flags, "
+        "flash_decode\n"
         "import mpi_acx_torch.models as m; m.serve_greedy; m.gpt2_small\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'mpi_acx_tpu')]\n"
         "assert not bad, bad\n"
         "assert not torch.cuda.is_initialized()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'libtpuacx' not in maps and 'libacx_torch' not in maps\n"
         "print('clean')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -112,7 +115,7 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
 
 def test_nvcc_commands_target_sm90a():
     compiles, link = _build.nvcc_commands("nvcc", Path("/x"), ".1")
-    assert len(compiles) == len(_build.SOURCES) == 2
+    assert len(compiles) == len(_build.SOURCES) == 3
     for cmd in compiles + [link]:
         i = cmd.index("-gencode")
         assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
@@ -122,6 +125,29 @@ def test_nvcc_commands_target_sm90a():
         assert (_build.CSRC / name).is_file()
     assert _build.BUILD_DIR == ROOT / "build" / "torch_kernels"
     assert len(_build.sources_hash()) == 64
+
+
+def test_native_library_is_loaded_rtld_local():
+    """The native library defines host shims under the CUDA runtime's names
+    (src/runtime/cuda_shim.cc): loaded RTLD_LOCAL after torch, none of its
+    symbols enters the process's global scope, so neither it nor PyTorch's
+    CUDA runtime binds to the other's."""
+    subprocess.run(["make", "-C", str(ROOT), "lib", "tools"], check=True,
+                   capture_output=True, timeout=600)
+    code = (
+        "import ctypes, os, torch\n"
+        "from mpi_acx_torch import runtime\n"
+        "assert runtime.DLOPEN_MODE & os.RTLD_GLOBAL == 0\n"
+        "L = runtime.lib()\n"
+        "assert L.acx_flags_publish and L.cudaLaunchHostFunc\n"
+        "glob = ctypes.CDLL(None)\n"
+        "for name in ('acx_flags_publish', 'MPIX_Init', "
+        "'cudaLaunchHostFunc'):\n"
+        "    assert not hasattr(glob, name), name\n"
+        "print('local')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "local" in res.stdout, res.stderr
 
 
 def test_dtype_codes():
