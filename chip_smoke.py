@@ -9,7 +9,11 @@ in the repository. Phases, each of which exits non-zero on failure:
              (one nvcc per source, in parallel) into build/torch_kernels/.
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the serving path's shapes, in bf16 and f32: max abs error
-             and row errors within TOL_ABS, TOL_ROW, TOL_ROW_F32.
+             and row errors within TOL_ABS, TOL_ROW, TOL_ROW_F32. The
+             decode kernels in all four forms: K2 and B9 (paged), each
+             over bf16/f32 and int8 caches; B9 over page sizes 16, 64
+             and 128 with shuffled tables and an aliased first page, and
+             equal to K2 bit for bit on the same rows in every case.
 3. f32     — GPT-2 124M at full width in float32 served through the kernels
              and through the plain versions: the tokens must be equal (a
              divergence passes only at a true tie, see TIE), and the two
@@ -19,8 +23,19 @@ in the repository. Phases, each of which exits non-zero on failure:
              and ITL are printed, and both kernels must have launched. The
              same requests then go through the plain versions, held to the
              kernel path's tokens and logits as in phase 3.
+4b. paged  — the same requests through serve_paged_greedy (128-token
+             pages): (a) tokens equal to phase 4's exactly, through B9;
+             (b) int8 caches, fixed-slot through K2's int8 form and paged
+             through B9's, equal to each other exactly and each held to
+             its plain path; (c) a 16-page pool, so requests are
+             preempted and replayed, tokens equal to (a) exactly; (d) 16
+             requests sharing a 256-token system prompt with the prefix
+             cache on: 15 hits, pages reused, a lower page high-water mark
+             than the same requests cold, tokens held to the cold run.
+             Every decode kernel form must have launched.
 5. timing  — each kernel, its plain version, the equivalent PyTorch
-             library call and the roofline bound at the phase-4 shapes
+             library call (where one call computes the same function) and
+             the roofline bound at the phase-4 and 4b shapes
              (device time: the calls are replayed from a CUDA graph), and
              one decode step as the server issues it against its device
              time (the device's busy share of a step).
@@ -73,7 +88,14 @@ import torch
 # against the bf16 plain version, whose own row error against f32 is
 # 1.5-4.4e-2, and 1.0-1.5e-2 against f32; f32: at most 7.3e-6. The bf16
 # limits are about twice the largest reading. A dropped key tile reads
-# 0.86-2.1.
+# 0.86-2.1. The int8 forms with bf16 queries are held to the bf16 limits:
+# their plain version rounds q and the probabilities to bf16 where the
+# kernels keep them in f32. Readings on an H100 over the phase-2 cases:
+# K2-int8 row error up to 2.8e-2 against its plain version (whose own row
+# error against f32 is up to 2.7e-2) and 1.3e-2 against f32; B9 up to
+# 4.3e-2 and 1.4e-2 (its plain version's own: 4.2e-2), B9-int8 up to
+# 3.8e-2 and 1.3e-2 (3.1e-2); every f32 form at most 9.6e-6. B9 equals K2
+# bit for bit on the same rows, so its limits are K2's.
 TOL_ABS = {torch.float32: 1e-4, torch.bfloat16: 4e-2}
 TOL_ROW = {torch.float32: 1e-4, torch.bfloat16: 8e-2}
 TOL_ROW_F32 = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -86,7 +108,8 @@ TOL_ROW_F32 = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 TIE = {torch.float32: 1e-4, torch.bfloat16: 8e-2}
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core and f32 FMA
 # rates, HBM bandwidth.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 PEAK_BYTES = 3.35e12
 H, D = 12, 64           # GPT-2 124M heads and head dim
 ROOT = Path(__file__).resolve().parent
@@ -210,8 +233,73 @@ def k2_errs(B, W, n_rep, pos, dtype, gen, max_len=1024):
     return errors(out, ref, ref32)
 
 
+def quantize(c):
+    from mpi_acx_torch.ops.kvquant import kv_quant
+    return kv_quant(c)
+
+
+def paged_errs(form, pt, W, n_rep, pos, gen, B=8, max_len=1024):
+    """B9 against its plain version on a pool whose pages hold a
+    [B, max_len] cache in shuffled order, every slot's first page aliased
+    to one shared page; and B9 against K2 on the same rows (gathered into
+    the contiguous layout), which must agree bit for bit. ``form`` is
+    (q dtype, int8 cache?)."""
+    from mpi_acx_torch.ops.flash_decode import flash_decode_attend, \
+        paged_flash_decode_attend, paged_gather_attend
+    dtype, int8 = form
+    Hkv, max_pages = H // n_rep, max_len // pt
+    P = B * max_pages + 3
+    q = randn((B, W, H, D), dtype, gen)
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(pt))
+    table = perm[:B * max_pages].reshape(B, max_pages).clone()
+    table[:, 0] = table[0, 0]                       # a shared first page
+    table = table.to(torch.int32).cuda()
+    pools = []
+    for _ in range(2):
+        c = randn((P, pt, Hkv, D), dtype, gen)
+        pools.append(quantize(c) if int8 else c)
+    kp, vp = pools
+    pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+    out = paged_flash_decode_attend(q, kp, vp, table, pos_t, pt, n_rep)
+    ref = paged_gather_attend(q, kp, vp, table, pos_t, pt, n_rep)
+
+    def f32(c):
+        return c if int8 else c.float()
+    ref32 = paged_gather_attend(q.float(), f32(kp), f32(vp), table, pos_t,
+                                pt, n_rep)
+    idx = table.long()
+
+    def rows(pool):
+        if isinstance(pool, tuple):
+            return tuple(rows(x) for x in pool)
+        return pool[idx].reshape((B, max_len) + tuple(pool.shape[2:]))
+    fixed = flash_decode_attend(q, rows(kp), rows(vp), pos_t, max_len, n_rep)
+    torch.cuda.synchronize()
+    if not same(out, fixed):
+        fail(f"paged decode {form} pt={pt} W={W} n_rep={n_rep}: B9 differs "
+             f"from K2 on the same rows (max "
+             f"{(out.float() - fixed.float()).abs().max().item():.3e})")
+    return errors(out, ref, ref32)
+
+
+def k2_int8_errs(B, W, n_rep, pos, dtype, gen, max_len=1024):
+    """K2's int8 form against the plain version on (codes, scales)."""
+    from mpi_acx_torch.ops.flash_decode import dense_decode_attend, \
+        flash_decode_attend
+    Hkv = H // n_rep
+    q = randn((B, W, H, D), dtype, gen)
+    kc = quantize(randn((B, max_len, Hkv, D), dtype, gen))
+    vc = quantize(randn((B, max_len, Hkv, D), dtype, gen))
+    pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
+    out = flash_decode_attend(q, kc, vc, pos_t, max_len, n_rep)
+    ref = dense_decode_attend(q, kc, vc, pos_t, max_len, n_rep)
+    ref32 = dense_decode_attend(q.float(), kc, vc, pos_t, max_len, n_rep)
+    torch.cuda.synchronize()
+    return errors(out, ref, ref32)
+
+
 def phase_kernels() -> dict:
-    """Worst errors per kernel and dtype over the slice's shapes."""
+    """Worst errors per kernel form and dtype over the slice's shapes."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = {}
 
@@ -236,32 +324,90 @@ def phase_kernels() -> dict:
             check("flash_decode_attend", f"B=8 W={W} n_rep={n_rep} Hq={H} "
                   f"D={D} max_len=1024 pos={pos}", dtype, e)
             keep("flash_decode_attend", dtype, e)
+            e = k2_int8_errs(8, W, n_rep, pos, dtype, gen)
+            check("flash_decode_attend_int8", f"B=8 W={W} n_rep={n_rep} "
+                  f"Hq={H} D={D} max_len=1024 pos={pos}", dtype, e)
+            keep("flash_decode_attend_int8", dtype, e)
+        # B9 over three page sizes, windows of 1 and 4, GQA and plain
+        # heads, scalar and per-slot positions (0 and the last row among
+        # them), in each operand form; bit-equal to K2 in every case.
+        n_bit = 0
+        for int8 in (False, True):
+            name = ("paged_flash_decode_attend_int8" if int8
+                    else "paged_flash_decode_attend")
+            for pt in (16, 64, 128):
+                for W, n_rep in ((1, 1), (4, 2), (1, 2), (4, 1)):
+                    last = 1024 - W
+                    for pos in (slot_pos[:7] + [last], 300, last):
+                        e = paged_errs((dtype, int8), pt, W, n_rep, pos, gen)
+                        n_bit += 1
+                        check(name, f"B=8 W={W} n_rep={n_rep} Hq={H} D={D} "
+                              f"page_tokens={pt} pages=1024/{pt} shuffled, "
+                              f"first page shared, pos={pos}", dtype, e)
+                        keep(name, dtype, e)
+        print(f"B9 equal to K2 bit for bit on the same rows in all {n_bit} "
+              f"{str(dtype)[6:]} cases (bf16/f32 and int8 caches)",
+              flush=True)
     return worst
 
 
 # --- phases 3 and 4 --------------------------------------------------------
 
+def attention_counters():
+    """(name in the kernels line, wrapper, counter attribute) of every
+    attention kernel form."""
+    from mpi_acx_torch.ops.attention import flash_attention
+    from mpi_acx_torch.ops.flash_decode import flash_decode_attend, \
+        paged_flash_decode_attend
+    return [("flash_attention", flash_attention, "launches"),
+            ("flash_decode_attend", flash_decode_attend, "launches"),
+            ("flash_decode_attend_int8", flash_decode_attend,
+             "launches_int8"),
+            ("paged_flash_decode_attend", paged_flash_decode_attend,
+             "launches"),
+            ("paged_flash_decode_attend_int8", paged_flash_decode_attend,
+             "launches_int8")]
+
+
 def reset_counts():
-    from mpi_acx_torch.ops.attention import flash_attention
-    from mpi_acx_torch.ops.flash_decode import flash_decode_attend
-    flash_attention.launches = 0
-    flash_decode_attend.launches = 0
+    for _, fn, attr in attention_counters():
+        setattr(fn, attr, 0)
 
 
-def read_counts():
-    from mpi_acx_torch.ops.attention import flash_attention
-    from mpi_acx_torch.ops.flash_decode import flash_decode_attend
-    return {"flash_attention": flash_attention.launches,
-            "flash_decode_attend": flash_decode_attend.launches}
+def read_counts(names=None):
+    """Launch counts of the attention kernel forms (those in ``names``,
+    or every one)."""
+    return {name: getattr(fn, attr) for name, fn, attr in attention_counters()
+            if names is None or name in names}
 
 
-def compare_paths(label, params, cfg, got, want, prompts) -> None:
+def plain_logits(params, plain, ctx, S, int8):
+    """The plain path's next-token logits after ``ctx`` (a served sequence
+    cut where two paths diverge): a forward pass, or with ``int8`` the
+    int8-cache decode the server ran (the prompt's ``S`` tokens prefilled
+    into an int8 cache, then one decode step per generated token)."""
+    from mpi_acx_torch.models import transformer as tfm
+    toks = torch.as_tensor(ctx, device="cuda")[None]
+    if not int8:
+        return tfm.forward(params, plain, toks)[0, -1]
+    logits, cache = tfm.prefill(params, plain, toks[:, :S], len(ctx),
+                                last_only=True, kv_int8=True)
+    logits = logits[0, -1]
+    for j in range(S, len(ctx)):
+        logits, cache = tfm.decode_step(params, plain, cache, toks[:, j])
+        logits = logits[0]
+    return logits
+
+
+def compare_paths(label, params, cfg, got, want, prompts,
+                  int8=False) -> None:
     """Hold the kernel path's served tokens (``got``) to the plain path's
     (``want``). A divergence passes only at a tie: the plain path's logits
-    of the two tokens at that step, recomputed by a plain forward pass over
-    the common prefix, differ by less than TIE. Then the two paths' logits
-    over every served sequence (forward passes, so K1 at every length the
-    sequences reach) must agree within TIE."""
+    of the two tokens at that step, recomputed over the common prefix
+    (:func:`plain_logits`), differ by less than TIE. Then, for a bf16/f32
+    cache, the two paths' logits over every served sequence (forward
+    passes, so K1 at every length the sequences reach) must agree within
+    TIE."""
     from mpi_acx_torch.models import serving, transformer as tfm
     plain = dataclasses.replace(cfg, use_flash=False, decode_flash=False)
     tie = TIE[cfg.dtype]
@@ -272,8 +418,7 @@ def compare_paths(label, params, cfg, got, want, prompts) -> None:
                 fail(f"{label} request {rid} rejected: {o.detail}")
         if not np.array_equal(g, w):
             t = int(np.argmax(g != w))      # first differing position
-            ctx = torch.as_tensor(w[:t], device="cuda")[None]
-            lp = tfm.forward(params, plain, ctx)[0, -1]
+            lp = plain_logits(params, plain, w[:t], len(prompts[rid]), int8)
             margin = (lp[int(w[t])] - lp[int(g[t])]).item()
             print(f"{label} request {rid}: tokens diverge at position {t} "
                   f"of {len(w)} (kernel {g[t]}, plain {w[t]}): plain logit "
@@ -282,14 +427,16 @@ def compare_paths(label, params, cfg, got, want, prompts) -> None:
                 fail(f"{label} request {rid}: divergence at a logit margin "
                      f"{margin:.4e}, not a tie")
             ties.append(rid)
+        if int8:
+            continue
         seq = torch.as_tensor(w[:-1], device="cuda")[None]
         lk = tfm.forward(params, cfg, seq)[0, len(prompts[rid]) - 1:]
         lp = tfm.forward(params, plain, seq)[0, len(prompts[rid]) - 1:]
         spread = max(spread, (lk - lp).abs().max().item())
     print(f"{label}: kernel path vs plain path: tokens equal in "
-          f"{len(got) - len(ties)} of {len(got)} requests, ties in {ties}; "
-          f"max |logit difference| over the served positions "
-          f"{spread:.4e} (tol {tie})", flush=True)
+          f"{len(got) - len(ties)} of {len(got)} requests, ties in {ties}"
+          + ("" if int8 else f"; max |logit difference| over the served "
+             f"positions {spread:.4e} (tol {tie})"), flush=True)
     if not spread < tie:
         fail(f"{label}: kernel-path logits differ from the plain path's by "
              f"{spread:.4e}")
@@ -306,7 +453,7 @@ def phase_f32(params32):
     reset_counts()
     got = serving.serve_greedy(params32, cfg, prompts, n_new, n_slots=3,
                                max_len=256, chunk=4)
-    counts = read_counts()
+    counts = read_counts(("flash_attention", "flash_decode_attend"))
     want = serving.serve_greedy(params32, plain, prompts, n_new, n_slots=3,
                                 max_len=256, chunk=4)
     if min(counts.values()) == 0:
@@ -318,15 +465,44 @@ def phase_f32(params32):
     print(f"f32 serve launches {counts}", flush=True)
 
 
-def phase_serve(params16, card_str):
-    from mpi_acx_torch.models import serving, transformer as tfm
-    cfg = tfm.gpt2_small()
+def serve_requests(vocab):
+    """Phase 4's requests: 16 prompts of 32/128/256/512 tokens asking for
+    16/64/128/32 new tokens."""
     rng = np.random.default_rng(2)
     lens = [32, 128, 256, 512]
     news = [16, 64, 128, 32]
-    prompts = [rng.integers(0, cfg.vocab, lens[i % 4]).astype(np.int32)
+    prompts = [rng.integers(0, vocab, lens[i % 4]).astype(np.int32)
                for i in range(16)]
-    n_new = [news[i % 4] for i in range(16)]
+    return prompts, [news[i % 4] for i in range(16)]
+
+
+def check_served(label, res, prompts, n_new, vocab) -> None:
+    """Every request served in full: its prompt, then n_new tokens in the
+    vocabulary; no requeue, no rejection."""
+    from mpi_acx_torch.models import serving
+    for rid, (o, p, n) in enumerate(zip(res, prompts, n_new)):
+        if isinstance(o, serving.RequestRejected):
+            fail(f"{label} request {rid} rejected: {o.detail}")
+        gen = o[len(p):]
+        if (len(o) != len(p) + n or not np.array_equal(o[:len(p)], p)
+                or gen.min() < 0 or gen.max() >= vocab):
+            fail(f"{label} request {rid}: wrong output ({len(o)} tokens)")
+    if res.metrics.requeues or res.metrics.rejections:
+        fail(f"{label} requeued {res.metrics.requeues}, rejected "
+             f"{res.metrics.rejections}")
+
+
+def served_figures(m) -> str:
+    return (f"{m.new_tokens} tokens in {m.wall_s:.3f} s = "
+            f"{m.tokens_per_s:.1f} tokens/s, TTFT p50 "
+            f"{m.ttft_p50_s * 1e3:.2f} ms, ITL p50 {m.itl_p50_s * 1e3:.3f} "
+            f"ms, {m.steps} steps")
+
+
+def phase_serve(params16, card_str):
+    from mpi_acx_torch.models import serving, transformer as tfm
+    cfg = tfm.gpt2_small()
+    prompts, n_new = serve_requests(cfg.vocab)
     # Warm-up: library load, cuBLAS handles and allocator pools.
     serving.serve_greedy(params16, cfg, prompts[:2], 4, n_slots=8,
                          max_len=1024, chunk=8)
@@ -335,22 +511,10 @@ def phase_serve(params16, card_str):
     res = serving.serve_greedy(params16, cfg, prompts, n_new, n_slots=8,
                                max_len=1024, chunk=8)
     torch.cuda.synchronize()
-    counts = read_counts()
-    m = res.metrics
-    for rid, (o, p, n) in enumerate(zip(res, prompts, n_new)):
-        if isinstance(o, serving.RequestRejected):
-            fail(f"bf16 request {rid} rejected: {o.detail}")
-        gen = o[len(p):]
-        if (len(o) != len(p) + n or not np.array_equal(o[:len(p)], p)
-                or gen.min() < 0 or gen.max() >= cfg.vocab):
-            fail(f"bf16 request {rid}: wrong output ({len(o)} tokens)")
-    if m.requeues or m.rejections:
-        fail(f"bf16 serve requeued {m.requeues}, rejected {m.rejections}")
+    counts = read_counts(("flash_attention", "flash_decode_attend"))
+    check_served("bf16 serve", res, prompts, n_new, cfg.vocab)
     print(f"serve bf16 GPT-2 124M: 16 requests, 8 slots, max_len 1024, "
-          f"chunk 8: {m.new_tokens} tokens in {m.wall_s:.3f} s = "
-          f"{m.tokens_per_s:.1f} tokens/s, TTFT p50 {m.ttft_p50_s * 1e3:.2f} "
-          f"ms, ITL p50 {m.itl_p50_s * 1e3:.3f} ms, {m.steps} steps "
-          f"[{card_str}]", flush=True)
+          f"chunk 8: {served_figures(res.metrics)} [{card_str}]", flush=True)
     print(f"launches during serve: {json.dumps(counts)}", flush=True)
     if min(counts.values()) == 0:
         fail(f"a kernel of the serving path never launched: {counts}")
@@ -359,6 +523,110 @@ def phase_serve(params16, card_str):
                                 max_len=1024, chunk=8)
     compare_paths("bf16 serve (16 requests, 8 slots)", params16, cfg, res,
                   want, prompts)
+    return counts, res
+
+
+# --- phase 4b --------------------------------------------------------------
+
+PAGE_TOKENS = 128
+PRESSURE_PAGES = 16     # the cold schedule peaks at 24 pages of the 64
+
+
+def phase_paged(params16, fixed, card_str) -> dict:
+    """Phase 4's requests through the paged server and the int8 caches
+    (see the module docstring, 4b). ``fixed`` is phase 4's kernel-path
+    result. Returns the launch counts of the decode kernel forms over the
+    four runs (a)-(d) (K1 launches there too)."""
+    from mpi_acx_torch.models import serving, transformer as tfm
+    cfg = tfm.gpt2_small()
+    plain = dataclasses.replace(cfg, use_flash=False, decode_flash=False)
+    prompts, n_new = serve_requests(cfg.vocab)
+    kw = dict(n_slots=8, max_len=1024, chunk=8)
+    pkw = dict(kw, page_tokens=PAGE_TOKENS)
+
+    def exactly(label, got, want):
+        for rid, (g, w) in enumerate(zip(got, want)):
+            if not np.array_equal(g, w):
+                t = int(np.argmax(g != w))
+                fail(f"{label}: request {rid} differs at position {t} "
+                     f"({g[t]} vs {w[t]})")
+
+    # (d)'s requests: a 256-token system prompt and suffixes of 16-40.
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, cfg.vocab, 2 * PAGE_TOKENS).astype(np.int32)
+    shared = [np.concatenate([system, rng.integers(
+        0, cfg.vocab, 16 + 8 * (i % 4)).astype(np.int32)]) for i in range(16)]
+    # Warm-up of the new paths (first launches, allocator pools, and the
+    # prefix-hit prefill's shapes, one per suffix bucket).
+    for int8 in (False, True):
+        serving.serve_paged_greedy(params16, cfg, prompts[:2], 4,
+                                   kv_int8=int8, **pkw)
+    serving.serve_greedy(params16, cfg, prompts[:2], 4, kv_int8=True, **kw)
+    serving.serve_paged_greedy(params16, cfg, shared[:4], 4,
+                               prefix_cache=True, **pkw)
+    torch.cuda.synchronize()
+    print(f"paged serve, phase 4 fixed-slot figures for comparison: "
+          f"{served_figures(fixed.metrics)} [{card_str}]", flush=True)
+
+    def run(label, fn, **extra):
+        res = fn(params16, cfg, prompts_run, n_new_run, **extra)
+        torch.cuda.synchronize()
+        check_served(label, res, prompts_run, n_new_run, cfg.vocab)
+        m = res.metrics
+        print(f"{label}: {served_figures(m)}, pages_hwm {m.pages_hwm}, "
+              f"preemptions {m.preemptions}, prefix_hits {m.prefix_hits} "
+              f"[{card_str}]", flush=True)
+        return res
+
+    reset_counts()
+    prompts_run, n_new_run = prompts, n_new
+    # (a) bf16 pages through B9: phase 4's tokens exactly.
+    paged = run("(a) paged bf16, 128-token pages, 64 pages",
+                serving.serve_paged_greedy, **pkw)
+    exactly("(a) paged bf16 vs fixed-slot (phase 4)", paged, fixed)
+    # (b) int8 caches: K2's int8 form (fixed slots) and B9's (pages).
+    fixed8 = run("(b) fixed-slot int8", serving.serve_greedy, kv_int8=True,
+                 **kw)
+    paged8 = run("(b) paged int8", serving.serve_paged_greedy, kv_int8=True,
+                 **pkw)
+    exactly("(b) paged int8 vs fixed-slot int8", paged8, fixed8)
+    # (c) page pressure: preempted requests replay the same tokens.
+    pressed = run(f"(c) paged bf16, {PRESSURE_PAGES} pages",
+                  serving.serve_paged_greedy, n_pages=PRESSURE_PAGES, **pkw)
+    if pressed.metrics.preemptions == 0:
+        fail(f"(c) a {PRESSURE_PAGES}-page pool preempted nothing")
+    exactly("(c) paged under page pressure vs (a)", pressed, paged)
+    # (d) a shared 256-token system prompt, prefix cache on and off.
+    prompts_run, n_new_run = shared, [32] * 16
+    hit = run("(d) shared system prompt, prefix cache on",
+              serving.serve_paged_greedy, prefix_cache=True, **pkw)
+    cold = run("(d) shared system prompt, prefix cache off",
+               serving.serve_paged_greedy, **pkw)
+    counts = read_counts(("flash_decode_attend_int8",
+                          "paged_flash_decode_attend",
+                          "paged_flash_decode_attend_int8"))
+    m = hit.metrics
+    if not (m.prefix_hits >= 15 and m.prefix_pages_reused > 0
+            and m.pages_hwm < cold.metrics.pages_hwm):
+        fail(f"(d) prefix cache: {m.prefix_hits} hits, "
+             f"{m.prefix_pages_reused} pages reused, pages_hwm "
+             f"{m.pages_hwm} vs {cold.metrics.pages_hwm} cold")
+    print(f"(d) prefix cache: {m.prefix_hits} hits, "
+          f"{m.prefix_pages_reused} pages reused, pages_hwm {m.pages_hwm} "
+          f"vs {cold.metrics.pages_hwm} cold", flush=True)
+    print(f"launches during paged serve: {json.dumps(counts)}", flush=True)
+    if min(counts.values()) == 0:
+        fail(f"a decode kernel form of the paged path never launched: "
+             f"{counts}")
+    compare_paths("(d) prefix hits vs cold", params16, cfg, hit, cold,
+                  prompts_run)
+    prompts_run, n_new_run = prompts, n_new
+    for label, fn, got, extra in (
+            ("(b) fixed-slot int8", serving.serve_greedy, fixed8, kw),
+            ("(b) paged int8", serving.serve_paged_greedy, paged8, pkw)):
+        want = fn(params16, plain, prompts, n_new, kv_int8=True, **extra)
+        compare_paths(f"{label} vs its plain path", params16, cfg, got, want,
+                      prompts, int8=True)
     return counts
 
 
@@ -376,7 +644,7 @@ def phase_timing(card_str) -> dict:
     from mpi_acx_torch.ops.attention import attention_reference, \
         flash_attention
     from mpi_acx_torch.ops.flash_decode import dense_decode_attend, \
-        flash_decode_attend
+        flash_decode_attend, paged_flash_decode_attend, paged_gather_attend
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf = torch.bfloat16
     out = {}
@@ -438,6 +706,76 @@ def phase_timing(card_str) -> dict:
           f"({b_by}) [{card_str}]", flush=True)
     out["flash_decode_attend"] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
                                       bound_ms=b_ms, bound_by=b_by)
+
+    # The int8 form of K2, and B9 in both forms, at the same positions: the
+    # same caches as int8 codes and f32 scales, and as 128-token pages in
+    # shuffled order. No one PyTorch call gathers pages through a table or
+    # reads int8 codes with their scales inside attention: no library time.
+    pt, max_pages = PAGE_TOKENS, max_len // PAGE_TOKENS
+    P = B * max_pages + B
+    perm = torch.randperm(P, generator=torch.Generator().manual_seed(8))
+    table = perm[:B * max_pages].reshape(B, max_pages).to(torch.int32).cuda()
+
+    def paginate(c):
+        pool = torch.zeros((L, P, pt) + tuple(c.shape[3:]), dtype=c.dtype,
+                           device="cuda")
+        pool[:, table.long().flatten()] = c.reshape(
+            (L, B * max_pages, pt) + tuple(c.shape[3:]))
+        return pool
+
+    kc8, vc8 = quantize(kc), quantize(vc)
+    kp, vp = paginate(kc), paginate(vc)
+    kp8, vp8 = tuple(map(paginate, kc8)), tuple(map(paginate, vc8))
+
+    def pick(c, i):
+        return tuple(x[i] for x in c) if isinstance(c, tuple) else c[i]
+    def fixed(c, v):
+        return lambda i: flash_decode_attend(q, pick(c, i), pick(v, i), pos,
+                                             max_len, 1)
+
+    def paged(c, v):
+        return lambda i: paged_flash_decode_attend(q, pick(c, i), pick(v, i),
+                                                   table, pos, pt, 1)
+    # (kernel, plain version, and for B9 K2 on the same rows, timed in
+    # turns K2, B9, B9, K2 within this call)
+    cases = {
+        "flash_decode_attend_int8": (
+            fixed(kc8, vc8), lambda i: dense_decode_attend(
+                q, pick(kc8, i), pick(vc8, i), pos, max_len, 1), None, True),
+        "paged_flash_decode_attend": (
+            paged(kp, vp), lambda i: paged_gather_attend(
+                q, kp[i], vp[i], table, pos, pt, 1), fixed(kc, vc), False),
+        "paged_flash_decode_attend_int8": (
+            paged(kp8, vp8), lambda i: paged_gather_attend(
+                q, pick(kp8, i), pick(vp8, i), table, pos, pt, 1),
+            fixed(kc8, vc8), True),
+    }
+    for name, (kern, plain, twin, int8) in cases.items():
+        if twin is None:
+            t_k = time_ms(run(kern), iters=240)
+        else:
+            turns = [time_ms(run(f), iters=240)
+                     for f in (twin, kern, kern, twin)]
+            t_k = (turns[1] + turns[2]) / 2
+            print(f"time {name} in turns with K2 on the same rows: K2 "
+                  f"{turns[0]:.4f} ms, B9 {turns[1]:.4f} ms, B9 "
+                  f"{turns[2]:.4f} ms, K2 {turns[3]:.4f} ms [{card_str}]",
+                  flush=True)
+        t_p = time_ms(run(plain), iters=240)
+        nbytes = (live * H * D * (1 if int8 else 2) * 2
+                  + (live * H * 4 * 2 if int8 else 0)
+                  + 2 * B * H * D * 2 + B * 4
+                  + (B * max_pages * 4 if name.startswith("paged") else 0))
+        b_ms, b_by = bound_ms(4 * live * H * D, nbytes,
+                              torch.int8 if int8 else bf)
+        print(f"time {name} bf16 q, {'int8' if int8 else 'bf16'} cache, B={B} "
+              f"W=1 H={H} D={D} max_len={max_len}"
+              + (f" in {pt}-token pages" if name.startswith("paged") else "")
+              + f" pos={pos_l}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+              f"library - (no one call), bound {b_ms:.5f} ms ({b_by}, "
+              f"{nbytes} bytes) [{card_str}]", flush=True)
+        out[name] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
+                         bound_ms=b_ms, bound_by=b_by)
     return out
 
 
@@ -762,6 +1100,15 @@ KERNELS = {
     "flash_decode_attend": dict(
         source="mpi_acx_torch/csrc/flash_decode.cu",
         replaces="mpi_acx_tpu/ops/flash_decode.py:80"),
+    "flash_decode_attend_int8": dict(
+        source="mpi_acx_torch/csrc/flash_decode.cu",
+        replaces="mpi_acx_tpu/ops/flash_decode.py:80"),
+    "paged_flash_decode_attend": dict(
+        source="mpi_acx_torch/csrc/flash_decode.cu",
+        replaces="mpi_acx_tpu/ops/flash_decode.py:235"),
+    "paged_flash_decode_attend_int8": dict(
+        source="mpi_acx_torch/csrc/flash_decode.cu",
+        replaces="mpi_acx_tpu/ops/flash_decode.py:235"),
     "pready": dict(source="mpi_acx_torch/csrc/flags.cu",
                    replaces="mpi_acx_tpu/ops/flags.py:76"),
     "pready_many": dict(source="mpi_acx_torch/csrc/flags.cu",
@@ -799,7 +1146,8 @@ def main() -> int:
     phase_f32(params32)
     params16 = tfm.cast_params(params32, torch.bfloat16)
     del params32
-    counts = phase_serve(params16, card_str)
+    counts, fixed = phase_serve(params16, card_str)
+    counts.update(phase_paged(params16, fixed, card_str))
     times = phase_timing(card_str)
     phase_step(params16, times["flash_decode_attend"]["ms"], card_str)
     del params16

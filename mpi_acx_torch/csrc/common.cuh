@@ -27,6 +27,8 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(uint16_t x) {
   return __uint_as_float(static_cast<unsigned>(x) << 16);
 }
+// An int8 KV-cache code (ops/kvquant.py), exact in f32.
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {

@@ -1,4 +1,5 @@
-"""The GPT-2 family and its continuous-batching server, in PyTorch.
+"""The GPT-2 family and its continuous-batching servers (fixed-slot and
+paged KV caches), in PyTorch.
 
 Exports resolve lazily, so importing the package loads no model module.
 """
@@ -16,8 +17,13 @@ _EXPORTS = {
     "decode_step": "transformer",
     "generate": "transformer",
     "serve_greedy": "serving",
+    "serve_paged_greedy": "serving",
+    "PageAllocator": "kvpage",
+    "RadixPrefixCache": "kvpage",
+    "PagedKV": "kvpage",
+    "init_page_pool": "kvpage",
 }
-_SUBMODULES = ("decoding", "serving", "transformer")
+_SUBMODULES = ("decoding", "kvpage", "serving", "transformer")
 
 
 def __getattr__(name):

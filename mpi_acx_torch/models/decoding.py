@@ -5,7 +5,9 @@ model's prefill and decode step, and every decode step runs its layers
 through :func:`run_decode_layers`. JAX's ``lax.scan`` loops are Python
 loops here, and the KV cache is updated IN PLACE: where the JAX functions
 return new cache arrays, these write the fresh K/V rows into the caller's
-cache tensors with indexed copies and return the same tensors.
+cache tensors with indexed copies and return the same tensors. An int8
+cache (``'ks'``/``'vs'`` scale buffers beside int8 ``'k'``/``'v'``) is
+quantized as it is written (ops/kvquant.py).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from mpi_acx_torch.ops.flash_decode import (dense_decode_attend,  # noqa: F401
                                             select_decode_attend)
+from mpi_acx_torch.ops.kvquant import kv_quant
 
 
 def grouped_decode_attend(q, kc, vc, pos, max_len, n_rep, flash=None):
@@ -28,7 +31,8 @@ def grouped_decode_attend(q, kc, vc, pos, max_len, n_rep, flash=None):
     return select_decode_attend(flash)(q, kc, vc, pos, max_len, n_rep)
 
 
-def decode_layer_scan(layers, x, kc_all, vc_all, pos, qkv_fn, attend_fn):
+def decode_layer_scan(layers, x, kc_all, vc_all, pos, qkv_fn, attend_fn,
+                      ksc_all=None, vsc_all=None):
     """The decode layer loop: for each layer i, ``qkv_fn(lp, x, pos) ->
     (q, k, v)`` with k/v [B, 1, H, D], the fresh k/v written into
     ``kc_all[i]``/``vc_all[i]`` ([L, B, max_len, H, D]) at each slot's
@@ -38,25 +42,47 @@ def decode_layer_scan(layers, x, kc_all, vc_all, pos, qkv_fn, attend_fn):
     ``pos`` is a scalar (every row at one position) or [B] (one position
     per slot, continuous-batching serving). The writes go in place; as in
     JAX's ``dynamic_update_slice``, a write position past the cache is
-    clamped to its last row rather than indexing out of bounds."""
+    clamped to its last row rather than indexing out of bounds.
+
+    With ``ksc_all``/``vsc_all`` ([L, B, max_len, H, 1] f32) the cache is
+    int8 (ops/kvquant.py): the fresh K/V rows are quantized as they are
+    written, their scales land beside the codes, ``attend_fn`` receives
+    ``(codes, scales)`` tuples, and the return is (x, kc, vc, ksc, vsc)."""
     n_layers = next(iter(layers.values())).shape[0]
     B, max_len = kc_all.shape[1], kc_all.shape[2]
+    quant = ksc_all is not None
     pos = torch.as_tensor(pos, device=x.device)
     slots = torch.arange(B, device=x.device)
     wpos = pos.clamp(0, max_len - 1).expand(B)
     for i in range(n_layers):
         lp = {name: a[i] for name, a in layers.items()}
         q, k, v = qkv_fn(lp, x, pos)
+        if quant:
+            k, ks = kv_quant(k)
+            v, vs = kv_quant(v)
+            ksc_all[i][slots, wpos] = ks[:, 0]
+            vsc_all[i][slots, wpos] = vs[:, 0]
         kc_all[i][slots, wpos] = k[:, 0]
         vc_all[i][slots, wpos] = v[:, 0]
-        x = attend_fn(lp, x, q, kc_all[i], vc_all[i], pos)
+        kc_l, vc_l = kc_all[i], vc_all[i]
+        if quant:
+            kc_l, vc_l = (kc_l, ksc_all[i]), (vc_l, vsc_all[i])
+        x = attend_fn(lp, x, q, kc_l, vc_l, pos)
+    if quant:
+        return x, kc_all, vc_all, ksc_all, vsc_all
     return x, kc_all, vc_all
 
 
 def fill_kv_cache(cache, ks, vs, pos):
-    """Land the prefill K/V ([L, B, S, H, D]) at the start of a fresh
-    cache from ``init_kv_cache`` and set ``pos`` (in place)."""
+    """Land the prefill K/V ([L, B, S, H, D], compute dtype) at the start
+    of a fresh cache from ``init_kv_cache`` and set ``pos`` (in place),
+    quantizing when the cache is int8 (``'ks'`` present)."""
     S = ks.shape[2]
+    if "ks" in cache:
+        ks, kscale = kv_quant(ks)
+        vs, vscale = kv_quant(vs)
+        cache["ks"][:, :, :S] = kscale
+        cache["vs"][:, :, :S] = vscale
     cache["k"][:, :, :S] = ks
     cache["v"][:, :, :S] = vs
     cache["pos"] = torch.full((), pos, dtype=torch.int32,
@@ -65,12 +91,16 @@ def fill_kv_cache(cache, ks, vs, pos):
 
 
 def run_decode_layers(layers, x, cache, qkv_fn, attend_fn):
-    """:func:`decode_layer_scan` over a cache dict, returning ``(x,
-    cache')`` where ``cache'`` shares the updated k/v tensors and carries
-    ``pos`` advanced by the one decoded token."""
-    if "ks" in cache:
-        raise NotImplementedError("int8 KV caches are not ported yet")
+    """:func:`decode_layer_scan` over a cache dict (bf16/f32 or int8, which
+    ``'ks'`` selects), returning ``(x, cache')`` where ``cache'`` shares
+    the updated tensors and carries ``pos`` advanced by the one decoded
+    token."""
     pos = cache["pos"]
+    if "ks" in cache:
+        x, kc, vc, ksc, vsc = decode_layer_scan(
+            layers, x, cache["k"], cache["v"], pos, qkv_fn, attend_fn,
+            ksc_all=cache["ks"], vsc_all=cache["vs"])
+        return x, {"k": kc, "v": vc, "ks": ksc, "vs": vsc, "pos": pos + 1}
     x, kc, vc = decode_layer_scan(layers, x, cache["k"], cache["v"], pos,
                                   qkv_fn, attend_fn)
     return x, {"k": kc, "v": vc, "pos": pos + 1}

@@ -11,17 +11,26 @@ math is its solo run's and greedy outputs equal per-request
 rows are never attended (they sit past ``pos[b]`` until decode overwrites
 them).
 
+Slot caches are bf16/f32 or int8 (``kv_int8``, ops/kvquant.py).
+:func:`serve_paged_greedy` serves the same way over a paged KV cache
+(models/kvpage.py): slots share a pool of fixed-size pages through block
+tables, with typed admission against the page budget, lazy page growth and
+preemption, radix prefix sharing, an SLO admission gate and per-token
+streaming.
+
 Not ported yet (each raises ``NotImplementedError`` or is absent, and is
-listed in ROADMAP.md): ``kv_int8`` slot caches, ``serve_sample``,
-``serve_paged_greedy``, and the native-runtime hooks (flight dumps, fleet
-membership, telemetry annotation, causal spans), which return with the
-port's own runtime binding. Without them a failed step charges every
-victim's retry budget and no slot is ever shed.
+listed in ROADMAP.md): ``serve_sample``, and the native-runtime hooks
+(flight dumps, fleet membership and slot shedding, telemetry annotation,
+causal spans), which come with the serving-to-runtime hooks. Without them
+a failed step charges every victim's retry budget and no slot is ever
+shed. The paged server does publish its page counters to the native
+metrics registry when the port's runtime binding is already loaded.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -32,6 +41,7 @@ import torch
 
 from mpi_acx_torch import reqlog
 from mpi_acx_torch.device import resolve_device
+from mpi_acx_torch.ops.kvquant import kv_quant
 
 
 def _pct(samples: List[float], p: float) -> float:
@@ -59,8 +69,8 @@ class RequestTelemetry:
 @dataclass
 class ServingMetrics:
     """Batch-level serving telemetry returned on ServedBatch.metrics (the
-    JAX package's fields; the paged, fleet and hang-dump counters stay 0
-    until those paths are ported)."""
+    JAX package's fields; the peer-loss, fleet and hang-dump counters stay 0
+    until the serving-to-runtime hooks are ported)."""
 
     requests: int = 0
     wall_s: float = 0.0
@@ -94,18 +104,21 @@ class ServingMetrics:
 @dataclass
 class RequestRejected:
     """Typed admission rejection at a request's index in the ServedBatch
-    (``reason``: ``exceeds_max_len`` or ``exceeds_model_ceiling``;
-    ``detail``: the arithmetic)."""
+    (``reason``: ``exceeds_max_len``, ``exceeds_model_ceiling`` or
+    ``exceeds_page_budget``; ``detail``: the arithmetic)."""
 
     rid: int
     reason: str
     detail: str = ""
 
 
-def _admission_check(rid, prompt, n, chunk, max_len, max_seq
+def _admission_check(rid, prompt, n, chunk, max_len, max_seq,
+                     page_budget=None, page_tokens=None
                      ) -> Optional[RequestRejected]:
     """A request needs ``len(prompt) + n + chunk`` cache positions (a slot
-    finishing mid-chunk keeps writing until the chunk boundary)."""
+    finishing mid-chunk keeps writing until the chunk boundary); the paged
+    server adds the pool bound (``page_budget`` pages of
+    ``page_tokens``)."""
     total = len(prompt) + n + chunk
     if total > max_len:
         return RequestRejected(
@@ -117,6 +130,13 @@ def _admission_check(rid, prompt, n, chunk, max_len, max_seq
             rid, "exceeds_model_ceiling",
             f"len(prompt)={len(prompt)} + n_new={n} + chunk={chunk} "
             f"= {total} > cfg.max_seq={max_seq}")
+    if page_budget is not None:
+        need = -(-total // page_tokens)
+        if need > page_budget:
+            return RequestRejected(
+                rid, "exceeds_page_budget",
+                f"ceil({total} / {page_tokens}) = {need} pages > "
+                f"pool n_pages={page_budget}")
     return None
 
 
@@ -147,12 +167,19 @@ class RollingSLO:
         self._itl: deque = deque()
         self.queue_depth = 0
         self.slot_occupancy = 0.0
+        # Lifecycle counters, cumulative over the serve call (not windowed).
         self.rejects: Dict[str, int] = {}
-        self.preemptions = 0      # paged serving's counters: 0 until ported
+        self.preemptions = 0
         self.resumes = 0
 
     def note_reject(self, reason: str) -> None:
         self.rejects[reason] = self.rejects.get(reason, 0) + 1
+
+    def note_preempt(self) -> None:
+        self.preemptions += 1
+
+    def note_resume(self) -> None:
+        self.resumes += 1
 
     def _trim(self, dq: deque, now: float) -> None:
         cutoff = now - self.window_s
@@ -197,6 +224,9 @@ class RollingSLO:
         }
 
 
+_CACHE_KEYS = ("k", "v", "ks", "vs")
+
+
 def _bucket(n: int, lo: int = 8) -> int:
     b = lo
     while b < n:
@@ -204,11 +234,13 @@ def _bucket(n: int, lo: int = 8) -> int:
     return b
 
 
-def make_server_fns(params, cfg, family, chunk: int = 1):
+def make_server_fns(params, cfg, family, chunk: int = 1,
+                    kv_int8: bool = False):
     """The serve loop's closures: returns (prefill_fn, step_fn, scatter_fn,
-    chunk). ``family`` is the model module (models.transformer, or any
-    module exposing prefill/decode_step/init_kv_cache with the shared cache
-    layout).
+    chunk, kv_int8); the trailing values let the serve call refuse a tuple
+    built for another chunk or cache type. ``family`` is the model module
+    (models.transformer, or any module exposing
+    prefill/decode_step/init_kv_cache with the shared cache layout).
 
     ``chunk`` > 1 runs that many decode steps per host round trip,
     returning the [chunk, B] token block; the scheduler then reacts every
@@ -220,7 +252,7 @@ def make_server_fns(params, cfg, family, chunk: int = 1):
         """[1, S_bucket], real last index -> (logits [1, 1, vocab],
         cache); the unembedding runs on the real prompt's final row."""
         return family.prefill(params, cfg, tokens, tokens.shape[1],
-                              last_index=last)
+                              kv_int8=kv_int8, last_index=last)
 
     def step_fn(cache, tok):
         toks = []
@@ -234,23 +266,19 @@ def make_server_fns(params, cfg, family, chunk: int = 1):
         """Land a freshly prefilled single-request cache (``one``, B=1,
         bucket-length) in slot ``slot_idx`` of the slot cache, in place;
         rows past the bucket keep the slot's old contents (never attended:
-        they lie beyond ``new_pos`` until decode overwrites them)."""
-        for key in ("k", "v"):
-            src = one[key][:, 0]                    # [L, S_bucket, H, D]
+        they lie beyond ``new_pos`` until decode overwrites them). Int8
+        slot caches carry their scale buffers ('ks'/'vs') the same way."""
+        for key in [k for k in _CACHE_KEYS if k in slots]:
+            src = one[key][:, 0]                    # [L, S_bucket, H, *]
             slots[key][:, slot_idx, :src.shape[1]] = src
         slots["pos"][slot_idx] = new_pos
         return slots
 
-    return prefill_fn, step_fn, scatter_fn, chunk
+    return prefill_fn, step_fn, scatter_fn, chunk, kv_int8
 
 
-def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
-           chunk, server_fns, dev, max_request_retries=2):
-    """The scheduler: queue, slot ownership, chunk-block consumption,
-    retire/refill. A request whose prefill or step raised is re-queued
-    from scratch (emitted tokens discarded, so the restart replays the
-    same greedy path) up to ``max_request_retries`` times before the
-    failure is re-raised with the request id attached."""
+def _normalize_requests(prompts, n_new):
+    """Check the request list; returns ``n_new`` as one int per prompt."""
     if not prompts:
         raise ValueError("no requests")
     if not all(len(p) > 0 for p in prompts):
@@ -264,6 +292,17 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
     if not all(n >= 1 for n in n_new):
         raise ValueError("n_new >= 1 per request (the prefill itself emits "
                          "the first token)")
+    return n_new
+
+
+def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
+           chunk, server_fns, kv_int8, dev, max_request_retries=2):
+    """The scheduler: queue, slot ownership, chunk-block consumption,
+    retire/refill. A request whose prefill or step raised is re-queued
+    from scratch (emitted tokens discarded, so the restart replays the
+    same greedy path) up to ``max_request_retries`` times before the
+    failure is re-raised with the request id attached."""
+    n_new = _normalize_requests(prompts, n_new)
 
     rejected: Dict[int, RequestRejected] = {}
     for rid, (p, n) in enumerate(zip(prompts, n_new)):
@@ -275,14 +314,19 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
             reqlog.emit("admit", rid, prompt_len=len(p), n_new=n)
 
     if server_fns is None:
-        server_fns = make_server_fns(params, cfg, family, chunk=chunk)
-    prefill_fn, step_fn, scatter_fn, fns_chunk = server_fns
+        server_fns = make_server_fns(params, cfg, family, chunk=chunk,
+                                     kv_int8=kv_int8)
+    prefill_fn, step_fn, scatter_fn, fns_chunk, fns_int8 = server_fns
     if fns_chunk != chunk:
         raise ValueError(f"server_fns built for chunk={fns_chunk}, this call "
                          f"uses chunk={chunk}")
+    if fns_int8 != kv_int8:
+        raise ValueError("server_fns built with a different kv_int8 than "
+                         "this call")
 
     def fresh_slots():
-        s = family.init_kv_cache(cfg, n_slots, max_len, device=dev)
+        s = family.init_kv_cache(cfg, n_slots, max_len, kv_int8=kv_int8,
+                                 device=dev)
         s["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         return s
 
@@ -444,6 +488,18 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
 
     if any(d is None for d in done):
         raise RuntimeError("scheduler exited with unfinished requests")
+    return ServedBatch(done, _batch_metrics(
+        prompts, rejected, emitted, ttft, finish, attempts, t0, itl_samples,
+        qd_samples, occ_samples, steps=n_steps, prefills=n_prefills,
+        requeues=n_requeues))
+
+
+def _batch_metrics(prompts, rejected, emitted, ttft, finish, attempts, t0,
+                   itl_samples, qd_samples, occ_samples, **counters
+                   ) -> ServingMetrics:
+    """The batch's ServingMetrics from the scheduler's per-request records
+    and samples; ``counters`` are the loop's own counts (steps, prefills,
+    requeues, and the paged server's)."""
     wall = time.perf_counter() - t0
     per_request = []
     total_new = 0
@@ -460,14 +516,11 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
             new_tokens=nt,
             tokens_per_s=nt / lat if lat > 0 else 0.0,
             retries=attempts[rid]))
-    metrics = ServingMetrics(
+    return ServingMetrics(
         requests=len(prompts),
         wall_s=wall,
         new_tokens=total_new,
         tokens_per_s=total_new / wall if wall > 0 else 0.0,
-        steps=n_steps,
-        prefills=n_prefills,
-        requeues=n_requeues,
         rejections=len(rejected),
         rejection_reasons=_count_reasons(rejected.values()),
         ttft_p50_s=_pct([r.ttft_s for r in per_request], 0.50),
@@ -479,8 +532,7 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
                           if qd_samples else 0.0),
         slot_occupancy_mean=(sum(occ_samples) / len(occ_samples)
                              if occ_samples else 1.0),
-        per_request=per_request)
-    return ServedBatch(done, metrics)
+        per_request=per_request, **counters)
 
 
 def serve_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
@@ -498,21 +550,21 @@ def serve_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
     trades scheduling granularity for fewer host round trips; outputs are
     identical for any chunk. ``server_fns`` (a :func:`make_server_fns`
     result for the same params/cfg/family/chunk) may be reused across
-    calls. ``max_request_retries`` bounds per-request restarts after a
-    failed prefill or step.
+    calls. ``kv_int8`` serves from int8 slot caches (ops/kvquant.py);
+    outputs then equal the solo ``generate(..., kv_int8=True)`` runs.
+    ``max_request_retries`` bounds per-request restarts after a failed
+    prefill or step.
 
     The result is a ``ServedBatch``: a list of outputs carrying
     ``.metrics`` (per-request TTFT and tokens/s, inter-token latency
     percentiles, queue depth, slot occupancy, requeues)."""
-    if kv_int8:
-        raise NotImplementedError("int8 KV slot caches are not ported yet")
     dev = resolve_device(device)
     fam = family
     if fam is None:
         from mpi_acx_torch.models import transformer as fam  # noqa: N813
     fam.check_device(params, dev)
     return _serve(params, cfg, prompts, n_new, n_slots, max_len, fam, eos,
-                  chunk, server_fns, dev,
+                  chunk, server_fns, kv_int8, dev,
                   max_request_retries=max_request_retries)
 
 
@@ -521,6 +573,393 @@ def serve_sample(*args, **kwargs):
     raise NotImplementedError("serve_sample is not ported yet")
 
 
-def serve_paged_greedy(*args, **kwargs):
-    """Continuous batching over a paged KV cache: not ported yet."""
-    raise NotImplementedError("serve_paged_greedy is not ported yet")
+
+
+def _slo_admit_targets(slo_admit) -> tuple:
+    """The SLO admission gate's targets: ``slo_admit`` is (ttft_s, itl_s)
+    rolling-p50 targets (either may be None), or None to read the JAX
+    package's ``ACX_SERVE_ADMIT_TTFT_MS`` / ``ACX_SERVE_ADMIT_ITL_MS``
+    knobs (unset or 0: gate off, the default, which keeps paged schedules
+    those of the fixed-slot server)."""
+    if slo_admit is not None:
+        ttft_t, itl_t = slo_admit
+        return (float(ttft_t) if ttft_t else None,
+                float(itl_t) if itl_t else None)
+    ttft_ms = float(os.environ.get("ACX_SERVE_ADMIT_TTFT_MS", "0") or 0)
+    itl_ms = float(os.environ.get("ACX_SERVE_ADMIT_ITL_MS", "0") or 0)
+    return (ttft_ms / 1e3 if ttft_ms > 0 else None,
+            itl_ms / 1e3 if itl_ms > 0 else None)
+
+
+def serve_paged_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
+                       n_slots: int, max_len: int, family=None,
+                       eos: Optional[int] = None, chunk: int = 1,
+                       kv_int8: bool = False,
+                       page_tokens: Optional[int] = None,
+                       n_pages: Optional[int] = None,
+                       prefix_cache: bool = False,
+                       slo_admit=None,
+                       on_token=None,
+                       max_request_retries: int = 2,
+                       return_paged_state: bool = False,
+                       device=None) -> ServedBatch:
+    """Greedy continuous batching over a paged KV cache (models/kvpage.py)
+    on ``device`` (``None`` means the GPU; the parameters must already be
+    there): the slots share a pool of ``page_tokens``-sized pages through
+    per-slot block tables, so the KV bytes held scale with live tokens,
+    not ``n_slots * max_len``. On the schedules of the defaults (no prefix
+    cache, no SLO gate, enough pages) the outputs equal fixed-slot
+    :func:`serve_greedy`'s token for token, bf16/f32 and int8 alike.
+
+    Beyond the fixed-slot server:
+
+    * **Typed admission**: a request that cannot fit ``max_len``,
+      ``cfg.max_seq`` or the page budget becomes a :class:`RequestRejected`.
+    * **Lazy page growth and preemption**: a slot owns only the pages its
+      live tokens need, grown at chunk boundaries; when the pool runs dry
+      the latest arrival (highest request id) is preempted: its pages are
+      freed and it requeues uncharged, replaying the same tokens when
+      reseated.
+    * **Radix prefix sharing** (``prefix_cache=True``): full-page prompt
+      prefixes are cached in a refcounted trie; a hit seats the shared
+      pages and prefills only the suffix. A hit's outputs are deterministic
+      but not pinned to the cold path's (other shapes), hence opt-in.
+    * **SLO-aware refill**: ``slo_admit=(ttft_s, itl_s)`` (or the
+      ``ACX_SERVE_ADMIT_*_MS`` knobs) defers refills while the rolling p50
+      misses a target and a request is in flight.
+    * **Streaming**: ``on_token(rid, token)`` fires for every token as it
+      is consumed, the prefill's first token included; a preempted or
+      requeued request replays its stream from the start.
+
+    ``page_tokens`` defaults to ``kvpage.default_page_tokens(max_len)``;
+    ``n_pages`` to ``n_slots * max_len / page_tokens`` (the fixed-slot
+    cache's capacity). The metrics carry the paged counters (preemptions,
+    prefix_hits, prefix_evictions, prefix_pages_reused, pages_hwm,
+    slo_deferrals); ``return_paged_state=True`` exposes the
+    :class:`~mpi_acx_torch.models.kvpage.PagedKV` as ``.paged_state``."""
+    from mpi_acx_torch.models import kvpage
+
+    dev = resolve_device(device)
+    if family is None:
+        from mpi_acx_torch.models import transformer as family  # noqa: N813
+    family.check_device(params, dev)
+    n_new = _normalize_requests(prompts, n_new)
+    pt = page_tokens or kvpage.default_page_tokens(max_len)
+    if max_len % pt:
+        raise ValueError(f"page_tokens={pt} must divide max_len={max_len}")
+    if n_pages is None:
+        n_pages = n_slots * (max_len // pt)
+    ttft_target, itl_target = _slo_admit_targets(slo_admit)
+
+    rejected: Dict[int, RequestRejected] = {}
+    for rid, (p, n) in enumerate(zip(prompts, n_new)):
+        rej = _admission_check(rid, p, n, chunk, max_len, cfg.max_seq,
+                               page_budget=n_pages, page_tokens=pt)
+        if rej is not None:
+            rejected[rid] = rej
+            reqlog.emit("reject", rid, reason=rej.reason)
+        else:
+            reqlog.emit("admit", rid, prompt_len=len(p), n_new=n)
+
+    pkv = kvpage.PagedKV(cfg, family, n_slots, max_len, pt, n_pages,
+                         kv_int8=kv_int8, prefix_cache=prefix_cache,
+                         device=dev)
+    step_fn = kvpage.make_paged_step_fn(params, cfg, family, chunk, pt)
+
+    queue = deque((rid, np.asarray(p, np.int32))
+                  for rid, p in enumerate(prompts) if rid not in rejected)
+    for depth, (rid, _p) in enumerate(queue):
+        reqlog.emit("queue", rid, depth=depth)
+    owner = [-1] * n_slots          # request id per slot; -1 = idle
+    emitted: List[List[int]] = [[] for _ in prompts]
+    done: List[Optional[object]] = [None] * len(prompts)
+    for rid, rej in rejected.items():
+        done[rid] = rej
+    last_tok = np.zeros((n_slots,), np.int32)
+    attempts = [0] * len(prompts)
+
+    t0 = time.perf_counter()
+    ttft = [None] * len(prompts)      # type: List[Optional[float]]
+    finish = [None] * len(prompts)    # type: List[Optional[float]]
+    slo = RollingSLO()
+    for rej in rejected.values():
+        slo.note_reject(rej.reason)
+    itl_samples: List[float] = []
+    qd_samples: List[int] = []
+    occ_samples: List[float] = []
+    n_steps = n_prefills = n_requeues = n_preempts = n_slo_defer = 0
+    # Requests evicted by page pressure: their next seat is a "resume".
+    preempted_rids: set = set()
+
+    def _requeue(rid, prompt, exc):
+        nonlocal n_requeues
+        attempts[rid] += 1
+        if attempts[rid] > max_request_retries:
+            raise RuntimeError(
+                f"request {rid} failed {attempts[rid]} time(s), past "
+                f"max_request_retries={max_request_retries}") from exc
+        emitted[rid] = []
+        ttft[rid] = None
+        n_requeues += 1
+        reqlog.emit("requeue", rid, charged=True)
+        queue.append((rid, prompt))
+
+    def _slo_defers() -> bool:
+        """With a target set, a violating rolling window defers refills
+        while work is in flight (an empty server always admits)."""
+        if ttft_target is None and itl_target is None:
+            return False
+        if not any(o >= 0 for o in owner):
+            return False
+        live = slo.live_slos()
+        if (itl_target is not None and live["itl_n"]
+                and live["itl_p50_s"] > itl_target):
+            return True
+        return bool(ttft_target is not None and live["ttft_n"]
+                    and live["ttft_p50_s"] > ttft_target)
+
+    def prefill(prompt, S, hit_pages):
+        """(first token, the prompt's cache rows to scatter): the whole
+        prompt cold, or on a prefix hit only the suffix against the cached
+        pages' gathered history."""
+        if not hit_pages:
+            padded = np.zeros((1, min(_bucket(S), max_len, cfg.max_seq)),
+                              np.int32)
+            padded[0, :S] = prompt
+            logits, one = family.prefill(
+                params, cfg, torch.from_numpy(padded).to(dev),
+                padded.shape[1], kv_int8=kv_int8, last_index=S - 1)
+            one.pop("pos")
+            return int(logits[0, 0].argmax()), one
+        P = len(hit_pages) * pt
+        suffix = prompt[P:]
+        Sb = min(_bucket(len(suffix)), max_len - P, cfg.max_seq - P)
+        padded = np.zeros((1, Sb), np.int32)
+        padded[0, :len(suffix)] = suffix
+        hk, hv = pkv.gather_history(hit_pages)
+        logits, sk, sv = kvpage.prefill_with_history(
+            params, cfg, torch.from_numpy(padded).to(dev), hk, hv,
+            len(suffix) - 1)
+        one = {"k": sk, "v": sv}
+        if kv_int8:
+            one["k"], one["ks"] = kv_quant(sk)
+            one["v"], one["vs"] = kv_quant(sv)
+        return int(logits[0, 0].argmax()), one
+
+    def refill(b):
+        """Seat the queue head in slot b. True iff the slot now owns a
+        request; False when the SLO gate deferred or the pool cannot cover
+        the prompt (the request stays at the queue head) or the prefill
+        failed (the request is requeued by the retry rules)."""
+        nonlocal n_prefills, n_slo_defer
+        if _slo_defers():
+            n_slo_defer += 1
+            return False
+        rid, prompt = queue.popleft()
+        S = len(prompt)
+        hit_pages = (pkv.prefix.match(prompt) if pkv.prefix is not None
+                     else [])
+        if hit_pages:
+            reqlog.emit("prefix_hit", rid, pages=len(hit_pages))
+        fresh = pkv.alloc_evicting(kvpage.pages_needed(S, pt)
+                                   - len(hit_pages))
+        if fresh is None:
+            # Page pressure at admission: back to the head (arrival order
+            # kept), the match's references released; a retire frees pages.
+            for p in hit_pages:
+                pkv.alloc.decref(p)
+            queue.appendleft((rid, prompt))
+            return False
+        reqlog.emit("prefill_start", rid, prompt_len=S,
+                    hit_pages=len(hit_pages), fresh_pages=len(fresh))
+        try:
+            first, one = prefill(prompt, S, hit_pages)
+            pkv.scatter_prompt(one, fresh)
+        except Exception as exc:  # noqa: BLE001 — any device failure
+            for p in hit_pages + fresh:
+                pkv.alloc.decref(p)
+            _requeue(rid, prompt, exc)
+            return False
+        reqlog.emit("prefill_end", rid, first_token=first)
+        pkv.seat(b, hit_pages, fresh, S, rid=rid)
+        if pkv.prefix is not None:
+            pkv.prefix.insert(prompt, pkv.pages[b])
+        owner[b] = rid
+        if rid in preempted_rids:
+            preempted_rids.discard(rid)
+            slo.note_resume()
+            reqlog.emit("resume", rid, slot=b)
+        emitted[rid].append(first)
+        if on_token is not None:
+            on_token(rid, first)
+        last_tok[b] = first
+        n_prefills += 1
+        ttft[rid] = time.perf_counter() - t0
+        slo.note_ttft(ttft[rid])
+        reqlog.emit("stream", rid, n=1, ttft_s=ttft[rid])
+        return True
+
+    def retire(b):
+        rid = owner[b]
+        done[rid] = np.concatenate(
+            [np.asarray(prompts[rid], np.int32),
+             np.asarray(emitted[rid], np.int32)])
+        finish[rid] = time.perf_counter() - t0
+        reqlog.emit("finish", rid, new_tokens=len(emitted[rid]),
+                    latency_s=finish[rid])
+        owner[b] = -1
+        pkv.release(b)              # pages back to the pool, slot parked
+
+    def preempt(b):
+        """Page-pressure eviction: slot b's request requeues uncharged
+        (pressure is the server's doing, not the request's) with its pages
+        freed; the replay gives the same tokens."""
+        nonlocal n_preempts
+        rid = owner[b]
+        owner[b] = -1
+        pkv.release(b)
+        emitted[rid] = []
+        ttft[rid] = None
+        queue.append((rid, np.asarray(prompts[rid], np.int32)))
+        n_preempts += 1
+        pkv.preemptions += 1
+        preempted_rids.add(rid)
+        slo.note_preempt()
+        reqlog.emit("preempt", rid, slot=b)
+
+    def grow_for_chunk():
+        """Before each step every active slot's table must cover the
+        chunk's writes (positions pos..pos+chunk-1). A pool dry even after
+        trie eviction preempts the latest arrival and rescans; admission
+        guarantees a lone request fits, so this ends."""
+        while True:
+            for b in range(n_slots):
+                if owner[b] < 0:
+                    continue
+                if not pkv.grow(b, (int(pkv.pos[b]) + chunk - 1) // pt + 1):
+                    victims = [s for s in range(n_slots) if owner[s] >= 0]
+                    if len(victims) <= 1:
+                        raise RuntimeError(
+                            "page pool dry for a lone request (admission "
+                            "should have rejected it)")
+                    preempt(max(victims, key=lambda s: owner[s]))
+                    break
+            else:
+                return
+
+    def slot_finished(b):
+        rid = owner[b]
+        return (len(emitted[rid]) >= n_new[rid]
+                or (eos is not None and emitted[rid]
+                    and emitted[rid][-1] == eos))
+
+    def publish():
+        kvpage.publish_page_stats_best_effort(
+            pkv.alloc.free_count, pkv.alloc.shared_count(),
+            pkv.prefix.hits if pkv.prefix else 0,
+            pkv.prefix.evictions if pkv.prefix else 0, pkv.preemptions)
+
+    def seed_idle_slots() -> bool:
+        """Seat queued requests in idle slots until one cannot be seated;
+        True iff any was."""
+        progressed = False
+        while queue and any(o == -1 for o in owner):
+            b = owner.index(-1)
+            if not refill(b):
+                break
+            progressed = True
+            if slot_finished(b):
+                retire(b)
+        return progressed
+
+    qd_samples.append(len(queue))
+    seed_idle_slots()
+    stalls = 0
+    while any(o >= 0 for o in owner) or queue:
+        qd_samples.append(len(queue))
+        occ_samples.append(sum(o >= 0 for o in owner) / n_slots)
+        slo.note_gauges(qd_samples[-1], occ_samples[-1])
+        publish()
+        if not any(o >= 0 for o in owner):
+            # All slots idle with requests queued (failure requeues, a
+            # deferred seed, total preemption): reseed. The gate never
+            # defers an empty server and admission bounds every request,
+            # so a stall here is a bug: bound it instead of spinning.
+            stalls = 0 if seed_idle_slots() else stalls + 1
+            if stalls > len(prompts) + n_slots + 2:
+                raise RuntimeError(
+                    "paged scheduler stalled: requests queued, no slot "
+                    "seatable")
+            continue
+        stalls = 0
+        grow_for_chunk()
+        if not any(o >= 0 for o in owner):
+            continue                # grow_for_chunk preempted everyone
+        # Copy-on-write guard (unreachable under the radix policy): the
+        # pages this chunk writes must be privately owned.
+        for b in range(n_slots):
+            if owner[b] < 0:
+                continue
+            for j in range(int(pkv.pos[b]) // pt,
+                           (int(pkv.pos[b]) + chunk - 1) // pt + 1):
+                if j < len(pkv.pages[b]):
+                    pkv.ensure_writable(b, j)
+        step_t0 = time.perf_counter()
+        try:
+            state, toks = step_fn(pkv.device_state(),
+                                  torch.from_numpy(last_tok).to(dev))
+            block = toks.cpu().numpy()               # [chunk, B]; syncs
+            pkv.absorb(state, chunk)
+        except Exception as exc:  # noqa: BLE001 — any device failure
+            # The pool is written in place, so after a failed step it
+            # cannot be trusted: requeue every active request and start
+            # the pool over (the prefix cache's pages lived in it too).
+            for b in range(n_slots):
+                if owner[b] >= 0:
+                    rid = owner[b]
+                    owner[b] = -1
+                    _requeue(rid, np.asarray(prompts[rid], np.int32), exc)
+            pkv.reset_pool()
+            last_tok = np.zeros((n_slots,), np.int32)
+            continue
+        step_dt = time.perf_counter() - step_t0
+        n_steps += 1
+        reqlog.emit("decode_step", step=n_steps, dt_s=step_dt,
+                    active=sum(o >= 0 for o in owner))
+        for b in range(n_slots):
+            last_tok[b] = block[-1, b]
+            if owner[b] < 0:
+                continue
+            got = 0
+            for c in range(block.shape[0]):
+                if slot_finished(b):
+                    break
+                tok = int(block[c, b])
+                emitted[owner[b]].append(tok)
+                if on_token is not None:
+                    on_token(owner[b], tok)
+                itl_samples.append(step_dt / chunk)
+                slo.note_itl(step_dt / chunk)
+                got += 1
+            if got:
+                reqlog.emit("stream", owner[b], n=got, itl_s=step_dt / chunk)
+        for b in range(n_slots):
+            while owner[b] >= 0 and slot_finished(b):
+                retire(b)
+                if queue:
+                    refill(b)
+
+    publish()
+    if any(d is None for d in done):
+        raise RuntimeError("scheduler exited with unfinished requests")
+    batch = ServedBatch(done, _batch_metrics(
+        prompts, rejected, emitted, ttft, finish, attempts, t0, itl_samples,
+        qd_samples, occ_samples, steps=n_steps, prefills=n_prefills,
+        requeues=n_requeues, preemptions=n_preempts,
+        prefix_hits=pkv.prefix.hits if pkv.prefix else 0,
+        prefix_evictions=pkv.prefix.evictions if pkv.prefix else 0,
+        prefix_pages_reused=pkv.prefix.pages_reused if pkv.prefix else 0,
+        pages_hwm=pkv.pages_hwm, slo_deferrals=n_slo_defer))
+    if return_paged_state:
+        batch.paged_state = pkv
+    return batch

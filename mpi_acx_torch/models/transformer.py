@@ -4,7 +4,8 @@
 Parameters are a plain dict of tensors with the JAX package's layout:
 every per-layer tensor has a leading ``[n_layers]`` axis, matmul weights
 are ``[in, out]`` (``x @ w``), and the KV cache is ``{'k', 'v': [L, B,
-max_len, H, Dh], 'pos'}``. Compute runs in ``cfg.dtype``; layernorm,
+max_len, H, Dh], 'pos'}`` (plus f32 scales ``'ks', 'vs'`` beside int8
+codes with ``kv_int8``). Compute runs in ``cfg.dtype``; layernorm,
 softmax state and the logits are f32. Attention goes through the
 hand-written kernels on the GPU (``ops/attention.py`` in prefill,
 ``ops/flash_decode.py`` in decode) and through their plain versions on the
@@ -199,16 +200,23 @@ def forward(params: Params, cfg: TransformerConfig, tokens):
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
                   kv_int8: bool = False, device=None):
     """Zeroed cache: {'k','v': [L, B, max_len, H, Dh] in cfg.dtype, 'pos':
-    int32 scalar} on ``device`` (``None`` means the GPU)."""
-    if kv_int8:
-        raise NotImplementedError("int8 KV caches are not ported yet")
+    int32 scalar} on ``device`` (``None`` means the GPU). ``kv_int8=True``
+    stores int8 codes in 'k'/'v' plus per-(position, head) f32 scales
+    'ks'/'vs' [L, B, max_len, H, 1] (ops/kvquant.py)."""
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+    kv_dtype = torch.int8 if kv_int8 else cfg.dtype
+    cache = {
+        "k": torch.zeros(shape, dtype=kv_dtype, device=dev),
+        "v": torch.zeros(shape, dtype=kv_dtype, device=dev),
         "pos": torch.zeros((), dtype=torch.int32, device=dev),
     }
+    if kv_int8:
+        cache["ks"] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                  device=dev)
+        cache["vs"] = torch.zeros(shape[:-1] + (1,), dtype=torch.float32,
+                                  device=dev)
+    return cache
 
 
 def prefill(params: Params, cfg: TransformerConfig, tokens, max_len: int,
@@ -219,7 +227,9 @@ def prefill(params: Params, cfg: TransformerConfig, tokens, max_len: int,
     tokens [B, S] -> (logits [B, S, vocab] f32, cache with pos=S). With
     ``last_only`` the unembedding runs on the final position alone (logits
     [B, 1, vocab]); ``last_index`` picks that position instead (for
-    right-padded prompts, models/serving.py)."""
+    right-padded prompts, models/serving.py). ``kv_int8`` selects the int8
+    cache: attention runs on the exact K/V and only the cache entries are
+    quantized."""
     B, S = tokens.shape
     if S > max_len or S > cfg.max_seq:
         raise ValueError(f"prompt length {S} exceeds max_len {max_len} or "
@@ -282,7 +292,8 @@ def generate(params: Params, cfg: TransformerConfig, prompt, n_new: int,
              max_len: Optional[int] = None, kv_int8: bool = False,
              device=None):
     """Greedy decode: prompt [B, S] -> [B, S + n_new] on ``device``
-    (``None`` means the GPU; the parameters must already be there)."""
+    (``None`` means the GPU; the parameters must already be there).
+    ``kv_int8`` decodes from the int8 cache (ops/kvquant.py)."""
     dev = resolve_device(device)
     check_device(params, dev)
     prompt = torch.as_tensor(prompt, device=dev)

@@ -1,6 +1,8 @@
 """The port's kernels and their plain versions.
 
 ``attention`` holds the prefill flash-attention kernel (K1), ``flash_decode``
-the decode-attention kernel (K2), ``flags`` the partition-signalling kernels
-(B1-B5); ``_build`` compiles and loads them all.
+the decode-attention kernels (K2 over a fixed-slot cache, B9 over a paged
+one, each for bf16/f32 and int8 caches), ``flags`` the partition-signalling
+kernels (B1-B5); ``_build`` compiles and loads them all. ``kvquant`` (int8
+KV-cache codes and scales) and ``wquant`` hold no kernel.
 """

@@ -107,9 +107,12 @@ def lib() -> ctypes.CDLL:
         so.acx_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, s,
                                            i, p]
         so.acx_flash_attention.restype = i
-        so.acx_flash_decode.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
-                                        s, p]
+        so.acx_flash_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                        i, i, i, s, p]
         so.acx_flash_decode.restype = i
+        so.acx_paged_decode.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                        i, i, i, i, i, i, s, p]
+        so.acx_paged_decode.restype = i
         so.acx_flags_pready.argtypes = [p, i, p, i, i, p]
         so.acx_flags_pready.restype = i
         so.acx_flags_parrived.argtypes = [p, i, p, i, i, p, p]

@@ -1,14 +1,22 @@
-"""Decode attention: the length-aware flash-decode kernel (K2) and its
-plain version.
+"""Decode attention: the length-aware flash-decode kernel (K2), its paged
+sibling (B9), and their plain versions.
 
 :func:`flash_decode_attend` wraps the hand-written CUDA kernel in
-``csrc/flash_decode.cu``, which replaces the Pallas kernel
+``csrc/flash_decode.cu`` that replaces the Pallas kernel
 ``mpi_acx_tpu/ops/flash_decode.py:_decode_kernel``: grouped-query decode
 attention of a W-token window against an un-repeated ``[B, max_len, Hkv,
-D]`` cache, reading only the live rows ``[0, pos + W)`` of each slot. On a
-CUDA tensor it launches the kernel or raises; on a CPU tensor it runs
-:func:`dense_decode_attend`, the plain version, which is the JAX package's
-``models/decoding.py:dense_decode_attend``.
+D]`` cache, reading only the live rows ``[0, pos + W)`` of each slot.
+:func:`paged_flash_decode_attend` wraps the same kernel template's paged
+instantiation, which replaces ``_paged_decode_kernel``: the cache rows live
+in ``[P, page_tokens, Hkv, D]`` pools and slot b's row t on pool page
+``table[b, t // page_tokens]``. Both take a bf16/f32 cache or an int8 one
+as ``(codes, f32 scales [..., 1])`` pairs (ops/kvquant.py). On a CUDA
+tensor each wrapper launches its kernel or raises, and counts the launch
+(``launches`` for the bf16/f32 form, ``launches_int8`` for the int8 form);
+on a CPU tensor it runs the plain version: :func:`dense_decode_attend`, the
+JAX package's ``models/decoding.py:dense_decode_attend``, and
+:func:`paged_gather_attend`, which gathers each slot's pages into that
+layout first.
 """
 
 from __future__ import annotations
@@ -17,6 +25,8 @@ import torch
 
 from mpi_acx_torch.ops import _build
 from mpi_acx_torch.ops.attention import HEAD_DIM
+
+MAX_PAGES = 4096    # table row a B9 block holds in shared memory
 
 
 def dense_decode_attend(q, kc, vc, pos, max_len, n_rep):
@@ -60,69 +70,184 @@ def dense_decode_attend(q, kc, vc, pos, max_len, n_rep):
         B, W, Hkv * n_rep * Dh)
 
 
-def flash_decode_attend(q, kc, vc, pos, max_len, n_rep):
-    """Length-aware decode attention (K2); same signature and output as
-    :func:`dense_decode_attend`. On a CUDA tensor the kernel runs: a
-    ``(codes, scales)`` int8 cache raises ``NotImplementedError`` there (a
-    later slice ports that operand form with ``ops/kvquant.py``). On a CPU
-    tensor this is :func:`dense_decode_attend`."""
+def paged_gather_attend(q, kp, vp, table, pos, page_tokens, n_rep):
+    """Plain version of paged decode attention: gather each slot's pages
+    (``kp``/``vp`` [P, page_tokens, Hkv, D] pools, or ``(codes, scales)``
+    pairs of pools, through the ``[B, max_pages]`` table) into the
+    contiguous ``[B, max_pages * page_tokens, Hkv, D]`` layout and run
+    :func:`dense_decode_attend` on it. Gathered rows past a slot's horizon
+    contribute exactly 0 through the masked softmax, as the fixed cache's
+    own dead tail does."""
+    B, max_pages = table.shape
+    max_len = max_pages * page_tokens
+    idx = torch.as_tensor(table, device=q.device).long()
+
+    def gather(pool):
+        return pool[idx].reshape((B, max_len) + tuple(pool.shape[2:]))
+
+    kin = (gather(kp[0]), gather(kp[1])) if isinstance(kp, tuple) \
+        else gather(kp)
+    vin = (gather(vp[0]), gather(vp[1])) if isinstance(vp, tuple) \
+        else gather(vp)
+    return dense_decode_attend(q, kin, vin, pos, max_len, n_rep)
+
+
+def _check_q(name, q, n_rep):
+    """q's shape [B, W, Hq, D] and the kernel's layout rules."""
     dev = q.device
-    if dev.type == "cpu":
-        return dense_decode_attend(q, kc, vc, pos, max_len, n_rep)
-    if isinstance(kc, tuple) or isinstance(vc, tuple):
-        raise NotImplementedError(
-            "flash_decode_attend: the int8 (codes, scales) cache form has no "
-            "CUDA kernel yet")
     if dev.type != "cuda":
-        raise ValueError(f"flash_decode_attend: no kernel for {dev}")
-    if q.ndim != 4 or kc.ndim != 4:
-        raise ValueError("flash_decode_attend takes q [B, W, Hq, D] and "
-                         "caches [B, max_len, Hkv, D]")
+        raise ValueError(f"{name}: no kernel for {dev}")
+    if q.ndim != 4:
+        raise ValueError(f"{name} takes q [B, W, Hq, D]")
     B, W, Hq, D = q.shape
-    Hkv = kc.shape[2]
-    if (kc.shape != (B, max_len, Hkv, D) or vc.shape != kc.shape
-            or Hq != Hkv * n_rep):
-        raise ValueError(f"flash_decode_attend: q {tuple(q.shape)}, cache "
-                         f"{tuple(kc.shape)}, max_len {max_len}, n_rep {n_rep}")
-    if not (kc.device == vc.device == dev):
-        raise ValueError("flash_decode_attend: operands on different devices")
-    if not (q.dtype == kc.dtype == vc.dtype):
-        raise TypeError("flash_decode_attend: q and cache dtypes differ")
+    if n_rep <= 0 or Hq % n_rep:
+        raise ValueError(f"{name}: {Hq} query heads, n_rep {n_rep}")
     if D != HEAD_DIM:
-        raise ValueError(f"flash_decode_attend: the kernel is built for head "
-                         f"dim {HEAD_DIM} only, got {D}")
-    code = _build.dtype_code(q.dtype)
-    esize = q.element_size()
+        raise ValueError(f"{name}: the kernel is built for head dim "
+                         f"{HEAD_DIM} only, got {D}")
     if q.stride(-1) != 1 or q.stride(-2) != D:
-        raise ValueError("flash_decode_attend: q needs head stride D and "
-                         "element stride 1")
+        raise ValueError(f"{name}: q needs head stride D and element "
+                         "stride 1")
+    return B, W, Hq, D
+
+
+def _cache_operands(name, q, kc, vc, units, rows, Hkv):
+    """The K/V operands of a kernel call, checked: ``(k, v, ks, vs,
+    quant)``; ``kc``/``vc`` are both tensors of q's type or both ``(int8
+    codes, f32 scales)`` pairs, each ``[units, rows, Hkv, D]`` (scales
+    ``[..., 1]``) with rows of contiguous ``[Hkv, D]`` blocks on 16-byte
+    bounds."""
+    quant = isinstance(kc, tuple)
+    if quant != isinstance(vc, tuple):
+        raise TypeError(f"{name}: K and V must both be int8 (codes, "
+                        "scales) pairs or both plain caches")
+    ks = vs = None
+    if quant:
+        (kc, ks), (vc, vs) = kc, vc
+    D = q.shape[-1]
+    want = torch.int8 if quant else q.dtype
     for c in (kc, vc):
+        if tuple(c.shape) != (units, rows, Hkv, D):
+            raise ValueError(f"{name}: cache {tuple(c.shape)}, expected "
+                             f"{(units, rows, Hkv, D)}")
+        if c.device != q.device:
+            raise ValueError(f"{name}: operands on different devices")
+        if c.dtype != want:
+            raise TypeError(f"{name}: cache dtype {c.dtype}, expected {want} "
+                            f"with q in {q.dtype}")
         # Each lane reads its key row in 16-byte chunks.
+        esize = c.element_size()
         if (c.stride(-1) != 1 or c.stride(-2) != D or c.data_ptr() % 16
                 or (c.stride(0) * esize) % 16 or (c.stride(1) * esize) % 16):
-            raise ValueError("flash_decode_attend: cache rows must be "
-                             "contiguous [Hkv, D] blocks on 16-byte bounds")
+            raise ValueError(f"{name}: cache rows must be contiguous [Hkv, "
+                             "D] blocks on 16-byte bounds")
+    for s in (ks, vs) if quant else ():
+        if (tuple(s.shape) != (units, rows, Hkv, 1)
+                or s.dtype != torch.float32 or s.device != q.device
+                or s.stride(2) != 1):
+            raise ValueError(f"{name}: scales must be f32 "
+                             f"{(units, rows, Hkv, 1)} with head stride 1, "
+                             f"got {tuple(s.shape)} {s.dtype}")
+    return kc, vc, ks, vs, quant
+
+
+def _pos_vector(name, pos, B, dev):
     pos = torch.as_tensor(pos, device=dev)
     if pos.ndim == 0:
         pos = pos.expand(B)
     if pos.shape != (B,):
-        raise ValueError(f"flash_decode_attend: pos shape {tuple(pos.shape)}")
-    pos = pos.to(torch.int32).contiguous()
-    out = torch.empty((B, W, Hq * D), dtype=q.dtype, device=dev)
-    st = _build.strides(q.stride(0), q.stride(1), kc.stride(0), kc.stride(1),
-                        vc.stride(0), vc.stride(1))
+        raise ValueError(f"{name}: pos shape {tuple(pos.shape)}")
+    return pos.to(torch.int32).contiguous()
+
+
+def _scale_strides(quant, ks, vs):
+    if not quant:
+        return (0, 0, 0, 0)
+    return (ks.stride(0), ks.stride(1), vs.stride(0), vs.stride(1))
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _count(fn, quant):
+    if quant:
+        fn.launches_int8 += 1
+    else:
+        fn.launches += 1
+
+
+def flash_decode_attend(q, kc, vc, pos, max_len, n_rep):
+    """Length-aware decode attention (K2); same signature and output as
+    :func:`dense_decode_attend`, whose ``(codes, scales)`` int8 form it
+    takes too. On a CUDA tensor the kernel runs; on a CPU tensor this is
+    :func:`dense_decode_attend`."""
+    if q.device.type == "cpu":
+        return dense_decode_attend(q, kc, vc, pos, max_len, n_rep)
+    name = "flash_decode_attend"
+    B, W, Hq, D = _check_q(name, q, n_rep)
+    Hkv = Hq // n_rep
+    k, v, ks, vs, quant = _cache_operands(name, q, kc, vc, B, max_len, Hkv)
+    pos = _pos_vector(name, pos, B, q.device)
+    out = torch.empty((B, W, Hq * D), dtype=q.dtype, device=q.device)
+    st = _build.strides(q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                        v.stride(0), v.stride(1),
+                        *_scale_strides(quant, ks, vs))
     rc = _build.lib().acx_flash_decode(
-        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), code, B, W, Hkv, n_rep, D, max_len, st,
-        _build.stream_handle(dev))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
+        pos.data_ptr(), out.data_ptr(), _build.dtype_code(q.dtype),
+        int(quant), B, W, Hkv, n_rep, D, max_len, st,
+        _build.stream_handle(q.device))
     if rc != 0:
-        raise RuntimeError(f"flash_decode_attend kernel launch failed: CUDA "
-                           f"error {rc}")
-    flash_decode_attend.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    _count(flash_decode_attend, quant)
     return out
 
 
 flash_decode_attend.launches = 0
+flash_decode_attend.launches_int8 = 0
+
+
+def paged_flash_decode_attend(q, kp, vp, table, pos, page_tokens, n_rep):
+    """Paged decode attention (B9): K/V pools ``[P, page_tokens, Hkv, D]``
+    (or ``(codes, scales)`` pairs of pools) addressed through a ``[B,
+    max_pages]`` int32 table; same output as :func:`paged_gather_attend`.
+    On a CUDA tensor the kernel runs, with the table and ``pos`` read on
+    the card; on a CPU tensor this is :func:`paged_gather_attend`."""
+    if q.device.type == "cpu":
+        return paged_gather_attend(q, kp, vp, table, pos, page_tokens, n_rep)
+    name = "paged_flash_decode_attend"
+    B, W, Hq, D = _check_q(name, q, n_rep)
+    Hkv = Hq // n_rep
+    table = torch.as_tensor(table, device=q.device)
+    if table.ndim != 2 or table.shape[0] != B:
+        raise ValueError(f"{name}: table {tuple(table.shape)} for {B} slots")
+    max_pages = table.shape[1]
+    if not 0 < max_pages <= MAX_PAGES:
+        raise ValueError(f"{name}: {max_pages} pages per slot (the kernel "
+                         f"holds at most {MAX_PAGES})")
+    table = table.to(torch.int32).contiguous()
+    P = (kp[0] if isinstance(kp, tuple) else kp).shape[0]
+    k, v, ks, vs, quant = _cache_operands(name, q, kp, vp, P, page_tokens,
+                                          Hkv)
+    pos = _pos_vector(name, pos, B, q.device)
+    out = torch.empty((B, W, Hq * D), dtype=q.dtype, device=q.device)
+    st = _build.strides(q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                        v.stride(0), v.stride(1),
+                        *_scale_strides(quant, ks, vs), table.stride(0))
+    rc = _build.lib().acx_paged_decode(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
+        pos.data_ptr(), table.data_ptr(), out.data_ptr(),
+        _build.dtype_code(q.dtype), int(quant), B, W, Hkv, n_rep, D,
+        page_tokens, max_pages, P, st, _build.stream_handle(q.device))
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    _count(paged_flash_decode_attend, quant)
+    return out
+
+
+paged_flash_decode_attend.launches = 0
+paged_flash_decode_attend.launches_int8 = 0
 
 
 def select_decode_attend(decode_flash):
@@ -133,3 +258,12 @@ def select_decode_attend(decode_flash):
     CPU tensor. All take ``(q, kc, vc, pos, max_len, n_rep)``."""
     return (dense_decode_attend if decode_flash is False
             else flash_decode_attend)
+
+
+def select_paged_decode_attend(decode_flash):
+    """The paged arm of the same switch (the JAX package's
+    ``select_paged_decode_attend``): ``False`` -> :func:`paged_gather_attend`;
+    ``True`` or ``None`` -> :func:`paged_flash_decode_attend`. All take
+    ``(q, kp, vp, table, pos, page_tokens, n_rep)``."""
+    return (paged_gather_attend if decode_flash is False
+            else paged_flash_decode_attend)

@@ -142,7 +142,7 @@ def test_select_switches():
 
 def test_kernel_wrappers_refuse_other_devices():
     """Off the CPU a wrapper launches its kernel or raises — never a quiet
-    plain-version path. An int8 cache has no kernel yet."""
+    plain-version path, for a bf16/f32 cache and an int8 one alike."""
     q = torch.empty((1, 8, 2, 64), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tattn.flash_attention(q, q, q)
@@ -152,7 +152,7 @@ def test_kernel_wrappers_refuse_other_devices():
         tfd.flash_decode_attend(qd, kc, kc, 3, 32, 1)
     codes = (torch.empty((1, 32, 2, 64), dtype=torch.int8, device="meta"),
              torch.empty((1, 32, 2, 1), device="meta"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no kernel"):
         tfd.flash_decode_attend(qd, codes, codes, 3, 32, 1)
 
 

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from mpi_acx_torch.models import kvpage as tkp
 from mpi_acx_torch.models import serving as ts
 from mpi_acx_torch.models import transformer as tt
 from mpi_acx_torch.ops import _build
@@ -49,10 +50,12 @@ def test_import_loads_neither_jax_nor_cuda():
     code = (
         "import sys, torch, mpi_acx_torch\n"
         "from mpi_acx_torch import device, reqlog, runtime, triggers\n"
-        "from mpi_acx_torch.models import decoding, serving, transformer\n"
+        "from mpi_acx_torch.models import decoding, kvpage, serving, "
+        "transformer\n"
         "from mpi_acx_torch.ops import _build, attention, flags, "
-        "flash_decode\n"
+        "flash_decode, kvquant\n"
         "import mpi_acx_torch.models as m; m.serve_greedy; m.gpt2_small\n"
+        "m.serve_paged_greedy; m.PagedKV; m.kvpage\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'mpi_acx_tpu')]\n"
         "assert not bad, bad\n"
@@ -80,6 +83,10 @@ ENTRY_POINTS = {
                                                             np.int32), 2),
     "serve_greedy": lambda cfg, p: ts.serve_greedy(
         p, cfg, [np.arange(3, dtype=np.int32)], 2, n_slots=1, max_len=8),
+    "serve_paged_greedy": lambda cfg, p: ts.serve_paged_greedy(
+        p, cfg, [np.arange(3, dtype=np.int32)], 2, n_slots=1, max_len=8),
+    "init_page_pool": lambda cfg, p: tkp.init_page_pool(cfg, 2, 4, 1),
+    "PagedKV": lambda cfg, p: tkp.PagedKV(cfg, tt, 1, 8, 4, 2),
 }
 
 
@@ -103,14 +110,22 @@ def test_params_on_another_device_are_refused():
 
 
 def test_cpu_tensors_leave_launch_counts_at_zero():
-    tattn.flash_attention.launches = 0
-    tfd.flash_decode_attend.launches = 0
+    counters = [(tattn.flash_attention, "launches"),
+                (tfd.flash_decode_attend, "launches"),
+                (tfd.flash_decode_attend, "launches_int8"),
+                (tfd.paged_flash_decode_attend, "launches"),
+                (tfd.paged_flash_decode_attend, "launches_int8")]
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
     cfg, params = _tiny()
-    out = ts.serve_greedy(params, cfg, [np.arange(5, dtype=np.int32)] * 3,
-                          4, n_slots=2, max_len=16, device="cpu")
-    assert len(out) == 3
-    assert tattn.flash_attention.launches == 0
-    assert tfd.flash_decode_attend.launches == 0
+    prompts = [np.arange(5, dtype=np.int32)] * 3
+    for kv_int8 in (False, True):
+        for serve in (ts.serve_greedy, ts.serve_paged_greedy):
+            out = serve(params, cfg, prompts, 4, n_slots=2, max_len=16,
+                        kv_int8=kv_int8, device="cpu")
+            assert len(out) == 3
+    for fn, attr in counters:
+        assert getattr(fn, attr) == 0, (fn.__name__, attr)
 
 
 def test_nvcc_commands_target_sm90a():
