@@ -14,6 +14,14 @@ in the repository. Phases, each of which exits non-zero on failure:
              over bf16/f32 and int8 caches; B9 over page sizes 16, 64
              and 128 with shuffled tables and an aliased first page, and
              equal to K2 bit for bit on the same rows in every case.
+2b. train kernels — B10 (flash_attention_lse, bf16 and f32, B=4) over
+             causal S = Sk of 64, 1000 and 1024 and two non-causal Sk != S:
+             o within the phase-2 limits, the lse within TOL_LSE; B7 (the
+             streaming entry) at S = Sk = 16384 on its first, middle and
+             last 128 query rows, each over its whole key prefix; the
+             backward (dq, dk, dv of flash_attention and
+             flash_attention_lse, random dO and dLSE) against autograd
+             through the plain versions, within TOL_GRAD.
 3. f32     — GPT-2 124M at full width in float32 served through the kernels
              and through the plain versions: the tokens must be equal (a
              divergence passes only at a true tie, see TIE), and the two
@@ -39,6 +47,20 @@ in the repository. Phases, each of which exits non-zero on failure:
              (device time: the calls are replayed from a CUDA graph), and
              one decode step as the server issues it against its device
              time (the device's busy share of a step).
+5b. train  — GPT-2 124M at full width and depth (seed-0 f32 params, bf16
+             compute) trained through the port's train step on a 1x1x1
+             mesh: 5 AdamW steps of 2 microbatches of 4 x 1024 tokens (the
+             ramp task of examples/train_distributed.py) through B10, then
+             the same 5 from the same init through the dense ring blocks:
+             per-step losses within TOL_TRAIN_LOSS0 (step 0) and
+             TOL_TRAIN_LOSS, the loss after step 5
+             below step 0's, B10 launched exactly 12 x 2 x 5 times and not
+             at all in the dense run; step time, tokens/s, peak memory,
+             and a profiled step split into forward, backward, optimizer
+             and the device's busy share. Then B7's path: flash_attention
+             at S = 16384, forward and backward, through the streaming
+             entry. Then B10 and B7 timed like phase 5, and one blockwise
+             attention backward per layer.
 6. flags   — the flag kernels B1-B5 (csrc/flags.cu) against their plain
              versions with exact equality over tables of 1 to 4096 slots,
              indices in and out of range, repeated, as ints and as tensors
@@ -61,6 +83,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -106,6 +129,43 @@ TOL_ROW_F32 = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # an H100: logits differ by at most 3.1e-6 (f32) and 3.9e-2 (bf16); the
 # three bf16 divergences of phase 4 sit at margins up to 9.4e-3.
 TIE = {torch.float32: 1e-4, torch.bfloat16: 8e-2}
+# B10's lse (f32 in both dtypes), max abs error against the plain version
+# in the same dtype and against an f32 plain run on the same inputs.
+# Readings on an H100 over the phase-2b cases: bf16 1.4e-2 against the
+# bf16 plain version (whose logits are rounded to bf16) and 9.5e-7 against
+# f32 (the kernel's logits are exact products of the bf16 inputs summed in
+# f32); f32 9.5e-7 (one ulp at lse 8-16). Limits: about twice the bf16
+# reading, five ulps where the reading is one.
+TOL_LSE = {torch.float32: 5e-6, torch.bfloat16: 3e-2}
+TOL_LSE_F32 = {torch.float32: 5e-6, torch.bfloat16: 5e-6}
+# The backward (dq, dk, dv of flash_attention and flash_attention_lse at
+# the training shape, random dO and dLSE) against autograd through the
+# plain versions: max abs error and the row errors of ``errors``, each
+# row's RMS taken no smaller than the whole gradient's (GRAD_RMS_FLOOR;
+# dq of a causal first row is exactly 0: one visible key). f32: both sides
+# in f32. bf16: the kernel path's backward runs in f32 from bf16 inputs,
+# but its D = rowsum(dO * O) reads the bf16 O, as the JAX package's does;
+# in the early causal rows dP - D cancels, so dq there carries that
+# rounding. Readings on an H100: bf16 abs 3.1e-2, row 5.6e-2 against the
+# bf16 plain version (whose own row error against f32 is 3.9-5.0e-2) and
+# 4.9e-2 against f32; f32 abs 9.5e-6, row 1.0e-5. Limits: about twice
+# the readings (f32 abs at 1e-4).
+TOL_GRAD = {torch.float32: dict(abs=1e-4, row=2e-5, row_f32=2e-5),
+            torch.bfloat16: dict(abs=6e-2, row=0.12, row_f32=0.1)}
+GRAD_RMS_FLOOR = 1.0
+# Training: the kernel run's losses against the dense-block run's, both in
+# bf16 compute. Step 0 sees the same parameters, so it compares the
+# forwards alone: reading 9.0e-5 on an H100 (B10's o is rounded to bf16
+# where the dense blocks keep f32). After that the two are two AdamW
+# trajectories, and AdamW divides each gradient by its own RMS, so
+# rounding-level differences in near-zero gradients become whole steps of
+# lr: readings 3.1e-4 to 6.9e-2 at steps 1-4 and 1.9e-2 after step 5,
+# not growing steadily, while the loss falls 0.3-1.1 a step. Limits: about
+# five times step 0's reading, twice the largest later one. The
+# trajectories cannot see a gradient error of attention's size; phase 2b's
+# backward check holds those.
+TOL_TRAIN_LOSS0 = 5e-4
+TOL_TRAIN_LOSS = 0.15
 # H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor-core and f32 FMA
 # rates, HBM bandwidth.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
@@ -175,16 +235,18 @@ def phase_build() -> float:
 
 # --- phase 2 ---------------------------------------------------------------
 
-def errors(out, ref, ref32) -> dict:
+def errors(out, ref, ref32, rms_floor: float = 0.0) -> dict:
     """Errors of ``out`` (kernel) against ``ref`` (plain version, same
     dtype) and ``ref32`` (plain version in f32 on the same inputs), over
     output rows of D values: max abs error, row error against each, and the
-    plain version's own row error against f32 (what bf16 costs it)."""
+    plain version's own row error against f32 (what bf16 costs it). A row's
+    RMS is taken no smaller than ``rms_floor`` times the whole tensor's."""
     if out.shape != ref.shape or not torch.isfinite(out.float()).all():
         fail(f"kernel output: shape {tuple(out.shape)}, plain "
              f"{tuple(ref.shape)}, or non-finite values")
     o, r, r32 = (x.float().reshape(-1, D) for x in (out, ref, ref32))
-    rms = r32.square().mean(-1).sqrt()
+    rms = r32.square().mean(-1).sqrt().clamp(
+        min=rms_floor * r32.square().mean().sqrt().item())
 
     def row(a, b):
         return ((a - b).abs().amax(-1) / rms).max().item()
@@ -351,15 +413,168 @@ def phase_kernels() -> dict:
     return worst
 
 
+# --- phase 2b --------------------------------------------------------------
+
+STREAM_S = 16384        # B7's check and path: the streaming entry's auto rule
+TRAIN_B, TRAIN_S = 4, 1024   # the training path's attention: B=4, S=1024
+
+
+def b10_errs(S, Sk, causal, dtype, gen, B=TRAIN_B):
+    """B10 against its plain version: ``errors`` on o, and the lse's max
+    abs error against the plain version and against an f32 plain run."""
+    from mpi_acx_torch.ops.attention import _reference_lse, \
+        flash_attention_lse
+    q = randn((B, S, H, D), dtype, gen)
+    k = randn((B, Sk, H, D), dtype, gen)
+    v = randn((B, Sk, H, D), dtype, gen)
+    o, lse = flash_attention_lse(q, k, v, causal=causal)
+    ref, ref_lse = _reference_lse(q, k, v, causal=causal)
+    ref32, lse32 = _reference_lse(q.float(), k.float(), v.float(),
+                                  causal=causal)
+    torch.cuda.synchronize()
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
+            or not torch.isfinite(lse).all():
+        fail(f"B10 lse: shape {tuple(lse.shape)} {lse.dtype} or non-finite")
+    e = errors(o, ref, ref32)
+    e["lse"] = (lse - ref_lse).abs().max().item()
+    e["lse_f32"] = (lse - lse32).abs().max().item()
+    return e
+
+
+def check_lse(desc, dtype, e) -> None:
+    print(f"kernel flash_attention_lse {str(dtype)[6:]} {desc}: lse "
+          f"max_abs_err {e['lse']:.3e} vs plain (tol {TOL_LSE[dtype]}), "
+          f"{e['lse_f32']:.3e} vs f32 plain (tol {TOL_LSE_F32[dtype]})",
+          flush=True)
+    if not (e["lse"] <= TOL_LSE[dtype] and e["lse_f32"] <= TOL_LSE_F32[dtype]):
+        fail("flash_attention_lse's lse disagrees with its plain version")
+
+
+def band_reference(q, k, v, r0):
+    """``attention_reference``'s recipe (causal, f32 softmax, probabilities
+    in q's dtype) for the query rows [r0, r0 + len(q)) of a longer
+    sequence, over the key prefix k, v [0, r0 + len(q))."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(D)
+    rows = r0 + torch.arange(q.shape[1], device=q.device)[:, None]
+    cols = torch.arange(k.shape[1], device=q.device)[None, :]
+    logits = logits.masked_fill(cols > rows, -1e30)
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+
+def b7_errs(gen) -> dict:
+    """B7, the streaming entry point (``streaming=None`` turns it on at
+    Sk=16384), against the plain version on three bands of 128 query rows
+    (the first, the middle, the last), each over its whole key prefix."""
+    from mpi_acx_torch.ops.attention import flash_attention
+    bf = torch.bfloat16
+    q, k, v = (randn((1, STREAM_S, H, D), bf, gen) for _ in range(3))
+    n0 = flash_attention.launches_stream
+    out = flash_attention(q, k, v)
+    if flash_attention.launches_stream != n0 + 1:
+        fail("flash_attention at Sk=16384 did not take the streaming entry")
+    worst = {}
+    for r0 in (0, STREAM_S // 2 - 64, STREAM_S - 128):
+        r1 = r0 + 128
+        ref = band_reference(q[:, r0:r1], k[:, :r1], v[:, :r1], r0)
+        ref32 = band_reference(q[:, r0:r1].float(), k[:, :r1].float(),
+                               v[:, :r1].float(), r0)
+        torch.cuda.synchronize()
+        e = errors(out[:, r0:r1], ref, ref32)
+        check("flash_attention_stream", f"B=1 S=Sk={STREAM_S} causal H={H} "
+              f"D={D}, rows [{r0}, {r1}) over keys [0, {r1})", bf, e)
+        for key, val in e.items():
+            worst[key] = max(worst.get(key, 0.0), val)
+    return worst
+
+
+def grads(fn, xs, cts):
+    """dq, dk, dv of ``fn(q, k, v)`` (one output or a tuple) under the
+    cotangents ``cts``."""
+    xs = [x.detach().requires_grad_() for x in xs]
+    outs = fn(*xs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, xs, cts)
+
+
+def phase_backward(gen) -> dict:
+    """The backward of flash_attention and flash_attention_lse (through the
+    kernels' forwards) against autograd through the plain versions, at the
+    training shape, causal, with random dO and dLSE."""
+    from mpi_acx_torch.ops.attention import _reference_lse, \
+        attention_reference, flash_attention, flash_attention_lse
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        xs = [randn((TRAIN_B, TRAIN_S, H, D), dtype, gen) for _ in range(3)]
+        do = randn((TRAIN_B, TRAIN_S, H, D), dtype, gen)
+        dlse = randn((TRAIN_B, H, TRAIN_S), torch.float32, gen)
+        x32 = [x.float() for x in xs]
+        for name, kern, plain, cts, cts32 in (
+                ("flash_attention", flash_attention, attention_reference,
+                 (do,), (do.float(),)),
+                ("flash_attention_lse", flash_attention_lse, _reference_lse,
+                 (do, dlse), (do.float(), dlse))):
+            got = grads(kern, xs, cts)
+            ref = grads(plain, xs, cts)
+            ref32 = grads(plain, x32, cts32)
+            torch.cuda.synchronize()
+            tol = TOL_GRAD[dtype]
+            for gname, g, r, r32 in zip(("dq", "dk", "dv"), got, ref, ref32):
+                e = errors(g, r, r32, rms_floor=GRAD_RMS_FLOOR)
+                print(f"backward {name} {str(dtype)[6:]} {gname} B={TRAIN_B} "
+                      f"S={TRAIN_S} H={H} D={D} causal: max_abs_err "
+                      f"{e['abs']:.3e} (tol {tol['abs']}), row err "
+                      f"{e['row']:.3e} vs plain (tol {tol['row']}), "
+                      f"{e['row_f32']:.3e} vs f32 plain (tol "
+                      f"{tol['row_f32']}); plain's own row err vs f32 "
+                      f"{e['plain_row_f32']:.3e}", flush=True)
+                if not all(e[key] <= tol[key] for key in tol):
+                    fail(f"the backward of {name} ({gname}, {dtype}) "
+                         f"disagrees with autograd through the plain version")
+                w = worst.setdefault(dtype, dict.fromkeys(e, 0.0))
+                for key, val in e.items():
+                    w[key] = max(w[key], val)
+    print("backward check passed: dq, dk, dv of flash_attention and "
+          "flash_attention_lse within limits in bf16 and f32", flush=True)
+    return worst
+
+
+def phase_train_kernels() -> dict:
+    """Phase 2b: B10 in both dtypes over causal S = Sk of 64, 1000 and
+    1024 and two non-causal Sk != S at B=4; B7 at S = Sk = 16384 (bf16);
+    the backward. Returns the worst errors per (kernel, dtype)."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        w = {}
+        for S, Sk, causal in ((64, 64, True), (1000, 1000, True),
+                              (1024, 1024, True), (512, 1000, False),
+                              (1024, 64, False)):
+            e = b10_errs(S, Sk, causal, dtype, gen)
+            desc = (f"B={TRAIN_B} S={S} Sk={Sk} causal={causal} H={H} "
+                    f"D={D}")
+            check("flash_attention_lse", desc, dtype, e)
+            check_lse(desc, dtype, e)
+            for key, val in e.items():
+                w[key] = max(w.get(key, 0.0), val)
+        worst[("flash_attention_lse", dtype)] = w
+    worst[("flash_attention_stream", torch.bfloat16)] = b7_errs(gen)
+    worst["backward"] = phase_backward(gen)
+    return worst
+
+
 # --- phases 3 and 4 --------------------------------------------------------
 
 def attention_counters():
     """(name in the kernels line, wrapper, counter attribute) of every
     attention kernel form."""
-    from mpi_acx_torch.ops.attention import flash_attention
+    from mpi_acx_torch.ops.attention import flash_attention, \
+        flash_attention_lse
     from mpi_acx_torch.ops.flash_decode import flash_decode_attend, \
         paged_flash_decode_attend
     return [("flash_attention", flash_attention, "launches"),
+            ("flash_attention_stream", flash_attention, "launches_stream"),
+            ("flash_attention_lse", flash_attention_lse, "launches"),
             ("flash_decode_attend", flash_decode_attend, "launches"),
             ("flash_decode_attend_int8", flash_decode_attend,
              "launches_int8"),
@@ -816,6 +1031,258 @@ def phase_step(params16, k2_ms, card_str) -> None:
           f"of device time [{card_str}]", flush=True)
 
 
+# --- phase 5b --------------------------------------------------------------
+
+TRAIN_M, TRAIN_STEPS, TRAIN_LR = 2, 5, 1e-3
+
+
+def ramp_batch(vocab):
+    """The synthetic task of examples/train_distributed.py: predict the
+    next token of a ramp, [M, mb, S] tokens and targets, made on the
+    card."""
+    dev = "cuda"
+    base = (torch.arange(TRAIN_S, device=dev)[None, None, :]
+            + torch.arange(TRAIN_B, device=dev)[None, :, None])
+    tokens = (base + torch.arange(TRAIN_M, device=dev)[:, None, None]) % vocab
+    return tokens, torch.roll(tokens, -1, dims=-1)
+
+
+def train_run(cfg, init, batch):
+    """TRAIN_STEPS AdamW steps of the port's train step from a copy of
+    ``init``: per-step losses, per-step host seconds (each ends in a
+    synchronize), the launch counts of the attention kernels over the
+    steps, the peak device memory, and the step, optimizer and params
+    (for more steps and the loss after the last)."""
+    from mpi_acx_torch import train
+    from mpi_acx_torch.parallel.mesh import mesh_from_devices
+    params = {k: ({n: a.clone() for n, a in v.items()}
+                  if isinstance(v, dict) else v.clone())
+              for k, v in init.items()}
+    opt = torch.optim.AdamW(train.param_leaves(params), lr=TRAIN_LR,
+                            betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+    mesh = mesh_from_devices({"dp": 1, "pp": 1, "tp": 1})
+    step, n_stages = train.make_train_step_optim(cfg, mesh, TRAIN_M, opt)
+    if n_stages != 1:
+        fail(f"train step has {n_stages} stages on a 1x1x1 mesh")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, params = step(params, *batch)
+        losses.append(loss.item())              # synchronizes
+        secs.append(time.perf_counter() - t0)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    grad_fn, _ = train.make_loss_and_grads(cfg, mesh, TRAIN_M)
+    final = grad_fn(params, *batch)[0].item()
+    return dict(losses=losses, secs=secs, counts=counts, peak=peak,
+                final=final, step=step, params=params)
+
+
+def profile_step(step, params, batch) -> dict:
+    """One more step under torch.profiler: device time by kernel, split
+    into the forward, the backward (the attention's part apart), the
+    optimizer and what the profiler did not attribute; the wall time of
+    the step; and the device's busy share of it."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, *batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = dict.fromkeys(("forward", "backward", "attention_backward",
+                           "optimizer", "unattributed"), 0.0)
+    attributed = 0.0
+    for ev in prof.events():
+        if not ev.kernels:
+            continue
+        names, up = [], ev
+        while up is not None:
+            names.append(up.name)
+            up = up.cpu_parent
+        us = sum(k.duration for k in ev.kernels)
+        attributed += us
+        if any(n.startswith("Optimizer.step") for n in names):
+            split["optimizer"] += us
+        elif any(n.startswith("autograd::engine::evaluate_function")
+                 for n in names):
+            split["backward"] += us
+            if any("_FlashLseBackward" in n for n in names):
+                split["attention_backward"] += us
+        else:
+            split["forward"] += us
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type.name == "CUDA":
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time_total
+    device = sum(by_name.values())
+    split["unattributed"] = max(device - attributed, 0.0)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(split_ms={k: v / 1e3 for k, v in split.items()},
+                device_ms=device / 1e3, wall_ms=wall * 1e3,
+                top_ms=[(name[:60], us / 1e3) for name, us in top])
+
+
+def phase_train(card_str) -> dict:
+    """Phase 5b: GPT-2 124M at full width and depth (seed-0 f32 params,
+    bf16 compute) trained through the port's train step on a 1x1x1 mesh:
+    TRAIN_STEPS AdamW steps of M=2 microbatches of 4 x 1024 tokens
+    through B10's kernel, then the same steps from the same init through
+    the dense ring blocks. Returns B10's launch count in the kernel run."""
+    from mpi_acx_torch.models import transformer as tfm
+    cfg = tfm.gpt2_small()
+    plain = dataclasses.replace(cfg, use_flash=False)
+    init = tfm.stage_slice(tfm.init_params(
+        dataclasses.replace(cfg, dtype=torch.float32), seed=0), 1)
+    batch = ramp_batch(cfg.vocab)
+    n_tok = TRAIN_M * TRAIN_B * TRAIN_S
+    kern = train_run(cfg, init, batch)
+    dense = train_run(plain, init, batch)
+    want = cfg.n_layers * TRAIN_M * TRAIN_STEPS
+    got = kern["counts"]["flash_attention_lse"]
+    print(f"train launches, kernel run: {json.dumps(kern['counts'])}; dense "
+          f"run: {json.dumps(dense['counts'])}", flush=True)
+    if got != want or dense["counts"]["flash_attention_lse"] != 0:
+        fail(f"B10 launched {got} times in the kernel run (want 12 layers x "
+             f"{TRAIN_M} microbatches x {TRAIN_STEPS} steps = {want}) and "
+             f"{dense['counts']['flash_attention_lse']} in the dense run")
+    tols = [TOL_TRAIN_LOSS0] + [TOL_TRAIN_LOSS] * (TRAIN_STEPS - 1)
+    ok = True
+    for i, (a, b) in enumerate(zip(kern["losses"], dense["losses"])):
+        print(f"train step {i}: loss {a:.6f} through B10, {b:.6f} through "
+              f"the dense blocks, |diff| {abs(a - b):.3e} (tol {tols[i]}); "
+              f"{kern['secs'][i] * 1e3:.1f} ms and "
+              f"{dense['secs'][i] * 1e3:.1f} ms", flush=True)
+        ok = ok and abs(a - b) <= tols[i]
+    print(f"train loss after {TRAIN_STEPS} steps: {kern['final']:.6f} "
+          f"through B10, {dense['final']:.6f} dense (step 0: "
+          f"{kern['losses'][0]:.6f})", flush=True)
+    if not all(math.isfinite(x) for x in kern["losses"] + dense["losses"]
+               + [kern["final"], dense["final"]]):
+        fail("a training loss is not finite")
+    if not ok or abs(kern["final"] - dense["final"]) > TOL_TRAIN_LOSS:
+        fail("the kernel run's losses differ from the dense run's")
+    if not kern["final"] < kern["losses"][0]:
+        fail(f"training did not lower the loss: {kern['losses'][0]:.6f} -> "
+             f"{kern['final']:.6f}")
+    # Steady steps: all but the first (which also warms up cuBLAS and the
+    # allocator).
+    for label, r in (("B10", kern), ("dense", dense)):
+        ms = 1e3 * float(np.mean(r["secs"][1:]))
+        print(f"train step GPT-2 124M bf16 (f32 params, AdamW), M={TRAIN_M} "
+              f"x {TRAIN_B} x {TRAIN_S} tokens, {label}: {ms:.1f} ms per "
+              f"step (mean of steps 1-{TRAIN_STEPS - 1}), "
+              f"{n_tok / ms * 1e3:.0f} tokens/s, peak memory "
+              f"{r['peak'] / 2 ** 30:.2f} GiB [{card_str}]", flush=True)
+    prof = profile_step(kern["step"], kern["params"], batch)
+    sp = prof["split_ms"]
+    step_ms = 1e3 * float(np.mean(kern["secs"][1:]))
+    if prof["device_ms"] > 0:
+        print(f"train step profile (one more step, B10): wall "
+              f"{prof['wall_ms']:.1f} ms under the profiler, device "
+              f"{prof['device_ms']:.1f} ms: busy "
+              f"{100 * prof['device_ms'] / prof['wall_ms']:.1f}% of the "
+              f"profiled step, {100 * prof['device_ms'] / step_ms:.1f}% of "
+              f"the unprofiled step ({step_ms:.1f} ms); forward "
+              f"{sp['forward']:.1f} ms, backward {sp['backward']:.1f} ms "
+              f"(attention's {sp['attention_backward']:.1f} ms), optimizer "
+              f"{sp['optimizer']:.1f} ms, unattributed "
+              f"{sp['unattributed']:.1f} ms [{card_str}]", flush=True)
+        print("train step profile, device time by kernel: " + "; ".join(
+            f"{name} {ms:.1f} ms" for name, ms in prof["top_ms"]),
+            flush=True)
+    else:
+        print(f"train step profile: not measured (the profiler saw no "
+              f"device time; wall {prof['wall_ms']:.1f} ms)", flush=True)
+    return {"flash_attention_lse": got}
+
+
+def phase_long_context() -> int:
+    """B7's path: the port's flash_attention at S = Sk = 16384 (causal,
+    bf16, B=1, H=12), where streaming=None takes the streaming entry, as
+    a user's long-context call would, forward and backward. Returns the
+    streaming entry's launches in that run."""
+    from mpi_acx_torch.ops.attention import flash_attention
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    xs = [randn((1, STREAM_S, H, D), torch.bfloat16, gen).requires_grad_()
+          for _ in range(3)]
+    do = randn((1, STREAM_S, H, D), torch.bfloat16, gen)
+    reset_counts()
+    out = flash_attention(*xs)
+    out.backward(do)
+    torch.cuda.synchronize()
+    counts = read_counts(("flash_attention", "flash_attention_stream"))
+    print(f"long-context attention S={STREAM_S}: launches {counts}",
+          flush=True)
+    if counts["flash_attention_stream"] == 0 or counts["flash_attention"]:
+        fail("the long-context call did not go through the streaming entry")
+    if not all(torch.isfinite(x.grad.float()).all() for x in xs):
+        fail("long-context backward: non-finite gradients")
+    return counts["flash_attention_stream"]
+
+
+def phase_train_timing(card_str) -> dict:
+    """B10 and B7 timed by CUDA-graph replay at their path's shapes, beside
+    their plain versions, the one-call PyTorch equivalent (the SDPA flash
+    kernel, which returns the logsumexp as well) and the roofline bound;
+    and one blockwise backward of the attention at the training shape."""
+    import torch.nn.functional as F
+    from mpi_acx_torch.ops.attention import _flash_bwd_blockwise, \
+        _reference_lse, attention_reference, flash_attention, \
+        flash_attention_lse
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bf = torch.bfloat16
+    out = {}
+    cases = (
+        ("flash_attention_lse", TRAIN_B, TRAIN_S,
+         lambda q, k, v: flash_attention_lse(q, k, v),
+         lambda q, k, v: _reference_lse(q, k, v), 100, H * 4),
+        ("flash_attention_stream", 1, STREAM_S,
+         lambda q, k, v: flash_attention(q, k, v),
+         lambda q, k, v: attention_reference(q, k, v), 5, 0))
+    for name, B, S, kern, plain, plain_iters, lse_bytes in cases:
+        q, k, v = (randn((B, S, H, D), bf, gen) for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        t_k = time_ms(lambda: kern(q, k, v), iters=20 if B == 1 else 100)
+        t_p = time_ms(lambda: plain(q, k, v), iters=plain_iters)
+        lib = getattr(torch.ops.aten, "_scaled_dot_product_flash_attention",
+                      None)
+        if name == "flash_attention_stream":
+            t_l = time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), iters=20)
+            lib_name = "sdpa, causal"
+        elif lib is not None:
+            t_l = time_ms(lambda: lib(qt, kt, vt, 0.0, True), iters=100)
+            lib_name = "aten._scaled_dot_product_flash_attention, causal"
+        else:
+            t_l, lib_name = None, "- (this torch has no flash SDPA op)"
+        flops = 4 * B * H * D * S * (S + 1) / 2
+        nbytes = 4 * B * S * H * D * 2 + B * S * lse_bytes
+        b_ms, b_by = bound_ms(flops, nbytes, bf)
+        print(f"time {name} bf16 B={B} S={S} H={H} D={D} causal: kernel "
+              f"{t_k:.4f} ms, plain {t_p:.4f} ms, library ({lib_name}) "
+              + ("-" if t_l is None else f"{t_l:.4f} ms")
+              + f", bound {b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.2f} GFLOP) [{card_str}]", flush=True)
+        out[name] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                         bound_ms=b_ms, bound_by=b_by)
+    q, k, v, o, do = (randn((TRAIN_B, H, TRAIN_S, D), bf, gen)
+                      for _ in range(5))
+    lse = randn((TRAIN_B, H, TRAIN_S), torch.float32, gen)
+    dlse = randn((TRAIN_B, H, TRAIN_S), torch.float32, gen)
+    t_b = time_ms(lambda: _flash_bwd_blockwise(q, k, v, o, do, True, 512,
+                                                512, lse=lse, dlse=dlse),
+                  iters=20)
+    print(f"time attention backward (blockwise, eager PyTorch) per layer, "
+          f"bf16 B={TRAIN_B} S={TRAIN_S} H={H} D={D} causal, blocks 512: "
+          f"{t_b:.4f} ms [{card_str}]", flush=True)
+    return out
+
+
 # --- phase 6 ---------------------------------------------------------------
 
 FLAG_KERNELS = ("pready", "pready_many", "parrived", "parrived_all",
@@ -1109,6 +1576,12 @@ KERNELS = {
     "paged_flash_decode_attend_int8": dict(
         source="mpi_acx_torch/csrc/flash_decode.cu",
         replaces="mpi_acx_tpu/ops/flash_decode.py:235"),
+    "flash_attention_stream": dict(
+        source="mpi_acx_torch/csrc/flash_attention.cu",
+        replaces="mpi_acx_tpu/ops/attention.py:269"),
+    "flash_attention_lse": dict(
+        source="mpi_acx_torch/csrc/flash_attention.cu",
+        replaces="mpi_acx_tpu/ops/attention.py:483"),
     "pready": dict(source="mpi_acx_torch/csrc/flags.cu",
                    replaces="mpi_acx_tpu/ops/flags.py:76"),
     "pready_many": dict(source="mpi_acx_torch/csrc/flags.cu",
@@ -1136,6 +1609,7 @@ def main() -> int:
 
     phase_build()
     errs = phase_kernels()
+    errs.update(phase_train_kernels())
 
     from mpi_acx_torch.models import transformer as tfm
     t0 = time.perf_counter()
@@ -1153,6 +1627,12 @@ def main() -> int:
     del params16
     torch.cuda.empty_cache()
 
+    counts.update(phase_train(card_str))
+    torch.cuda.empty_cache()
+    counts["flash_attention_stream"] = phase_long_context()
+    times.update(phase_train_timing(card_str))
+    torch.cuda.empty_cache()
+
     flag_errs = phase_flags()
     times.update(phase_flag_timing(card_str))
     counts.update(phase_exchange(card_str))
@@ -1165,12 +1645,13 @@ def main() -> int:
         if name in flag_errs:
             entry.update(max_abs_err=flag_errs[name]["abs"],
                          exact_cases=flag_errs[name]["cases"])
-        else:
-            entry.update(
-                max_abs_err=errs[(name, torch.bfloat16)]["abs"],
-                max_row_err=errs[(name, torch.bfloat16)]["row"],
-                max_abs_err_f32=errs[(name, torch.float32)]["abs"],
-                max_row_err_f32=errs[(name, torch.float32)]["row"])
+        for dtype, sfx in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+            e = errs.get((name, dtype))
+            if e is not None:
+                entry[f"max_abs_err{sfx}"] = e["abs"]
+                entry[f"max_row_err{sfx}"] = e["row"]
+                if "lse" in e:
+                    entry[f"max_lse_err{sfx}"] = e["lse"]
         entry.update(ms=t["ms"], plain_ms=t["plain_ms"],
                      bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                      library_ms=t["library_ms"])

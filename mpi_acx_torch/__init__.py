@@ -6,8 +6,10 @@ path (the GPT-2 family in :mod:`mpi_acx_torch.models`, its decode scaffold
 and scheduler, and the two attention kernels it runs on the GPU), and the
 device-triggered exchange (:mod:`mpi_acx_torch.runtime`, a ctypes binding
 over the native host plane; :mod:`mpi_acx_torch.triggers`, stream-ordered
-triggers; and the flag kernels in :mod:`mpi_acx_torch.ops.flags`). The
-kernels are written by hand for Hopper (:mod:`mpi_acx_torch.ops`, sources
+triggers; and the flag kernels in :mod:`mpi_acx_torch.ops.flags`), and
+training on one device through the framework's train step
+(:mod:`mpi_acx_torch.train` over :mod:`mpi_acx_torch.parallel`, with the
+row-logsumexp flash kernel and its backward). The kernels are written by hand for Hopper (:mod:`mpi_acx_torch.ops`, sources
 in ``csrc/``). It imports nothing of JAX or of ``mpi_acx_tpu``.
 
 Importing the package loads no submodule and does not initialise CUDA.
@@ -15,7 +17,8 @@ Importing the package loads no submodule and does not initialise CUDA.
 
 from mpi_acx_torch.version import __version__  # noqa: F401
 
-_SUBMODULES = ("device", "models", "ops", "reqlog", "runtime", "triggers")
+_SUBMODULES = ("checkpoint", "data", "device", "models", "ops", "parallel",
+               "reqlog", "runtime", "train", "triggers")
 
 
 def __getattr__(name):

@@ -2,7 +2,18 @@
 // entry point (loaded with ctypes by mpi_acx_torch/ops/attention.py).
 //
 // Replaces the TPU kernel mpi_acx_tpu/ops/attention.py:_flash_kernel, the
-// body of the pl.pallas_call in _flash_fwd_impl that flash_attention reaches.
+// body of the pl.pallas_call in _flash_fwd_impl that flash_attention reaches
+// (B6), and serves two more TPU entry points:
+//  * B10, _flash_kernel(emit_lse=True) in _flash_lse_fwd_impl, which
+//    flash_attention_lse reaches: the same kernel with EmitLse set writes
+//    the row logsumexp lse[b, h, row] = m + log(l) (f32, natural log of the
+//    scaled logits; m and l are the online softmax's own f32 state, kept in
+//    natural units: every exponential here is expf) beside o. The TPU kernel
+//    packs it into column D of one f32 output; here it is a second output.
+//  * B7, _flash_stream_kernel in _flash_stream_fwd_impl: the TPU needs a
+//    second kernel to hold one K/V tile at a time past its VMEM limit;
+//    this kernel already holds one K/V tile in shared memory for any Sk,
+//    so the streaming entry point launches it unchanged.
 // It computes the same function: q pre-scaled by 1/sqrt(D) and rounded to the
 // input type, f32 logits, an online softmax whose (m, l, acc) state stays in
 // f32 registers, probabilities rounded to the input type before the P.V
@@ -15,7 +26,10 @@
 // S <= 1024) a causal call does 2*H*D*S^2 FLOPs over 8*S*H*D bytes (bf16):
 // below ~300 FLOP/byte, so the roofline bound is the bytes, about 2 us at
 // S=1024, and a (b, h) pair yields only S/64 blocks, so few SMs hold work
-// and each must turn its tiles around fast. What the design does about it:
+// and each must turn its tiles around fast. At the training shape of B10
+// (B=4, S=1024, causal) the bound is again the bytes (25.4 MB, 7.6 us, over
+// 6.4 GFLOP, 6.5 us at the bf16 peak); the lse adds S*4 bytes per (b, h).
+// What the design does about it:
 //  * bf16 runs both products on the tensor cores (mma.sync m16n8k16, f32
 //    accumulate). Each warp owns 16 query rows; the logits' accumulator
 //    fragments are exactly the A fragments of the P.V product, so P never
@@ -81,13 +95,14 @@ constexpr int bf16_smem_bytes() {
 // row g, cols 8+2t..; {a6,a7} row g+8, cols 8+2t... B (16x8, col): {b0,b1}
 // rows 2t..2t+1 of col g; {b2,b3} rows 8+2t... C (16x8): {c0,c1} row g,
 // cols 2t..2t+1; {c2,c3} row g+8.
-template <int D>
+template <int D, bool EmitLse>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-               const uint16_t* __restrict__ v, uint16_t* __restrict__ o, int S,
-               int Sk, long long q_sb, long long q_ss, long long k_sb,
-               long long k_ss, long long v_sb, long long v_ss, long long o_sb,
-               long long o_ss, int causal, float scale) {
+               const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
+               float* __restrict__ lse, int S, int Sk, long long q_sb,
+               long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+               long long v_ss, long long o_sb, long long o_ss, int causal,
+               float scale) {
   constexpr int QP = D + 8;        // Qs/Ks row pitch (elements)
   constexpr int VP = kMmaBK + 8;   // Vt row pitch
   constexpr int NKS = D / 16;      // k steps of Q K^T
@@ -229,6 +244,12 @@ flash_fwd_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
       *reinterpret_cast<uint32_t*>(o + b * o_sb + row_hi * o_ss + h * D + d) =
           pack_bf16(acc[ob][2] / l_hi, acc[ob][3] / l_hi);
   }
+  // A row's m and l are the same in the four threads of its quad.
+  if (EmitLse && t == 0) {
+    float* lrow = lse + (static_cast<long long>(b) * gridDim.y + h) * S;
+    if (row_lo < S) lrow[row_lo] = m_lo + logf(l_lo);
+    if (row_hi < S) lrow[row_hi] = m_hi + logf(l_hi);
+  }
 }
 
 // ---- f32: FMA ---------------------------------------------------------------
@@ -244,13 +265,14 @@ constexpr int f32_smem_bytes() {
               + kWarps * kBlockK * kPPitch);  // Ps: per warp, [key][row]
 }
 
-template <int D>
+template <int D, bool EmitLse>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int S,
-              int Sk, long long q_sb, long long q_ss, long long k_sb,
-              long long k_ss, long long v_sb, long long v_ss, long long o_sb,
-              long long o_ss, int causal, float scale) {
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int S, int Sk, long long q_sb,
+              long long q_ss, long long k_sb, long long k_ss, long long v_sb,
+              long long v_ss, long long o_sb, long long o_ss, int causal,
+              float scale) {
   constexpr int DPL = D / 32;  // output columns per lane
   constexpr int KP = D + 1;
   extern __shared__ float4 smem4[];
@@ -361,6 +383,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int cc = 0; cc < DPL; ++cc)
         o[b * o_sb + s_idx * o_ss + h * D + lane + 32 * cc] = acc[r][cc] / l[r];
+      // m[r] and l[r] are warp-wide values (warp_max / warp_sum).
+      if (EmitLse && lane == 0)
+        lse[(static_cast<long long>(b) * gridDim.y + h) * S + s_idx] =
+            m[r] + logf(l[r]);
     }
   }
 }
@@ -368,21 +394,21 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // ---- launch -----------------------------------------------------------------
 
 template <typename T>
-using FwdKernel = void (*)(const T*, const T*, const T*, T*, int, int,
+using FwdKernel = void (*)(const T*, const T*, const T*, T*, float*, int, int,
                            long long, long long, long long, long long,
                            long long, long long, long long, long long, int,
                            float);
 
 template <typename T>
 cudaError_t launch(FwdKernel<T> kernel, int smem, const void* q,
-                   const void* k, const void* v, void* o, int B, int S, int Sk,
-                   int H, int D, const long long* st, int causal,
-                   cudaStream_t stream) {
+                   const void* k, const void* v, void* o, float* lse, int B,
+                   int S, int Sk, int H, int D, const long long* st,
+                   int causal, cudaStream_t stream) {
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Sk, st[0], st[1], st[2],
-      st[3], st[4], st[5], st[6], st[7], causal,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Sk, st[0], st[1],
+      st[2], st[3], st[4], st[5], st[6], st[7], causal,
       static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
   return cudaGetLastError();
 }
@@ -394,25 +420,35 @@ cudaError_t allow_smem(FwdKernel<T> kernel, int smem) {
                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int D>
+template <int D, bool EmitLse>
 cudaError_t dispatch(int dtype, const void* q, const void* k, const void* v,
-                     void* o, int B, int S, int Sk, int H, const long long* st,
-                     int causal, cudaStream_t stream) {
+                     void* o, float* lse, int B, int S, int Sk, int H,
+                     const long long* st, int causal, cudaStream_t stream) {
   if (dtype == acx::kBF16) {
-    static const cudaError_t attr =
-        allow_smem<uint16_t>(flash_fwd_bf16<D>, bf16_smem_bytes<D>());
+    static const cudaError_t attr = allow_smem<uint16_t>(
+        flash_fwd_bf16<D, EmitLse>, bf16_smem_bytes<D>());
     if (attr != cudaSuccess) return attr;
-    return launch<uint16_t>(flash_fwd_bf16<D>, bf16_smem_bytes<D>(), q, k, v,
-                            o, B, S, Sk, H, D, st, causal, stream);
+    return launch<uint16_t>(flash_fwd_bf16<D, EmitLse>, bf16_smem_bytes<D>(),
+                            q, k, v, o, lse, B, S, Sk, H, D, st, causal,
+                            stream);
   }
   if (dtype == acx::kF32) {
     static const cudaError_t attr =
-        allow_smem<float>(flash_fwd_f32<D>, f32_smem_bytes<D>());
+        allow_smem<float>(flash_fwd_f32<D, EmitLse>, f32_smem_bytes<D>());
     if (attr != cudaSuccess) return attr;
-    return launch<float>(flash_fwd_f32<D>, f32_smem_bytes<D>(), q, k, v, o,
-                         B, S, Sk, H, D, st, causal, stream);
+    return launch<float>(flash_fwd_f32<D, EmitLse>, f32_smem_bytes<D>(), q, k,
+                         v, o, lse, B, S, Sk, H, D, st, causal, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+cudaError_t check_args(int B, int S, int Sk, int H, int D, int causal) {
+  if (B <= 0 || S <= 0 || Sk <= 0 || H <= 0 || (causal && S != Sk))
+    return cudaErrorInvalidValue;
+  // Built for GPT-2's head dim alone; another D gets its own instantiation
+  // when a configuration that needs it arrives.
+  if (D != 64) return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -425,11 +461,23 @@ extern "C" int acx_flash_attention(const void* q, const void* k, const void* v,
                                    int H, int D, const long long* strides,
                                    int causal, void* stream) {
   cudaGetLastError();  // launch status below is this launch's alone
-  if (B <= 0 || S <= 0 || Sk <= 0 || H <= 0 || (causal && S != Sk))
-    return cudaErrorInvalidValue;
-  // Built for GPT-2's head dim alone; another D gets its own instantiation
-  // when a configuration that needs it arrives.
-  if (D != 64) return cudaErrorInvalidValue;
-  return dispatch<64>(dtype, q, k, v, o, B, S, Sk, H, strides, causal,
-                      static_cast<cudaStream_t>(stream));
+  const cudaError_t bad = check_args(B, S, Sk, H, D, causal);
+  if (bad != cudaSuccess) return bad;
+  return dispatch<64, false>(dtype, q, k, v, o, nullptr, B, S, Sk, H, strides,
+                             causal, static_cast<cudaStream_t>(stream));
+}
+
+// B10: the same call, which also writes the row logsumexp to lse, a
+// contiguous f32 [B, H, S] tensor.
+extern "C" int acx_flash_attention_lse(const void* q, const void* k,
+                                       const void* v, void* o, float* lse,
+                                       int dtype, int B, int S, int Sk, int H,
+                                       int D, const long long* strides,
+                                       int causal, void* stream) {
+  cudaGetLastError();  // launch status below is this launch's alone
+  if (lse == nullptr) return cudaErrorInvalidValue;
+  const cudaError_t bad = check_args(B, S, Sk, H, D, causal);
+  if (bad != cudaSuccess) return bad;
+  return dispatch<64, true>(dtype, q, k, v, o, lse, B, S, Sk, H, strides,
+                            causal, static_cast<cudaStream_t>(stream));
 }

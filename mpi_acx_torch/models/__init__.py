@@ -1,5 +1,5 @@
-"""The GPT-2 family and its continuous-batching servers (fixed-slot and
-paged KV caches), in PyTorch.
+"""The GPT-2 family (forward, loss, stage slicing) and its
+continuous-batching servers (fixed-slot and paged KV caches), in PyTorch.
 
 Exports resolve lazily, so importing the package loads no model module.
 """
@@ -12,6 +12,8 @@ _EXPORTS = {
     "params_from_jax": "transformer",
     "cast_params": "transformer",
     "forward": "transformer",
+    "loss_fn": "transformer",
+    "stage_slice": "transformer",
     "init_kv_cache": "transformer",
     "prefill": "transformer",
     "decode_step": "transformer",

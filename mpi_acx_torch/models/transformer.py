@@ -30,6 +30,7 @@ from mpi_acx_torch.models.decoding import (fill_kv_cache, greedy_generate,
                                            run_decode_layers)
 from mpi_acx_torch.ops.attention import select_attention
 from mpi_acx_torch.ops.wquant import wread
+from mpi_acx_torch.ops.xent import chunked_xent_ll
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,19 +108,23 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     return _tree_map(lambda t: t.to(dev), params)
 
 
-def params_from_jax(np_tree, device=None) -> Params:
+def params_from_jax(np_tree, device=None,
+                    requires_grad: bool = False) -> Params:
     """The JAX package's parameter tree (numpy arrays, e.g. from
-    ``jax.device_get``) as the port's parameters on ``device`` (``None``
-    means the GPU), dtypes kept — so both packages compute the same
-    function in the parity tests."""
+    ``jax.device_get``; a stage-sliced tree too) as the port's parameters
+    on ``device`` (``None`` means the GPU), dtypes kept — so both packages
+    compute the same function in the parity tests. ``requires_grad``
+    makes every floating leaf a leaf tensor that requires grad."""
     dev = resolve_device(device)
 
     def conv(a):
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":       # no numpy bf16 in torch
-            return torch.from_numpy(a.astype(np.float32)).to(
+            t = torch.from_numpy(a.astype(np.float32)).to(
                 dev, torch.bfloat16)
-        return torch.from_numpy(np.array(a)).to(dev)     # a writable copy
+        else:
+            t = torch.from_numpy(np.array(a)).to(dev)     # a writable copy
+        return t.requires_grad_(requires_grad and t.is_floating_point())
 
     return _tree_map(conv, np_tree)
 
@@ -144,7 +149,10 @@ def _unembed(x, embed):
     w = embed.to(x.dtype)
     if x.dtype == torch.float32:
         return x @ w.T
-    if x.is_cuda:
+    # aten::mm.dtype (the out_dtype product) has no derivative, so a call
+    # that is differentiated takes the f32 form below.
+    grad = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+    if x.is_cuda and not grad:
         flat = torch.mm(x.reshape(-1, x.shape[-1]), w.T,
                         out_dtype=torch.float32)
         return flat.reshape(*x.shape[:-1], w.shape[0])
@@ -187,14 +195,38 @@ def _layer(params: Params, i: int) -> Params:
     return {name: a[i] for name, a in params["layers"].items()}
 
 
-def forward(params: Params, cfg: TransformerConfig, tokens):
-    """tokens [B, S] -> logits [B, S, vocab] (f32)."""
+def _hidden(params: Params, cfg: TransformerConfig, tokens):
+    """The model trunk: tokens [B, S] -> final-layernormed hidden states
+    [B, S, d] in ``cfg.dtype``. Shared by :func:`forward` and the
+    chunked-CE loss path."""
     S = tokens.shape[1]
     x = (params["embed"][tokens] + params["pos"][:S]).to(cfg.dtype)
     for i in range(cfg.n_layers):
         x = block(cfg, _layer(params, i), x)
-    x = layernorm(x, params["lnf_g"], params["lnf_b"])
-    return _unembed(x, params["embed"])
+    return layernorm(x, params["lnf_g"], params["lnf_b"])
+
+
+def forward(params: Params, cfg: TransformerConfig, tokens):
+    """tokens [B, S] -> logits [B, S, vocab] (f32)."""
+    return _unembed(_hidden(params, cfg, tokens), params["embed"])
+
+
+def loss_fn(params: Params, cfg: TransformerConfig, tokens, targets,
+            xent_chunk: Optional[int] = None):
+    """Mean next-token cross-entropy; differentiable in the parameters.
+
+    ``xent_chunk`` selects the memory-bounded chunked-vocab CE
+    (ops/xent.py): the [B, S, vocab] logits never exist, the hidden states
+    go straight into the online-logsumexp loop and the backward recomputes
+    logit tiles. Same values and gradients up to f32 summation order."""
+    if xent_chunk is not None:
+        B, S = tokens.shape
+        x = _hidden(params, cfg, tokens)
+        ll = chunked_xent_ll(x.reshape(B * S, -1), params["embed"],
+                             targets.reshape(-1), xent_chunk)
+        return -ll.mean()
+    logp = torch.log_softmax(forward(params, cfg, tokens), dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
@@ -279,6 +311,25 @@ def decode_step(params: Params, cfg: TransformerConfig, cache, token):
                                      attend_fn)
     x = layernorm(x, params["lnf_g"], params["lnf_b"])
     return _unembed(x, params["embed"])[:, 0], out_cache
+
+
+def stage_slice(params: Params, n_stages: int) -> Params:
+    """Stacked layers [L, ...] -> [n_stages, L / n_stages, ...], so a
+    pipeline stage takes its own layer block. The staged tensors are views
+    of the input's (same storage, detached, with the input's
+    ``requires_grad``), so an in-place update of one updates the other."""
+    L = next(iter(params["layers"].values())).shape[0]
+    if L % n_stages:
+        raise ValueError(f"{L} layers do not split into {n_stages} stages")
+    per = L // n_stages
+
+    def rs(p):
+        return p.detach().reshape((n_stages, per) + tuple(
+            p.shape[1:])).requires_grad_(p.requires_grad)
+
+    out = dict(params)
+    out["layers"] = _tree_map(rs, params["layers"])
+    return out
 
 
 def check_device(params: Params, dev: torch.device) -> None:

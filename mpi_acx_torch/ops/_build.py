@@ -107,6 +107,9 @@ def lib() -> ctypes.CDLL:
         so.acx_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, s,
                                            i, p]
         so.acx_flash_attention.restype = i
+        so.acx_flash_attention_lse.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                               i, s, i, p]
+        so.acx_flash_attention_lse.restype = i
         so.acx_flash_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                         i, i, i, s, p]
         so.acx_flash_decode.restype = i

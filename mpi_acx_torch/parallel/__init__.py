@@ -1,0 +1,8 @@
+"""The parallel layer of the train step, in PyTorch: the mesh, the axis
+collectives, ring attention and the GPipe pipeline.
+
+This slice runs them on one device: every mesh axis has size 1, where
+each collective is exactly the identity. An axis larger than 1 raises
+``NotImplementedError``: multi-rank training over ``torch.distributed``
+is still to port (ROADMAP.md §A).
+"""

@@ -1,0 +1,51 @@
+"""Pipeline parallelism over a 'pp' mesh axis: the GPipe schedule of the
+JAX package's ``parallel/pipeline.py`` (``pipeline_forward``, without
+``with_aux``).
+
+T = n_micro + n_stages - 1 ticks; stage s computes microbatch m at tick
+t = s + m, and activations travel stage -> stage + 1 by ``ppermute``.
+Autograd through the tick loop gives the backward pipeline. On the
+one-device mesh of this port there is one stage and no bubble.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from mpi_acx_torch.parallel.collective import (axis_index, axis_size,
+                                               ppermute, psum)
+
+
+def _first(tree):
+    """Drop the leading stage axis of every tensor in a (nested) dict."""
+    return {k: _first(v) if isinstance(v, dict) else v[0]
+            for k, v in tree.items()}
+
+
+def pipeline_forward(stage_fn: Callable, stage_params, xs, axis_name: str):
+    """Runs ``xs`` ([n_micro, micro_batch, ...]) through the pipeline and
+    returns the last stage's outputs [n_micro, micro_batch, ...] on every
+    stage (by psum).
+
+    ``stage_params`` holds this stage's parameters under a leading stage
+    axis of 1 (dropped here). ``stage_fn(params, x) -> y`` with
+    ``y.shape == x.shape``."""
+    n_stages = axis_size(axis_name)
+    stage = axis_index(axis_name)
+    n_micro = xs.shape[0]
+    params = _first(stage_params)
+    fwd_perm = [(i, i + 1) for i in range(n_stages - 1)]  # no wraparound
+
+    from_left = torch.zeros_like(xs[0])
+    ys = []
+    for t in range(n_micro + n_stages - 1):
+        x = xs[min(t, n_micro - 1)] if stage == 0 else from_left
+        y = stage_fn(params, x)
+        from_left = ppermute(y, axis_name, fwd_perm)
+        ys.append(y)
+    # The last stage's valid outputs are those of ticks [n_stages-1, T).
+    tail = torch.stack(ys[n_stages - 1:])
+    contrib = tail if stage == n_stages - 1 else torch.zeros_like(tail)
+    return psum(contrib, axis_name)

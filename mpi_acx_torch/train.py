@@ -1,0 +1,280 @@
+"""The train step of the framework (the JAX package's ``train.py``) in
+PyTorch: GPT-2 through the dp x pp x tp/sp composition, on one device.
+
+The step is built as the JAX package builds it — embed, the GPipe
+pipeline over 'pp' (:func:`parallel.pipeline.pipeline_forward`), in each
+stage every layer's attention sequence-parallel over 'tp' by ring
+attention (:func:`parallel.ring_attention.ring_attention_batched`, whose
+blocks run B10's kernel on the card) and the MLP tensor-parallel with one
+psum, the exclusive-path loss, and the gradient reduction rule — over a
+mesh whose axes all have size 1 (:func:`parallel.mesh.mesh_from_devices`),
+where every collective is the identity. The backward is autograd through
+that program; attention's is the blockwise flash backward.
+
+Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md §A):
+mesh axes larger than 1, ``n_virtual > 1``, ``schedule="1f1b"``,
+``remat=True``, ``dp_quant_bits``, and the Llama and MoE families.
+
+Parameters are a dict of tensors, stage-sliced (:func:`models.transformer.
+stage_slice`), and the steps update them **in place**.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from mpi_acx_torch.device import resolve_device
+from mpi_acx_torch.models import transformer as tfm
+from mpi_acx_torch.ops.xent import chunked_xent_ll
+from mpi_acx_torch.parallel import collective as col
+from mpi_acx_torch.parallel.pipeline import pipeline_forward
+from mpi_acx_torch.parallel.ring_attention import ring_attention_batched
+
+_ROADMAP = "is not ported yet (ROADMAP.md §A, 'interleaved and 1F1B " \
+           "schedules, remat and dp_quant_bits')"
+
+
+def _gpt2_attn_sp(cfg, lp: Dict[str, Any], h, tp_axis: str):
+    """The GPT-2 attention half under sequence parallelism: each tp rank
+    projects q/k/v for its sequence block, ring attention rotates K/V
+    blocks, and one all_gather re-assembles the outputs."""
+    tpn = col.axis_size(tp_axis)
+    ti = col.axis_index(tp_axis)
+    mb, S, d = h.shape
+    H, Dh = cfg.n_heads, cfg.head_dim
+    blk = S // tpn
+
+    hn = tfm.layernorm(h, lp["ln1_g"], lp["ln1_b"])
+    loc = hn[:, ti * blk:(ti + 1) * blk]                       # [mb,blk,d]
+    qkv = loc @ lp["wqkv"].to(h.dtype)
+    q, k, v = (x.reshape(mb, blk, H, Dh) for x in qkv.split(d, dim=-1))
+    o = ring_attention_batched(q, k, v, tp_axis, causal=True,
+                               use_flash=cfg.use_flash).reshape(mb, blk, d)
+    o = o @ lp["wo"].to(h.dtype)
+    return h + col.all_gather(o, tp_axis, axis=1, tiled=True)  # [mb,S,d]
+
+
+def _block_sp_tp(cfg: tfm.TransformerConfig, lp: Dict[str, Any], h,
+                 tp_axis: str):
+    """Transformer block: sequence-parallel attention, then the MLP with
+    its FFN dim sharded over tp (lp's w1/b1/w2 are the local slices) and
+    one psum."""
+    h = _gpt2_attn_sp(cfg, lp, h, tp_axis)
+    hn = tfm.layernorm(h, lp["ln2_g"], lp["ln2_b"])
+    # jax.nn.gelu defaults to the tanh approximation.
+    y = F.gelu(hn @ lp["w1"].to(h.dtype) + lp["b1"].to(h.dtype),
+               approximate="tanh")                             # [mb,S,ff/tp]
+    part = y @ lp["w2"].to(h.dtype)
+    return h + col.psum(part, tp_axis) + lp["b2"].to(h.dtype)
+
+
+class _Family:
+    """Model-family adapter: what make_loss_and_grads needs to run a
+    family through the composition."""
+
+    def __init__(self, block, embed, final, head, tp_sharded):
+        self.block = block            # (cfg, lp, h, tp_axis) -> h
+        self.embed = embed            # (params, cfg, tokens) -> x [...,S,d]
+        self.final = final            # (params, ys) -> ys
+        self.head = head              # (params) -> [vocab, d] logits matrix
+        self.tp_sharded = tp_sharded  # layer-leaf name -> bool
+
+
+def _family(cfg) -> _Family:
+    if not isinstance(cfg, tfm.TransformerConfig):
+        raise NotImplementedError(
+            f"{type(cfg).__name__}: only the GPT-2 family trains in this "
+            f"port; Llama and MoE are not ported yet (ROADMAP.md §A, "
+            f"'Llama and MoE')")
+    return _Family(
+        block=_block_sp_tp,
+        embed=lambda p, c, t: (p["embed"][t] +
+                               p["pos"][:t.shape[-1]]).to(c.dtype),
+        final=lambda p, ys: tfm.layernorm(ys, p["lnf_g"], p["lnf_b"]),
+        head=lambda p: p["embed"],
+        tp_sharded=lambda k: k in ("w1", "b1", "w2"),
+    )
+
+
+def param_leaves(params):
+    """The parameter tensors of a (nested) parameter dict, in its order:
+    what to build a ``torch.optim`` optimizer over for
+    :func:`make_train_step_optim`."""
+    out = []
+    for v in params.values():
+        out.extend(param_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def _rebuild(tree, it):
+    return {k: _rebuild(v, it) if isinstance(v, dict) else next(it)
+            for k, v in tree.items()}
+
+
+def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
+                        remat: bool = False,
+                        dp_quant_bits: int | None = None,
+                        aux_weight: float = 1e-2, z_weight: float = 1e-3,
+                        schedule: str = "gpipe",
+                        xent_chunk: int | None = None, device=None):
+    """Builds ``(params, tokens, targets) -> (loss, grads)`` over a
+    ('dp', 'pp', 'tp') mesh — the core every optimizer shares — and
+    returns it with the number of pipeline stages.
+
+    ``params`` must be ``stage_slice(params, n_stages)`` on ``device``
+    (``None`` means the GPU); tokens/targets are ``[n_micro, micro_batch,
+    S]`` integers. ``grads`` has the structure of ``params``; the loss is
+    a detached f32 scalar. ``xent_chunk`` selects the chunked-vocab CE
+    (ops/xent.py). ``aux_weight``/``z_weight`` weigh the MoE router losses
+    and are ignored by the GPT-2 family."""
+    dev = resolve_device(device)
+    if n_virtual != 1:
+        raise NotImplementedError(f"n_virtual={n_virtual} {_ROADMAP}")
+    if schedule not in ("gpipe", "1f1b"):
+        raise ValueError(f"unknown schedule {schedule!r}")
+    if schedule == "1f1b":
+        raise NotImplementedError(f"schedule='1f1b' {_ROADMAP}")
+    if remat:
+        raise NotImplementedError(f"remat=True {_ROADMAP}")
+    if dp_quant_bits is not None:
+        raise NotImplementedError(f"dp_quant_bits={dp_quant_bits} "
+                                  f"{_ROADMAP}")
+    fam = _family(cfg)
+    n_stages = mesh.shape["pp"]
+
+    def ll_sum(head_mat, ys_blk, tg_blk):
+        """Summed target log-likelihood of a rank's exclusive slice."""
+        if xent_chunk is None:
+            logits = ys_blk.float() @ head_mat.T
+            logp = torch.log_softmax(logits, dim=-1)
+            return logp.gather(-1, tg_blk[..., None]).sum()
+        d = ys_blk.shape[-1]
+        return chunked_xent_ll(ys_blk.reshape(-1, d), head_mat,
+                               tg_blk.reshape(-1), xent_chunk).sum()
+
+    def reduce_grad(g, tp_sharded: bool, pp_sharded: bool):
+        """pmean over dp, psum over every axis the leaf is replicated on,
+        nothing over the axes it is sharded on."""
+        g = col.pmean(g, "dp")
+        if not tp_sharded:
+            g = col.psum(g, "tp")
+        if not pp_sharded:
+            g = col.psum(g, "pp")
+        return g
+
+    def stage_fn(stage_layers, h):
+        n = next(iter(stage_layers.values())).shape[0]
+        for i in range(n):
+            h = fam.block(cfg, {k: a[i] for k, a in stage_layers.items()}, h,
+                          "tp")
+        return h
+
+    def loss_fn(params, tokens, targets):
+        # Every rank scores only its exclusive slice — its tp sequence
+        # block, on the last pipeline stage — and psum assembles the sum,
+        # so every parameter's cotangent path is unique.
+        S = tokens.shape[-1]
+        x = fam.embed(params, cfg, tokens)             # [M, mbl, S, d]
+        ys = fam.final(params, pipeline_forward(stage_fn, params["layers"],
+                                                x, "pp"))
+        tpn = col.axis_size("tp")
+        ti = col.axis_index("tp")
+        si = col.axis_index("pp")
+        blk = S // tpn
+        ys_blk = ys[:, :, ti * blk:(ti + 1) * blk]
+        tg_blk = targets[:, :, ti * blk:(ti + 1) * blk]
+        contrib = (ll_sum(fam.head(params), ys_blk, tg_blk)
+                   if si == n_stages - 1 else ys.new_zeros((), torch.float32))
+        total = col.psum(contrib, ("pp", "tp"))
+        return -total / tokens.numel()
+
+    def grad_fn(params, tokens, targets):
+        tfm.check_device(params, dev)
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        targets = torch.as_tensor(targets, device=dev).long()
+        with mesh, torch.enable_grad():
+            # Detached aliases that require grad: the caller's tensors are
+            # left as they are, and may be updated in place afterwards.
+            live = _rebuild(params, iter(
+                p.detach().requires_grad_() for p in param_leaves(params)))
+            loss = loss_fn(live, tokens, targets)
+            flat = torch.autograd.grad(loss, param_leaves(live))
+            # The JAX step undoes the pp*tp scaling that its loss-assembly
+            # psum puts on every cotangent; kept for the same structure.
+            group = col.axis_size("pp") * col.axis_size("tp")
+            grads = _rebuild(params, iter(g / group for g in flat))
+            loss = col.pmean(loss.detach(), "dp")
+            out = {k: reduce_grad(g, False, False)
+                   for k, g in grads.items() if k != "layers"}
+            out["layers"] = {k: reduce_grad(g, fam.tp_sharded(k), True)
+                             for k, g in grads["layers"].items()}
+        return loss, {k: out[k] for k in grads}
+
+    return grad_fn, n_stages
+
+
+def make_train_step(cfg: tfm.TransformerConfig, mesh, n_micro: int,
+                    lr: float = 1e-2, n_virtual: int = 1, remat: bool = False,
+                    dp_quant_bits: int | None = None,
+                    aux_weight: float = 1e-2, z_weight: float = 1e-3,
+                    schedule: str = "gpipe", xent_chunk: int | None = None,
+                    device=None):
+    """``(params, tokens, targets) -> (loss, params)`` SGD step. The
+    parameters are updated **in place** (``p -= lr * g``) and returned.
+    Returns ``(step, n_stages)``; see :func:`make_loss_and_grads`."""
+    grad_fn, n_stages = make_loss_and_grads(
+        cfg, mesh, n_micro, n_virtual=n_virtual, remat=remat,
+        dp_quant_bits=dp_quant_bits, aux_weight=aux_weight,
+        z_weight=z_weight, schedule=schedule, xent_chunk=xent_chunk,
+        device=device)
+
+    def step(params, tokens, targets):
+        loss, grads = grad_fn(params, tokens, targets)
+        with torch.no_grad():
+            for p, g in zip(param_leaves(params), param_leaves(grads)):
+                p.sub_(lr * g)
+        return loss, params
+
+    return step, n_stages
+
+
+def make_train_step_optim(cfg: tfm.TransformerConfig, mesh, n_micro: int,
+                          optimizer: torch.optim.Optimizer,
+                          n_virtual: int = 1, remat: bool = False,
+                          dp_quant_bits: int | None = None,
+                          aux_weight: float = 1e-2, z_weight: float = 1e-3,
+                          schedule: str = "gpipe",
+                          xent_chunk: int | None = None, device=None):
+    """The train step with a ``torch.optim`` optimizer (the counterpart of
+    the JAX package's ``make_train_step_optax``).
+
+    ``optimizer`` must hold exactly the parameter tensors of the params
+    the step is given (build it over :func:`param_leaves`). Returns
+    ``(step, n_stages)``: ``step(params, tokens, targets) -> (loss,
+    params)``, the parameters updated **in place** by
+    ``optimizer.step()``; the optimizer keeps its own state."""
+    grad_fn, n_stages = make_loss_and_grads(
+        cfg, mesh, n_micro, n_virtual=n_virtual, remat=remat,
+        dp_quant_bits=dp_quant_bits, aux_weight=aux_weight,
+        z_weight=z_weight, schedule=schedule, xent_chunk=xent_chunk,
+        device=device)
+    held = {id(p) for group in optimizer.param_groups
+            for p in group["params"]}
+
+    def step(params, tokens, targets):
+        leaves = param_leaves(params)
+        if {id(p) for p in leaves} != held:
+            raise ValueError("the optimizer does not hold exactly these "
+                             "parameters (build it over param_leaves)")
+        loss, grads = grad_fn(params, tokens, targets)
+        for p, g in zip(leaves, param_leaves(grads)):
+            p.grad = g
+        optimizer.step()
+        for p in leaves:
+            p.grad = None
+        return loss, params
+
+    return step, n_stages

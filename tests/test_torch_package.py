@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from mpi_acx_torch import train as ttrain
 from mpi_acx_torch.models import kvpage as tkp
 from mpi_acx_torch.models import serving as ts
 from mpi_acx_torch.models import transformer as tt
@@ -39,7 +40,7 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax():
-    assert len(PORT_FILES) >= 12
+    assert len(PORT_FILES) >= 26
     bad = [(p.relative_to(ROOT), m) for p in PORT_FILES
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "mpi_acx_tpu")]
@@ -49,11 +50,14 @@ def test_port_imports_no_jax():
 def test_import_loads_neither_jax_nor_cuda():
     code = (
         "import sys, torch, mpi_acx_torch\n"
-        "from mpi_acx_torch import device, reqlog, runtime, triggers\n"
+        "from mpi_acx_torch import checkpoint, data, device, reqlog, "
+        "runtime, train, triggers\n"
         "from mpi_acx_torch.models import decoding, kvpage, serving, "
         "transformer\n"
         "from mpi_acx_torch.ops import _build, attention, flags, "
-        "flash_decode, kvquant\n"
+        "flash_decode, kvquant, xent\n"
+        "from mpi_acx_torch.parallel import collective, mesh, pipeline, "
+        "ring_attention\n"
         "import mpi_acx_torch.models as m; m.serve_greedy; m.gpt2_small\n"
         "m.serve_paged_greedy; m.PagedKV; m.kvpage\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
@@ -87,7 +91,18 @@ ENTRY_POINTS = {
         p, cfg, [np.arange(3, dtype=np.int32)], 2, n_slots=1, max_len=8),
     "init_page_pool": lambda cfg, p: tkp.init_page_pool(cfg, 2, 4, 1),
     "PagedKV": lambda cfg, p: tkp.PagedKV(cfg, tt, 1, 8, 4, 2),
+    "make_loss_and_grads": lambda cfg, p: ttrain.make_loss_and_grads(
+        cfg, _mesh(), 1),
+    "make_train_step": lambda cfg, p: ttrain.make_train_step(cfg, _mesh(),
+                                                             1),
+    "make_train_step_optim": lambda cfg, p: ttrain.make_train_step_optim(
+        cfg, _mesh(), 1, torch.optim.SGD([torch.zeros(1)], lr=0.1)),
 }
+
+
+def _mesh():
+    from mpi_acx_torch.parallel.mesh import mesh_from_devices
+    return mesh_from_devices({"dp": 1, "pp": 1, "tp": 1})
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
