@@ -6,10 +6,20 @@ arguments). It imports nothing of JAX and needs nothing beyond the sources
 in the repository. Phases, each of which exits non-zero on failure:
 
 1. build   — compile the CUDA kernels in mpi_acx_torch/csrc/ for sm_90a
-             (one nvcc per source, in parallel) into build/torch_kernels/.
+             (one nvcc per source, in parallel) into build/torch_kernels/;
+             then count HGMMA, UTMALDG and HMMA in each bf16
+             instantiation of K1 (cuobjdump -sass), with its registers
+             and spills: each must issue wgmma and none the legacy
+             mma.sync.
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the serving path's shapes, in bf16 and f32: max abs error
-             and row errors within TOL_ABS, TOL_ROW, TOL_ROW_F32. The
+             and row errors within TOL_ABS, TOL_ROW, TOL_ROW_F32. K1 also
+             over the ragged edges of its tiles (S of 1, 63, 65, 127, 129
+             and 1000, causal and against Sk of 333 and 1000), at B=4 on
+             the strided q/k/v views of a fused qkv product (read in
+             place, no copy), with an operand at an odd element offset
+             (copied by the wrapper, exactly once); its cases must reach
+             both CTA sizes of the wrapper's rule. The
              decode kernels in all four forms: K2 and B9 (paged), each
              over bf16/f32 and int8 caches; B9 over page sizes 16, 64
              and 128 with shuffled tables and an aliased first page, and
@@ -25,7 +35,9 @@ in the repository. Phases, each of which exits non-zero on failure:
 3. f32     — GPT-2 124M at full width in float32 served through the kernels
              and through the plain versions: the tokens must be equal (a
              divergence passes only at a true tie, see TIE), and the two
-             paths' logits over the served sequences within TIE.
+             paths' logits over the served sequences within TIE. Here and
+             on the paths of phases 4, 4b and 5b and the long-context
+             call, K1's wrapper must copy no operand.
 4. serve   — GPT-2 124M in bf16, 16 requests through 8 slots (max_len
              1024, chunk 8): every request gets its tokens, tokens/s, TTFT
              and ITL are printed, and both kernels must have launched. The
@@ -111,7 +123,12 @@ import torch
 # against the bf16 plain version, whose own row error against f32 is
 # 1.5-4.4e-2, and 1.0-1.5e-2 against f32; f32: at most 7.3e-6. The bf16
 # limits are about twice the largest reading. A dropped key tile reads
-# 0.86-2.1. The int8 forms with bf16 queries are held to the bf16 limits:
+# 0.86-2.1. K1's wgmma form over the ragged-tile, strided and odd-offset
+# cases as well: row error up to 6.4e-2 against the bf16 plain version,
+# where that version's own row error against f32 is 6.3e-2 (S=1000 against
+# Sk=333), and at most 1.8e-2 against f32; f32 at most 9.7e-6. A V stage
+# read one slot off reads 3.8. The int8 forms with bf16 queries are held
+# to the bf16 limits:
 # their plain version rounds q and the probabilities to bf16 where the
 # kernels keep them in f32. Readings on an H100 over the phase-2 cases:
 # K2-int8 row error up to 2.8e-2 against its plain version (whose own row
@@ -190,6 +207,11 @@ def card() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+def sm_count() -> int:
+    """The card's SMs: K1's CTA-size rule reads them."""
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def time_ms(fn, iters: int = 100) -> float:
     """Mean device time of one ``fn`` call: ``iters`` calls captured in a
     CUDA graph and replayed between two CUDA events, so the Python cost of
@@ -233,6 +255,65 @@ def phase_build() -> float:
     return dt
 
 
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+
+
+def phase_sass() -> None:
+    """Counts of wgmma (HGMMA), TMA load (UTMALDG) and legacy mma.sync
+    (HMMA) instructions in each bf16 instantiation of K1, from
+    ``cuobjdump -sass`` of the built library, beside its registers at
+    launch, stack and local memory (``cuobjdump -res-usage``). Fails
+    unless every one issues HGMMA and no HMMA."""
+    from mpi_acx_torch.ops import _build
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    res = subprocess.run([str(cuobjdump), "-sass",
+                          str(_build.BUILD_DIR / _build.LIB_NAME)],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass failed: {res.stderr.strip()[-2000:]}")
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "flash_fwd_bf16" in m.group(1) else None
+            if fn:
+                counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn:
+            for op in SASS_OPS:
+                counts[fn][op] += len(re.findall(rf"\b{op}\b", line))
+    # Registers, stack and local memory (spills) per function.
+    res = subprocess.run([str(cuobjdump), "-res-usage",
+                          str(_build.BUILD_DIR / _build.LIB_NAME)],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -res-usage failed: {res.stderr.strip()[-2000:]}")
+    usage, fn = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function (\S+?):?$", line.strip())
+        if m:
+            fn = m.group(1)
+        elif fn in counts and "REG:" in line:
+            usage[fn] = dict(re.findall(r"(REG|STACK|LOCAL):(\d+)", line))
+    for fn, c in counts.items():
+        t = re.search(r"flash_fwd_bf16ILi(\d)ELb(\d)EE", fn)
+        name = (f"<{t.group(1)}, {'true' if t.group(2) == '1' else 'false'}>"
+                if t else fn)
+        u = usage.get(fn, {})
+        print(f"sass flash_fwd_bf16{name} (consumer warpgroups, EmitLse): "
+              + ", ".join(f"{op} {n}" for op, n in c.items())
+              + f"; registers at launch {u.get('REG', 'missing')}, stack "
+              f"{u.get('STACK', 'missing')} B, local (spills) "
+              f"{u.get('LOCAL', 'missing')} B", flush=True)
+    if len(counts) != 4:
+        fail(f"expected 4 bf16 instantiations of K1 in the library, found "
+             f"{len(counts)}")
+    if set(usage) != set(counts):
+        fail(f"cuobjdump -res-usage gave no registers for "
+             f"{sorted(set(counts) - set(usage))}")
+    if any(c["HGMMA"] == 0 or c["HMMA"] for c in counts.values()):
+        fail("a bf16 instantiation of K1 has no HGMMA or still has HMMA")
+
+
 # --- phase 2 ---------------------------------------------------------------
 
 def errors(out, ref, ref32, rms_floor: float = 0.0) -> dict:
@@ -265,12 +346,33 @@ def check(name, desc, dtype, e) -> None:
         fail(f"{name} disagrees with its plain version")
 
 
-def k1_errs(S, Sk, causal, dtype, gen):
+def k1_errs(S, Sk, causal, dtype, gen, B=1):
+    q = randn((B, S, H, D), dtype, gen)
+    k = randn((B, Sk, H, D), dtype, gen)
+    v = randn((B, Sk, H, D), dtype, gen)
+    return k1_check(q, k, v, causal)
+
+
+def qkv_views(B, S, dtype, gen):
+    """q, k, v as ``transformer._qkv`` hands them to K1: [B, S, H, D] views
+    of one fused [B, S, 3 H D] product (seq stride 3 H D, element offsets
+    0, H D and 2 H D)."""
+    qkv = randn((B, S, 3 * H * D), dtype, gen)
+    return tuple(t.reshape(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+
+
+def odd_offset(x):
+    """``x``'s values in a tensor whose base lies one element past an
+    aligned address: TMA cannot read it in place."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def k1_check(q, k, v, causal):
     from mpi_acx_torch.ops.attention import attention_reference, \
         flash_attention
-    q = randn((1, S, H, D), dtype, gen)
-    k = randn((1, Sk, H, D), dtype, gen)
-    v = randn((1, Sk, H, D), dtype, gen)
     out = flash_attention(q, k, v, causal=causal)
     ref = attention_reference(q, k, v, causal=causal)
     ref32 = attention_reference(q.float(), k.float(), v.float(),
@@ -370,15 +472,49 @@ def phase_kernels() -> dict:
         for key, val in e.items():
             w[key] = max(w[key], val)
 
+    from mpi_acx_torch.ops.attention import block_rows, flash_attention
     slot_pos = [0, 63, 64, 500, 1023, 1, 255, 777]
+    rows_seen = set()
+    sms = sm_count()
     for dtype in (torch.bfloat16, torch.float32):
-        cases1 = [(S, S, True) for S in (8, 200, 512, 1024)]
-        cases1.append((200, 333, False))
-        for S, Sk, causal in cases1:
-            e = k1_errs(S, Sk, causal, dtype, gen)
-            check("flash_attention", f"B=1 S={S} Sk={Sk} causal={causal} "
-                  f"H={H} D={D}", dtype, e)
+        cases1 = [(1, S, S, True) for S in (8, 200, 512, 1024)]
+        cases1.append((1, 200, 333, False))
+        # Ragged edges of the 64-row q tiles and the 128-key tiles.
+        for S in (1, 63, 65, 127, 129, 1000):
+            cases1 += [(1, S, S, True), (1, S, 333, False),
+                       (1, S, 1000, False)]
+        # 128-row CTAs whose last q tile has its second warpgroup's rows
+        # wholly past S (S mod 128 in [1, 64]): its Q box is all zero fill.
+        past = [(4, S, Sk, Sk == S) for S in (1025, 1088)
+                for Sk in (S, 333, 1000)]
+        for B, S, Sk, causal in cases1 + past:
+            e = k1_errs(S, Sk, causal, dtype, gen, B=B)
+            rows = block_rows(B, S, H, sms)
+            check("flash_attention", f"B={B} S={S} Sk={Sk} causal={causal} "
+                  f"H={H} D={D}" + (f", {rows}-row CTAs"
+                                    if dtype == torch.bfloat16 else ""),
+                  dtype, e)
             keep("flash_attention", dtype, e)
+            if dtype == torch.bfloat16:
+                rows_seen.add(rows)
+                if (B, S, Sk, causal) in past and rows != 128:
+                    fail(f"B={B} S={S} was to run on 128-row CTAs, not "
+                         f"{rows}")
+        # q, k, v as the model hands them over: strided views of one fused
+        # qkv product, read in place through the tensor maps.
+        for S in (129, 1000, 1024):
+            n_copies = flash_attention.copies
+            e = k1_check(*qkv_views(4, S, dtype, gen), True)
+            rows = block_rows(4, S, H, sms)
+            check("flash_attention", f"B=4 S=Sk={S} causal H={H} D={D}, "
+                  f"q/k/v views of a fused qkv (seq stride {3 * H * D})"
+                  + (f", {rows}-row CTAs" if dtype == torch.bfloat16
+                     else ""), dtype, e)
+            keep("flash_attention", dtype, e)
+            if flash_attention.copies != n_copies:
+                fail("K1's wrapper copied a strided view of the fused qkv")
+            if dtype == torch.bfloat16:
+                rows_seen.add(rows)
         cases2 = [(1, 1, slot_pos), (1, 1, 300),
                   (3, 2, [0, 63, 64, 500, 1021, 5, 255, 777])]
         for W, n_rep, pos in cases2:
@@ -410,6 +546,22 @@ def phase_kernels() -> dict:
         print(f"B9 equal to K2 bit for bit on the same rows in all {n_bit} "
               f"{str(dtype)[6:]} cases (bf16/f32 and int8 caches)",
               flush=True)
+    if rows_seen != {64, 128}:
+        fail(f"phase 2's K1 cases reached only {sorted(rows_seen)}-row CTAs")
+    # An operand TMA cannot read in place (odd element offset): the wrapper
+    # copies it, once, and the result is the same function.
+    bf = torch.bfloat16
+    q, k, v = (randn((1, 200, H, D), bf, gen) for _ in range(3))
+    n_copies = flash_attention.copies
+    e = k1_check(odd_offset(q), k, v, True)
+    check("flash_attention", f"B=1 S=Sk=200 causal H={H} D={D}, q at an odd "
+          f"element offset", bf, e)
+    keep("flash_attention", bf, e)
+    if flash_attention.copies != n_copies + 1:
+        fail(f"an operand at an odd offset took "
+             f"{flash_attention.copies - n_copies} copies, not 1")
+    print(f"K1 cases on {sorted(rows_seen)}-row CTAs; the odd-offset operand "
+          f"took the wrapper's copy", flush=True)
     return worst
 
 
@@ -540,19 +692,30 @@ def phase_backward(gen) -> dict:
 
 
 def phase_train_kernels() -> dict:
-    """Phase 2b: B10 in both dtypes over causal S = Sk of 64, 1000 and
-    1024 and two non-causal Sk != S at B=4; B7 at S = Sk = 16384 (bf16);
-    the backward. Returns the worst errors per (kernel, dtype)."""
+    """Phase 2b: B10 in both dtypes over causal S = Sk of 64, 1000, 1024,
+    1025 and 1088 and four non-causal Sk != S at B=4 (at S = 1025 and 1088
+    the last 128-row CTA's second warpgroup lies wholly past S); B7 at
+    S = Sk = 16384 (bf16); the backward. Returns the worst errors per
+    (kernel, dtype)."""
+    from mpi_acx_torch.ops.attention import block_rows
     gen = torch.Generator(device="cuda").manual_seed(10)
     worst = {}
+    sms = sm_count()
     for dtype in (torch.bfloat16, torch.float32):
         w = {}
         for S, Sk, causal in ((64, 64, True), (1000, 1000, True),
                               (1024, 1024, True), (512, 1000, False),
-                              (1024, 64, False)):
+                              (1024, 64, False), (1025, 1025, True),
+                              (1088, 1088, True), (1025, 333, False),
+                              (1088, 1000, False)):
             e = b10_errs(S, Sk, causal, dtype, gen)
+            rows = block_rows(TRAIN_B, S, H, sms)
             desc = (f"B={TRAIN_B} S={S} Sk={Sk} causal={causal} H={H} "
-                    f"D={D}")
+                    f"D={D}" + (f", {rows}-row CTAs"
+                                if dtype == torch.bfloat16 else ""))
+            if dtype == torch.bfloat16 and S in (1025, 1088) and rows != 128:
+                fail(f"B10 at B={TRAIN_B} S={S} was to run on 128-row CTAs, "
+                     f"not {rows}")
             check("flash_attention_lse", desc, dtype, e)
             check_lse(desc, dtype, e)
             for key, val in e.items():
@@ -585,8 +748,20 @@ def attention_counters():
 
 
 def reset_counts():
+    from mpi_acx_torch.ops.attention import flash_attention
     for _, fn, attr in attention_counters():
         setattr(fn, attr, 0)
+    flash_attention.copies = 0
+
+
+def check_no_copies(label, copies=None) -> None:
+    """The path since the last reset_counts handed K1 only operands its
+    tensor maps read in place: the wrapper copied none."""
+    from mpi_acx_torch.ops.attention import flash_attention
+    copies = flash_attention.copies if copies is None else copies
+    print(f"{label}: K1 operand copies {copies}", flush=True)
+    if copies:
+        fail(f"{label}: K1's wrapper copied {copies} operands")
 
 
 def read_counts(names=None):
@@ -669,6 +844,7 @@ def phase_f32(params32):
     got = serving.serve_greedy(params32, cfg, prompts, n_new, n_slots=3,
                                max_len=256, chunk=4)
     counts = read_counts(("flash_attention", "flash_decode_attend"))
+    check_no_copies("f32 serve")
     want = serving.serve_greedy(params32, plain, prompts, n_new, n_slots=3,
                                 max_len=256, chunk=4)
     if min(counts.values()) == 0:
@@ -727,6 +903,7 @@ def phase_serve(params16, card_str):
                                max_len=1024, chunk=8)
     torch.cuda.synchronize()
     counts = read_counts(("flash_attention", "flash_decode_attend"))
+    check_no_copies("bf16 serve")
     check_served("bf16 serve", res, prompts, n_new, cfg.vocab)
     print(f"serve bf16 GPT-2 124M: 16 requests, 8 slots, max_len 1024, "
           f"chunk 8: {served_figures(res.metrics)} [{card_str}]", flush=True)
@@ -820,6 +997,7 @@ def phase_paged(params16, fixed, card_str) -> dict:
     counts = read_counts(("flash_decode_attend_int8",
                           "paged_flash_decode_attend",
                           "paged_flash_decode_attend_int8"))
+    check_no_copies("paged serve (a)-(d)")
     m = hit.metrics
     if not (m.prefix_hits >= 15 and m.prefix_pages_reused > 0
             and m.pages_hwm < cold.metrics.pages_hwm):
@@ -854,10 +1032,47 @@ def bound_ms(flops, nbytes, dtype):
                                  else "bytes")
 
 
+CTA_SHAPES = ((1, 32), (1, 128), (1, 256), (1, 512),  # B6's buckets
+              (1, 704), (1, 768),     # 132 and 144 CTAs of 64 rows
+              (4, 129), (4, 1024))    # B=4: 144 and 768 CTAs of 64 rows
+
+
+def phase_cta_sizes(card_str) -> None:
+    """K1's bf16 kernel timed with each CTA size at the same shapes,
+    causal, through the wrapper with its rule stood in for, in the order
+    64, 128, 128, 64 rows (the means are printed): at B6's four buckets and
+    on either side of the rule's one-wave boundary."""
+    from mpi_acx_torch.ops import attention as attn
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    rule, sms, agree = attn.block_rows, sm_count(), 0
+    for B, S in CTA_SHAPES:
+        q, k, v = (randn((B, S, H, D), torch.bfloat16, gen)
+                   for _ in range(3))
+        ts = {64: [], 128: []}
+        try:
+            for rows in (64, 128, 128, 64):
+                attn.block_rows = lambda *_, r=rows: r
+                ts[rows].append(time_ms(
+                    lambda: attn.flash_attention(q, k, v), iters=200))
+        finally:
+            attn.block_rows = rule
+        t = {r: float(np.mean(x)) for r, x in ts.items()}
+        pick = rule(B, S, H, sms)
+        faster = min(t, key=t.get)
+        agree += pick == faster
+        print(f"time flash_attention bf16 B={B} S={S} H={H} D={D} causal by "
+              f"CTA size: 64 rows {t[64]:.5f} ms ({B * H * -(-S // 64)} "
+              f"CTAs), 128 rows {t[128]:.5f} ms ({B * H * -(-S // 128)} "
+              f"CTAs), 64/128 {t[64] / t[128]:.3f}; the rule picks {pick} "
+              f"[{card_str}]", flush=True)
+    print(f"K1's CTA-size rule picked the faster size at {agree} of "
+          f"{len(CTA_SHAPES)} shapes ({sms} SMs)", flush=True)
+
+
 def phase_timing(card_str) -> dict:
     import torch.nn.functional as F
     from mpi_acx_torch.ops.attention import attention_reference, \
-        flash_attention
+        block_rows, flash_attention
     from mpi_acx_torch.ops.flash_decode import dense_decode_attend, \
         flash_decode_attend, paged_flash_decode_attend, paged_gather_attend
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -878,10 +1093,12 @@ def phase_timing(card_str) -> dict:
         nbytes = 4 * S * H * D * 2
         b_ms, b_by = bound_ms(flops, nbytes, bf)
         rows.append((t_k, t_p, t_l, flops, nbytes))
-        print(f"time flash_attention bf16 B=1 S={S} H={H} D={D} causal: "
-              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library (sdpa) "
-              f"{t_l:.4f} ms, bound {b_ms:.5f} ms ({b_by}) [{card_str}]",
-              flush=True)
+        print(f"time flash_attention bf16 B=1 S={S} H={H} D={D} causal, "
+              f"{block_rows(1, S, H, sm_count())}-row CTAs: kernel "
+              f"{t_k:.4f} ms "
+              f"({flops / t_k / 1e9:.1f} TFLOP/s), plain {t_p:.4f} ms, "
+              f"library (sdpa) {t_l:.4f} ms, bound {b_ms:.5f} ms ({b_by}) "
+              f"[{card_str}]", flush=True)
     mean = np.mean(rows, axis=0)
     b_ms, b_by = bound_ms(mean[3], mean[4], bf)
     out["flash_attention"] = dict(ms=mean[0], plain_ms=mean[1],
@@ -1074,11 +1291,13 @@ def train_run(cfg, init, batch):
         losses.append(loss.item())              # synchronizes
         secs.append(time.perf_counter() - t0)
     counts = read_counts()
+    from mpi_acx_torch.ops.attention import flash_attention
+    copies = flash_attention.copies
     peak = torch.cuda.max_memory_allocated()
     grad_fn, _ = train.make_loss_and_grads(cfg, mesh, TRAIN_M)
     final = grad_fn(params, *batch)[0].item()
-    return dict(losses=losses, secs=secs, counts=counts, peak=peak,
-                final=final, step=step, params=params)
+    return dict(losses=losses, secs=secs, counts=counts, copies=copies,
+                peak=peak, final=final, step=step, params=params)
 
 
 def profile_step(step, params, batch) -> dict:
@@ -1146,6 +1365,7 @@ def phase_train(card_str) -> dict:
     got = kern["counts"]["flash_attention_lse"]
     print(f"train launches, kernel run: {json.dumps(kern['counts'])}; dense "
           f"run: {json.dumps(dense['counts'])}", flush=True)
+    check_no_copies("train, kernel run", kern["copies"])
     if got != want or dense["counts"]["flash_attention_lse"] != 0:
         fail(f"B10 launched {got} times in the kernel run (want 12 layers x "
              f"{TRAIN_M} microbatches x {TRAIN_STEPS} steps = {want}) and "
@@ -1218,6 +1438,7 @@ def phase_long_context() -> int:
     counts = read_counts(("flash_attention", "flash_attention_stream"))
     print(f"long-context attention S={STREAM_S}: launches {counts}",
           flush=True)
+    check_no_copies("long-context attention")
     if counts["flash_attention_stream"] == 0 or counts["flash_attention"]:
         fail("the long-context call did not go through the streaming entry")
     if not all(torch.isfinite(x.grad.float()).all() for x in xs):
@@ -1232,7 +1453,7 @@ def phase_train_timing(card_str) -> dict:
     and one blockwise backward of the attention at the training shape."""
     import torch.nn.functional as F
     from mpi_acx_torch.ops.attention import _flash_bwd_blockwise, \
-        _reference_lse, attention_reference, flash_attention, \
+        _reference_lse, attention_reference, block_rows, flash_attention, \
         flash_attention_lse
     gen = torch.Generator(device="cuda").manual_seed(12)
     bf = torch.bfloat16
@@ -1263,8 +1484,11 @@ def phase_train_timing(card_str) -> dict:
         flops = 4 * B * H * D * S * (S + 1) / 2
         nbytes = 4 * B * S * H * D * 2 + B * S * lse_bytes
         b_ms, b_by = bound_ms(flops, nbytes, bf)
-        print(f"time {name} bf16 B={B} S={S} H={H} D={D} causal: kernel "
-              f"{t_k:.4f} ms, plain {t_p:.4f} ms, library ({lib_name}) "
+        print(f"time {name} bf16 B={B} S={S} H={H} D={D} causal, "
+              f"{block_rows(B, S, H, sm_count())}-row CTAs: kernel "
+              f"{t_k:.4f} ms "
+              f"({flops / t_k / 1e9:.1f} TFLOP/s), plain {t_p:.4f} ms, "
+              f"library ({lib_name}) "
               + ("-" if t_l is None else f"{t_l:.4f} ms")
               + f", bound {b_ms:.5f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
               f"{flops / 1e9:.2f} GFLOP) [{card_str}]", flush=True)
@@ -1608,6 +1832,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     phase_build()
+    phase_sass()
     errs = phase_kernels()
     errs.update(phase_train_kernels())
 
@@ -1623,6 +1848,7 @@ def main() -> int:
     counts, fixed = phase_serve(params16, card_str)
     counts.update(phase_paged(params16, fixed, card_str))
     times = phase_timing(card_str)
+    phase_cta_sizes(card_str)
     phase_step(params16, times["flash_decode_attend"]["ms"], card_str)
     del params16
     torch.cuda.empty_cache()

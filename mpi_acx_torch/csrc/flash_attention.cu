@@ -6,56 +6,103 @@
 // (B6), and serves two more TPU entry points:
 //  * B10, _flash_kernel(emit_lse=True) in _flash_lse_fwd_impl, which
 //    flash_attention_lse reaches: the same kernel with EmitLse set writes
-//    the row logsumexp lse[b, h, row] = m + log(l) (f32, natural log of the
-//    scaled logits; m and l are the online softmax's own f32 state, kept in
-//    natural units: every exponential here is expf) beside o. The TPU kernel
-//    packs it into column D of one f32 output; here it is a second output.
+//    the row logsumexp lse[b, h, row] = log sum_k exp(q.k/sqrt(D)) (f32,
+//    natural units) beside o. The TPU kernel packs it into column D of one
+//    f32 output; here it is a second output.
 //  * B7, _flash_stream_kernel in _flash_stream_fwd_impl: the TPU needs a
 //    second kernel to hold one K/V tile at a time past its VMEM limit;
-//    this kernel already holds one K/V tile in shared memory for any Sk,
-//    so the streaming entry point launches it unchanged.
+//    this kernel streams K/V tiles through shared memory for any Sk, so the
+//    streaming entry point launches it unchanged.
 // It computes the same function: q pre-scaled by 1/sqrt(D) and rounded to the
 // input type, f32 logits, an online softmax whose (m, l, acc) state stays in
 // f32 registers, probabilities rounded to the input type before the P.V
-// product, out = acc / l. Key tiles above the causal diagonal are never
-// visited; only the tiles that straddle the diagonal or the ragged key tail
-// evaluate the mask. Any S and Sk are accepted: the ragged tails are masked,
-// there is no "S divides into 128-multiples" rule.
+// product (l sums the unrounded f32 p), out = acc / l. Keys above the causal
+// diagonal and past Sk get probability exactly 0. Any S and Sk are accepted.
 //
-// What bounds it on the H100. At the serving shapes (B=1, H=12, D=64,
-// S <= 1024) a causal call does 2*H*D*S^2 FLOPs over 8*S*H*D bytes (bf16):
-// below ~300 FLOP/byte, so the roofline bound is the bytes, about 2 us at
-// S=1024, and a (b, h) pair yields only S/64 blocks, so few SMs hold work
-// and each must turn its tiles around fast. At the training shape of B10
-// (B=4, S=1024, causal) the bound is again the bytes (25.4 MB, 7.6 us, over
-// 6.4 GFLOP, 6.5 us at the bf16 peak); the lse adds S*4 bytes per (b, h).
-// What the design does about it:
-//  * bf16 runs both products on the tensor cores (mma.sync m16n8k16, f32
-//    accumulate). Each warp owns 16 query rows; the logits' accumulator
-//    fragments are exactly the A fragments of the P.V product, so P never
-//    leaves registers. K is staged row-major and V transposed in shared
-//    memory with row pitches that make every fragment load conflict-free.
-//  * f32 runs true-f32 FMAs (the tensor cores' f32 input mode is TF32,
-//    which would break the f32 contract): 16 rows per warp, one key per
-//    lane, K/V tiles staged once in shared memory and reused by all 64 rows.
-//  * The heaviest causal q tiles are scheduled first so the short ones fill
-//    the tail. wgmma/TMA pipelines and splitting long rows across blocks are
-//    later work.
+// bf16: wgmma on TMA-fed stages (flash_fwd_bf16).
+//  * A CTA holds 128 query rows as two consumer warpgroups of 64 rows
+//    (wgmma's M), or 64 rows with one consumer warpgroup; a third (second)
+//    warpgroup is the producer. The wrapper picks 64 rows when all CTAs of
+//    64 rows run in one wave, B*H*ceil(S/64) <= the card's SM count (on an
+//    H100, serving prefill at B=1, H=12, S <= 704), else 128: within one
+//    wave a lone warpgroup has its SM's tensor cores to itself and ends
+//    sooner; past it, one wave of 128-row CTAs beats two of 64.
+//  * Key tiles are 128 keys: with D = 64 a 64-key tile gives each wgmma of
+//    Q.K^T only 4 k-steps of work per barrier round trip and per row
+//    max/sum reduction; 128 keys halve both while the logits (64 f32 per
+//    thread) and P (32 registers) still fit beside the 32 output
+//    accumulators in the consumers' 232 registers.
+//  * One producer thread loads by TMA (cp.async.bulk.tensor over 4-D tensor
+//    maps [B, S, H, D] with the caller's strides, box [1, rows, 1, 64],
+//    128-byte swizzle: a 64-wide bf16 row is exactly 128 bytes) into a ring
+//    of kStages K/V stages, each with its own full barriers (K apart from V,
+//    so Q.K^T starts before V lands) and an empty barrier that every
+//    consumer warp arrives on when it is done with the stage. Q comes in
+//    once. TMA zero-fills rows past S and Sk; the key tail is still masked.
+//    setmaxnreg moves registers from the producer (40) to the consumers.
+//  * S = Q.K^T is wgmma m64n128k16 with both operands in swizzled shared
+//    memory. O += P.V is wgmma m64n64k16 with P in registers: the logits'
+//    accumulator layout is exactly the A-fragment layout, so P is packed to
+//    bf16 in place and never touches shared memory; V is the B operand read
+//    from its row-major tile with the transpose flag, never copied.
+//  * Softmax in raw-logit units. For D = 64 the scale 1/8 is a power of
+//    two, so q*(1/8) rounded to bf16 is q scaled exactly (every normal q)
+//    and the scaled logit is the raw one times 1/8 exactly. The scale
+//    therefore moves into the exponent: m is the raw row max, p =
+//    exp2f(s*c - m*c) with c = log2(e)/8, and lse = m/8 + logf(l). This
+//    rests on D = 64; another head dim needs its own instantiation and
+//    the explicit scaling.
+//  * Key tiles are visited from the last (diagonal or tail) to the first,
+//    so only the first one or two iterations evaluate the mask; tiles
+//    above the diagonal are never loaded. q tiles are scheduled heaviest
+//    first (no persistent scheduler) so the short ones fill the tail.
+//  * The epilogue stores acc / l rounded to bf16; EmitLse is a
+//    compile-time flag, so B6's instantiations compile the lse store out.
+//    Overlap of one warpgroup's softmax with the other's products is left
+//    to the warp schedulers (FA3's explicit ping-pong is later work).
+// f32: true-f32 FMAs (flash_fwd_f32; the tensor cores' f32 input mode is
+// TF32, which would break the f32 contract): 16 rows per warp, one key per
+// lane, K/V tiles staged once in shared memory and reused by all 64 rows.
+//
+// What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s):
+//  * B6, serving prefill (B=1, H=12, S = 32..512, causal): the bytes
+//    (8*S*H*D, under 1 us) and, below them, the launch: 12-96 CTAs of 64
+//    rows, one to four key tiles each. The design keeps the per-tile
+//    latency low (one TMA per operand, no staging passes) and the 64-row
+//    variant doubles the SMs at work, each with half the tensor work.
+//  * B10, training (B=4, S=1024, causal): the bytes (25.4 MB, 7.6 us)
+//    just above the operations (6.4 GFLOP, 6.5 us); 384 CTAs of 128 rows.
+//  * B7, long context (B=1, S=16384, causal): the operations (412 GFLOP,
+//    0.417 ms); 1536 CTAs of 128 rows, up to 128 key tiles each, where the
+//    producer's ring keeps the next tiles in flight behind the products.
+// Resources (nvcc -Xptxas -v, sm_90a): flash_fwd_bf16<2, *> is allocated
+// 168 registers a thread at launch (384 threads), which setmaxnreg turns
+// into 232 for the consumers and 40 for the producer; flash_fwd_bf16<1, *>
+// uses 131; no instantiation spills. Shared memory is dynamic (ptxas
+// reports none): bf16_smem_bytes, 115,792 bytes a CTA of 128 rows and
+// 107,600 of 64, so one CTA per SM, which the registers require anyway.
+#include <cuda.h>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRows = 16;                   // query rows per warp
-constexpr int kBlockQ = kWarps * kRows;     // query rows per block
+constexpr int kTileKeys = 128;              // bf16: keys per tile
+constexpr int kStages = 3;                  // bf16: K/V ring depth
+constexpr int kWgRows = 64;                 // bf16: query rows per consumer WG
+constexpr int kHeadDim = 64;
+constexpr float kLog2eOver8 = 1.4426950408889634f / 8.f;  // log2(e)/sqrt(64)
+constexpr int kTileBytes = kTileKeys * kHeadDim * 2;        // one K or V stage
+constexpr int kQBytes = kWgRows * kHeadDim * 2;           // one WG's Q tile
 
-// Tiles [0, n_full) are visible to every row of the q tile at q0; tiles
-// [n_full, n_tiles) straddle the diagonal or the key tail and are masked.
-__device__ __forceinline__ void tile_bounds(int q0, int S, int Sk, int causal,
-                                            int block_k, int* n_tiles,
-                                            int* n_full) {
+// Tiles [0, n_full) are visible to every row of the q tile [q0, q0 +
+// block_q); tiles [n_full, n_tiles) straddle the diagonal or the key tail
+// and are masked.
+__device__ __forceinline__ void tile_bounds(int q0, int block_q, int S, int Sk,
+                                            int causal, int block_k,
+                                            int* n_tiles, int* n_full) {
   if (causal) {
-    *n_tiles = (min(q0 + kBlockQ, S) - 1) / block_k + 1;
+    *n_tiles = (min(q0 + block_q, S) - 1) / block_k + 1;
     *n_full = (q0 + 1) / block_k;
   } else {
     *n_tiles = (Sk + block_k - 1) / block_k;
@@ -63,152 +110,304 @@ __device__ __forceinline__ void tile_bounds(int q0, int S, int Sk, int causal,
   }
 }
 
-// ---- bf16: tensor cores -----------------------------------------------------
-
-constexpr int kMmaBK = 64;  // keys per tile
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// ---- bf16: wgmma on TMA-fed stages -----------------------------------------
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return static_cast<uint32_t>(acx::from_f32<uint16_t>(lo)) |
          (static_cast<uint32_t>(acx::from_f32<uint16_t>(hi)) << 16);
 }
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int D>
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spins until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA box of a 4-D map {D, H, S, B} (innermost first) into shared
+// memory; completes `bytes` of the barrier's expected transactions.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int s, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h), "r"(s),
+      "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128B-swizzled tile whose 8-row groups
+// are 1024 bytes apart (SBO = 1024 B; LBO unused for these layouts), tile
+// base 1024-byte aligned. A k-step within the 128-byte row advances the
+// start address by its byte offset.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Orders reads of wgmma accumulators after wgmma_wait_all: to the compiler
+// the asm of a wgmma yields its outputs at once, so without this it could
+// hoist their uses above the wait.
+// The same before a wgmma_fence, so that writes to the accumulators and to
+// the A fragments stay ahead of the fence.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N, int M>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// S (+)= A.B^T: m64n128k16, A and B K-major in 128B-swizzled shared memory.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// O += P.V: m64n64k16, A (P) from registers, B (V) MN-major in
+// 128B-swizzled shared memory, read transposed (imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Shared memory of a CTA with NC consumer warpgroups: 1024 bytes of slack to
+// align the tiles to the swizzle's period, Q (64 rows per warpgroup), the
+// K and V rings, and the barriers (q_full, k_full[], v_full[], empty[]).
+template <int NC>
 constexpr int bf16_smem_bytes() {
-  return 2 * ((kBlockQ + kMmaBK) * (D + 8) + D * (kMmaBK + 8));
+  return 1024 + NC * kQBytes + 2 * kStages * kTileBytes + 8 * (1 + 3 * kStages);
 }
 
-// Fragment layout of mma.m16n8k16 (PTX ISA), g = lane / 4, t = lane % 4:
-// A (16x16, row): {a0,a1} row g, cols 2t..2t+1; {a2,a3} row g+8; {a4,a5}
-// row g, cols 8+2t..; {a6,a7} row g+8, cols 8+2t... B (16x8, col): {b0,b1}
-// rows 2t..2t+1 of col g; {b2,b3} rows 8+2t... C (16x8): {c0,c1} row g,
-// cols 2t..2t+1; {c2,c3} row g+8.
-template <int D, bool EmitLse>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_fwd_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-               const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
-               float* __restrict__ lse, int S, int Sk, long long q_sb,
-               long long q_ss, long long k_sb, long long k_ss, long long v_sb,
-               long long v_ss, long long o_sb, long long o_ss, int causal,
-               float scale) {
-  constexpr int QP = D + 8;        // Qs/Ks row pitch (elements)
-  constexpr int VP = kMmaBK + 8;   // Vt row pitch
-  constexpr int NKS = D / 16;      // k steps of Q K^T
-  constexpr int NSB = kMmaBK / 8;  // 8-key column blocks of the logits
-  constexpr int NOB = D / 8;       // 8-wide column blocks of the output
-  constexpr int NPS = kMmaBK / 16; // k steps of P V
-  extern __shared__ uint4 smem_u4[];
-  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem_u4);  // [kBlockQ][QP]
-  uint16_t* Ks = Qs + kBlockQ * QP;                     // [kMmaBK][QP]
-  uint16_t* Vt = Ks + kMmaBK * QP;                      // [D][VP], transposed
+// Accumulator layout of wgmma m64nN (f32), thread t of a warpgroup, warp
+// w = t / 32, g = (t % 32) / 4, qd = t % 4: d[4*nb + e] holds row 16w + g
+// (e < 2) or 16w + g + 8 (e >= 2), column 8*nb + 2*qd + (e & 1). The bf16
+// A fragment of a k16 step ks is {d[8ks..8ks+1], d[8ks+2..+3],
+// d[8ks+4..+5], d[8ks+6..+7]}, each pair packed: the logits' accumulators
+// of keys [16ks, 16ks + 16) are P's A fragment for that step.
+template <int NC, bool EmitLse>
+__global__ void __launch_bounds__((NC + 1) * 128, 1)
+flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               uint16_t* __restrict__ o, float* __restrict__ lse, int S,
+               int Sk, long long o_sb, long long o_ss, int causal) {
+  constexpr int kRowsPerCta = NC * kWgRows;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + NC * kQBytes;
+  const uint32_t sv = sk + kStages * kTileBytes;
+  const uint32_t q_full = sv + kStages * kTileBytes;
+  const uint32_t k_full = q_full + 8;             // + 8 * stage
+  const uint32_t v_full = k_full + 8 * kStages;
+  const uint32_t empty = v_full + 8 * kStages;
 
-  const int n_qt = (S + kBlockQ - 1) / kBlockQ;
-  const int q0 = (n_qt - 1 - blockIdx.x) * kBlockQ;  // heaviest tiles first
+  const int n_qt = (S + kRowsPerCta - 1) / kRowsPerCta;
+  const int q0 = (n_qt - 1 - blockIdx.x) * kRowsPerCta;  // heaviest tiles first
   const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x, wg = tid / 128;
+  int n_tiles, n_full;
+  tile_bounds(q0, kRowsPerCta, S, Sk, causal, kTileKeys, &n_tiles, &n_full);
 
-  for (int idx = tid; idx < kBlockQ * D; idx += kWarps * 32) {
-    const int r = idx / D, d = idx % D, s = q0 + r;
-    Qs[r * QP + d] =
-        s < S ? acx::from_f32<uint16_t>(
-                    acx::to_f32(q[b * q_sb + s * q_ss + h * D + d]) * scale)
-              : 0;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * NC);  // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  uint32_t qa[NKS][4];
-  const uint16_t* qrow = Qs + (warp * kRows + g) * QP + 2 * t;
-#pragma unroll
-  for (int ks = 0; ks < NKS; ++ks) {
-    qa[ks][0] = ld32(qrow + ks * 16);
-    qa[ks][1] = ld32(qrow + 8 * QP + ks * 16);
-    qa[ks][2] = ld32(qrow + ks * 16 + 8);
-    qa[ks][3] = ld32(qrow + 8 * QP + ks * 16 + 8);
-  }
 
-  int n_tiles, n_full;
-  tile_bounds(q0, S, Sk, causal, kMmaBK, &n_tiles, &n_full);
-  const int row_lo = q0 + warp * kRows + g;  // this thread's two rows
-  const int row_hi = row_lo + 8;
-  float m_lo = acx::kNegInf, m_hi = acx::kNegInf, l_lo = 0.f, l_hi = 0.f;
-  float acc[NOB][4];
-#pragma unroll
-  for (int ob = 0; ob < NOB; ++ob)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[ob][e] = 0.f;
-
-  for (int j = 0; j < n_tiles; ++j) {
-    const int c0 = j * kMmaBK;
-    __syncthreads();  // previous tile fully consumed
-    for (int idx = tid; idx < kMmaBK * D; idx += kWarps * 32) {
-      const int r = idx / D, d = idx % D, c = c0 + r;
-      uint16_t kx = 0, vx = 0;
-      if (c < Sk) {
-        kx = k[b * k_sb + c * k_ss + h * D + d];
-        vx = v[b * v_sb + c * v_ss + h * D + d];
+  if (wg == NC) {
+    // Producer. With two consumer warpgroups (384 threads, 168 registers
+    // each at launch) it hands its registers to them; with one the block
+    // is small enough that every thread already has what it needs.
+    if (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == NC * 128) {
+      mbar_expect_tx(q_full, NC * kQBytes);
+      for (int w = 0; w < NC; ++w)
+        tma_load(sq + w * kQBytes, &tm_q, q_full, q0 + w * kWgRows, h, b);
+      int s = 0;
+      uint32_t par = 0;
+      for (int it = 0; it < n_tiles; ++it) {
+        const int c0 = (n_tiles - 1 - it) * kTileKeys;  // last tile first
+        mbar_wait(empty + 8 * s, par ^ 1);  // a fresh stage passes at once
+        mbar_expect_tx(k_full + 8 * s, kTileBytes);
+        tma_load(sk + s * kTileBytes, &tm_k, k_full + 8 * s, c0, h, b);
+        mbar_expect_tx(v_full + 8 * s, kTileBytes);
+        tma_load(sv + s * kTileBytes, &tm_v, v_full + 8 * s, c0, h, b);
+        if (++s == kStages) {
+          s = 0;
+          par ^= 1;
+        }
       }
-      Ks[r * QP + d] = kx;
-      Vt[d * VP + r] = vx;
     }
-    __syncthreads();
+    return;
+  }
+  if (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
 
-    // Logits: 16 rows x 64 keys per warp, f32 accumulators.
-    float sc[NSB][4];
+  // Consumer warpgroup wg: query rows [q0 + 64 wg, q0 + 64 wg + 64).
+  const int t = tid % 128, warp = t / 32, lane = t % 32;
+  const int g = lane >> 2, qd = lane & 3;
+  const int row_lo = q0 + wg * kWgRows + warp * 16 + g;  // this thread's rows
+  const int row_hi = row_lo + 8;
+  const uint32_t q_tile = sq + wg * kQBytes;
+  const float c = kLog2eOver8;
+  float m_lo = acx::neg_inf(), m_hi = acx::neg_inf(), l_lo = 0.f, l_hi = 0.f;
+  float acc[32];
 #pragma unroll
-    for (int nb = 0; nb < NSB; ++nb) {
-      sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
-      const uint16_t* krow = Ks + (nb * 8 + g) * QP + 2 * t;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  int s = 0;
+  uint32_t par = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int j = n_tiles - 1 - it, c0 = j * kTileKeys;
+    // Raw logits of 64 rows x 128 keys (q unscaled; see the note above).
+    float sc[64];
+    mbar_wait(k_full + 8 * s, par);
+    wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < NKS; ++ks)
-        mma_bf16(sc[nb], qa[ks], ld32(krow + ks * 16), ld32(krow + ks * 16 + 8));
-    }
+    for (int ks = 0; ks < kHeadDim / 16; ++ks)
+      wgmma_ss_n128(sc, sw128_desc(q_tile + 32 * ks),
+                    sw128_desc(sk + s * kTileBytes + 32 * ks), ks);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
     if (j >= n_full) {
 #pragma unroll
-      for (int nb = 0; nb < NSB; ++nb)
+      for (int nb = 0; nb < kTileKeys / 8; ++nb)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int col = c0 + nb * 8 + 2 * t + (e & 1);
+          const int col = c0 + nb * 8 + 2 * qd + (e & 1);
           const int row = e < 2 ? row_lo : row_hi;
-          if (col >= Sk || (causal && col > row)) sc[nb][e] = acx::neg_inf();
+          if (col >= Sk || (causal && col > row))
+            sc[nb * 4 + e] = acx::neg_inf();
         }
     }
 
-    // Online softmax; a row's 64 logits sit in the 4 threads of a quad.
-    float mx_lo = acx::kNegInf, mx_hi = acx::kNegInf;
+    // Online softmax; a row's 128 logits sit in the 4 threads of a quad.
+    float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
-    for (int nb = 0; nb < NSB; ++nb) {
-      mx_lo = fmaxf(mx_lo, fmaxf(sc[nb][0], sc[nb][1]));
-      mx_hi = fmaxf(mx_hi, fmaxf(sc[nb][2], sc[nb][3]));
+    for (int nb = 0; nb < kTileKeys / 8; ++nb) {
+      mx_lo = fmaxf(mx_lo, fmaxf(sc[nb * 4], sc[nb * 4 + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sc[nb * 4 + 2], sc[nb * 4 + 3]));
     }
 #pragma unroll
     for (int o2 = 1; o2 <= 2; o2 <<= 1) {
       mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, o2));
       mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, o2));
     }
-    const float mn_lo = fmaxf(m_lo, mx_lo), mn_hi = fmaxf(m_hi, mx_hi);
-    const float corr_lo = expf(m_lo - mn_lo), corr_hi = expf(m_hi - mn_hi);
-    m_lo = mn_lo;
-    m_hi = mn_hi;
-    // P as the A fragments of P V: logits block nb is half (nb & 1) of
-    // k step nb / 2. Masked logits are -inf, so their p is exactly 0.
-    uint32_t pa[NPS][4];
+    // A row with no visible key yet keeps m = -inf; its exponent offset
+    // is then 0 so that masked logits still give exp2f(-inf) = 0.
+    const float mc_lo = mx_lo == acx::neg_inf() ? 0.f : mx_lo * c;
+    const float mc_hi = mx_hi == acx::neg_inf() ? 0.f : mx_hi * c;
+    const float corr_lo = exp2f(fmaf(m_lo, c, -mc_lo));
+    const float corr_hi = exp2f(fmaf(m_hi, c, -mc_hi));
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    uint32_t pa[kTileKeys / 16][4];
     float s_lo = 0.f, s_hi = 0.f;
 #pragma unroll
-    for (int nb = 0; nb < NSB; ++nb) {
-      const float p0 = expf(sc[nb][0] - mn_lo), p1 = expf(sc[nb][1] - mn_lo);
-      const float p2 = expf(sc[nb][2] - mn_hi), p3 = expf(sc[nb][3] - mn_hi);
+    for (int nb = 0; nb < kTileKeys / 8; ++nb) {
+      const float p0 = exp2f(fmaf(sc[nb * 4], c, -mc_lo));
+      const float p1 = exp2f(fmaf(sc[nb * 4 + 1], c, -mc_lo));
+      const float p2 = exp2f(fmaf(sc[nb * 4 + 2], c, -mc_hi));
+      const float p3 = exp2f(fmaf(sc[nb * 4 + 3], c, -mc_hi));
       s_lo += p0 + p1;
       s_hi += p2 + p3;
       pa[nb >> 1][(nb & 1) * 2] = pack_bf16(p0, p1);
@@ -222,37 +421,57 @@ flash_fwd_bf16(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     l_lo = corr_lo * l_lo + s_lo;
     l_hi = corr_hi * l_hi + s_hi;
 #pragma unroll
-    for (int ob = 0; ob < NOB; ++ob) {
-      acc[ob][0] *= corr_lo;
-      acc[ob][1] *= corr_lo;
-      acc[ob][2] *= corr_hi;
-      acc[ob][3] *= corr_hi;
-      const uint16_t* vrow = Vt + (ob * 8 + g) * VP + 2 * t;
+    for (int ob = 0; ob < kHeadDim / 8; ++ob) {
+      acc[ob * 4] *= corr_lo;
+      acc[ob * 4 + 1] *= corr_lo;
+      acc[ob * 4 + 2] *= corr_hi;
+      acc[ob * 4 + 3] *= corr_hi;
+    }
+
+    // acc += P V: 8 k-steps of 16 keys, each 16 rows of the V tile (2048 B).
+    mbar_wait(v_full + 8 * s, par);
+    fence_regs(acc);
+    fence_regs(pa);
+    wgmma_fence();
 #pragma unroll
-      for (int ps = 0; ps < NPS; ++ps)
-        mma_bf16(acc[ob], pa[ps], ld32(vrow + ps * 16), ld32(vrow + ps * 16 + 8));
+    for (int ks = 0; ks < kTileKeys / 16; ++ks)
+      wgmma_rs_n64(acc, pa[ks], sw128_desc(sv + s * kTileBytes + ks * 2048));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * s);  // this warp is done with it
+    if (++s == kStages) {
+      s = 0;
+      par ^= 1;
     }
   }
 
+  uint16_t* obase = o + b * o_sb + h * kHeadDim;
 #pragma unroll
-  for (int ob = 0; ob < NOB; ++ob) {
-    const int d = ob * 8 + 2 * t;
+  for (int ob = 0; ob < kHeadDim / 8; ++ob) {
+    const int d = ob * 8 + 2 * qd;
     if (row_lo < S)
-      *reinterpret_cast<uint32_t*>(o + b * o_sb + row_lo * o_ss + h * D + d) =
-          pack_bf16(acc[ob][0] / l_lo, acc[ob][1] / l_lo);
+      *reinterpret_cast<uint32_t*>(obase + row_lo * o_ss + d) =
+          pack_bf16(acc[ob * 4] / l_lo, acc[ob * 4 + 1] / l_lo);
     if (row_hi < S)
-      *reinterpret_cast<uint32_t*>(o + b * o_sb + row_hi * o_ss + h * D + d) =
-          pack_bf16(acc[ob][2] / l_hi, acc[ob][3] / l_hi);
+      *reinterpret_cast<uint32_t*>(obase + row_hi * o_ss + d) =
+          pack_bf16(acc[ob * 4 + 2] / l_hi, acc[ob * 4 + 3] / l_hi);
   }
-  // A row's m and l are the same in the four threads of its quad.
-  if (EmitLse && t == 0) {
+  // A row's m and l are the same in the four threads of its quad; m is in
+  // raw-logit units, so m / 8 is the scaled max exactly (D = 64).
+  if (EmitLse && qd == 0) {
     float* lrow = lse + (static_cast<long long>(b) * gridDim.y + h) * S;
-    if (row_lo < S) lrow[row_lo] = m_lo + logf(l_lo);
-    if (row_hi < S) lrow[row_hi] = m_hi + logf(l_hi);
+    if (row_lo < S) lrow[row_lo] = m_lo * 0.125f + logf(l_lo);
+    if (row_hi < S) lrow[row_hi] = m_hi * 0.125f + logf(l_hi);
   }
 }
 
 // ---- f32: FMA ---------------------------------------------------------------
+
+constexpr int kWarps = 4;
+constexpr int kRows = 16;                   // query rows per warp
+constexpr int kBlockQ = kWarps * kRows;     // query rows per block
 
 constexpr int kBlockK = 32;                 // keys per tile: one per lane
 constexpr int kPPitch = kRows + 4;          // P tile pitch (16B-aligned rows)
@@ -292,7 +511,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   int n_tiles, n_full;
-  tile_bounds(q0, S, Sk, causal, kBlockK, &n_tiles, &n_full);
+  tile_bounds(q0, kBlockQ, S, Sk, causal, kBlockK, &n_tiles, &n_full);
   float m[kRows], l[kRows], acc[kRows][DPL];
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
@@ -393,52 +612,109 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // ---- launch -----------------------------------------------------------------
 
-template <typename T>
-using FwdKernel = void (*)(const T*, const T*, const T*, T*, float*, int, int,
-                           long long, long long, long long, long long,
-                           long long, long long, long long, long long, int,
-                           float);
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime so the
+// library links no libcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
 
-template <typename T>
-cudaError_t launch(FwdKernel<T> kernel, int smem, const void* q,
-                   const void* k, const void* v, void* o, float* lse, int B,
-                   int S, int Sk, int H, int D, const long long* st,
-                   int causal, cudaStream_t stream) {
-  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, Sk, st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], causal,
-      static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A 4-D bf16 map {D, H, S, B} (innermost first) over [B, S, H, D] with
+// element strides sb, ss (head stride D, element stride 1), boxes of `rows`
+// rows of one (b, h), 128-byte swizzle, zero fill out of bounds.
+CUresult encode_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
+                    long long sb, long long ss, int rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(kHeadDim) * 2,
+                                 static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kHeadDim, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Returns 0 when launched, a cudaError_t, or minus the CUresult of a
+// failed tensor-map encode.
+template <int NC, bool EmitLse>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int S, int Sk, int H, const long long* st,
+                int causal, cudaStream_t stream) {
+  constexpr int smem = bf16_smem_bytes<NC>();
+  // Above 48 KB a block's shared memory must be opted into, once per kernel.
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_bf16<NC, EmitLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (attr != cudaSuccess) return attr;
+  CUtensorMap mq, mk, mv;
+  CUresult r = encode_map(&mq, q, B, S, H, st[0], st[1], kWgRows);
+  if (r == CUDA_SUCCESS)
+    r = encode_map(&mk, k, B, Sk, H, st[2], st[3], kTileKeys);
+  if (r == CUDA_SUCCESS)
+    r = encode_map(&mv, v, B, Sk, H, st[4], st[5], kTileKeys);
+  if (r != CUDA_SUCCESS) return -static_cast<int>(r);
+  const dim3 grid((S + NC * kWgRows - 1) / (NC * kWgRows), H, B);
+  flash_fwd_bf16<NC, EmitLse><<<grid, (NC + 1) * 128, smem, stream>>>(
+      mq, mk, mv, static_cast<uint16_t*>(o), lse, S, Sk, st[6], st[7],
+      causal);
   return cudaGetLastError();
 }
 
-// Above 48 KB a block's shared memory must be opted into, once per kernel.
-template <typename T>
-cudaError_t allow_smem(FwdKernel<T> kernel, int smem) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+template <bool EmitLse>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int S, int Sk, int H, const long long* st,
+               int causal, cudaStream_t stream) {
+  constexpr int smem = f32_smem_bytes<kHeadDim>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_f32<kHeadDim, EmitLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
+  flash_fwd_f32<kHeadDim, EmitLse><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, Sk, st[0],
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], causal,
+      static_cast<float>(1.0 / sqrt(static_cast<double>(kHeadDim))));
+  return cudaGetLastError();
 }
 
-template <int D, bool EmitLse>
-cudaError_t dispatch(int dtype, const void* q, const void* k, const void* v,
-                     void* o, float* lse, int B, int S, int Sk, int H,
-                     const long long* st, int causal, cudaStream_t stream) {
-  if (dtype == acx::kBF16) {
-    static const cudaError_t attr = allow_smem<uint16_t>(
-        flash_fwd_bf16<D, EmitLse>, bf16_smem_bytes<D>());
-    if (attr != cudaSuccess) return attr;
-    return launch<uint16_t>(flash_fwd_bf16<D, EmitLse>, bf16_smem_bytes<D>(),
-                            q, k, v, o, lse, B, S, Sk, H, D, st, causal,
-                            stream);
-  }
-  if (dtype == acx::kF32) {
-    static const cudaError_t attr =
-        allow_smem<float>(flash_fwd_f32<D, EmitLse>, f32_smem_bytes<D>());
-    if (attr != cudaSuccess) return attr;
-    return launch<float>(flash_fwd_f32<D, EmitLse>, f32_smem_bytes<D>(), q, k,
-                         v, o, lse, B, S, Sk, H, D, st, causal, stream);
-  }
+// bf16 takes block_q 64 or 128 (query rows per CTA, chosen by the
+// wrapper); the f32 kernel's blocks are 64 rows.
+template <bool EmitLse>
+int dispatch(int dtype, const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int S, int Sk, int H, const long long* st,
+             int causal, int block_q, cudaStream_t stream) {
+  if (dtype == acx::kBF16 && block_q == 128)
+    return launch_bf16<2, EmitLse>(q, k, v, o, lse, B, S, Sk, H, st, causal,
+                                   stream);
+  if (dtype == acx::kBF16 && block_q == 64)
+    return launch_bf16<1, EmitLse>(q, k, v, o, lse, B, S, Sk, H, st, causal,
+                                   stream);
+  if (dtype == acx::kF32 && block_q == kBlockQ)
+    return launch_f32<EmitLse>(q, k, v, o, lse, B, S, Sk, H, st, causal,
+                               stream);
   return cudaErrorInvalidValue;
 }
 
@@ -447,7 +723,7 @@ cudaError_t check_args(int B, int S, int Sk, int H, int D, int causal) {
     return cudaErrorInvalidValue;
   // Built for GPT-2's head dim alone; another D gets its own instantiation
   // when a configuration that needs it arrives.
-  if (D != 64) return cudaErrorInvalidValue;
+  if (D != kHeadDim) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
@@ -455,16 +731,19 @@ cudaError_t check_args(int B, int S, int Sk, int H, int D, int causal) {
 
 // q [B,S,H,D], k/v [B,Sk,H,D], o [B,S,H,D]; the head stride must be D and
 // the element stride 1. strides = {q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
-// o_ss} in elements. Returns the cudaError_t of the launch (0 = launched).
+// o_ss} in elements; for bf16 every q/k/v stride and base address must be
+// a multiple of 16 bytes (TMA). block_q: query rows per CTA (bf16: 64 or
+// 128; f32: 64). Returns 0 when launched, else a cudaError_t, or minus the
+// CUresult of a failed tensor-map encode.
 extern "C" int acx_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, int dtype, int B, int S, int Sk,
                                    int H, int D, const long long* strides,
-                                   int causal, void* stream) {
+                                   int causal, int block_q, void* stream) {
   cudaGetLastError();  // launch status below is this launch's alone
   const cudaError_t bad = check_args(B, S, Sk, H, D, causal);
   if (bad != cudaSuccess) return bad;
-  return dispatch<64, false>(dtype, q, k, v, o, nullptr, B, S, Sk, H, strides,
-                             causal, static_cast<cudaStream_t>(stream));
+  return dispatch<false>(dtype, q, k, v, o, nullptr, B, S, Sk, H, strides,
+                         causal, block_q, static_cast<cudaStream_t>(stream));
 }
 
 // B10: the same call, which also writes the row logsumexp to lse, a
@@ -473,11 +752,11 @@ extern "C" int acx_flash_attention_lse(const void* q, const void* k,
                                        const void* v, void* o, float* lse,
                                        int dtype, int B, int S, int Sk, int H,
                                        int D, const long long* strides,
-                                       int causal, void* stream) {
+                                       int causal, int block_q, void* stream) {
   cudaGetLastError();  // launch status below is this launch's alone
   if (lse == nullptr) return cudaErrorInvalidValue;
   const cudaError_t bad = check_args(B, S, Sk, H, D, causal);
   if (bad != cudaSuccess) return bad;
-  return dispatch<64, true>(dtype, q, k, v, o, lse, B, S, Sk, H, strides,
-                            causal, static_cast<cudaStream_t>(stream));
+  return dispatch<true>(dtype, q, k, v, o, lse, B, S, Sk, H, strides, causal,
+                        block_q, static_cast<cudaStream_t>(stream));
 }

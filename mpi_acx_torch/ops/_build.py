@@ -105,10 +105,10 @@ def lib() -> ctypes.CDLL:
         p, i, s = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(
             ctypes.c_longlong)
         so.acx_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, s,
-                                           i, p]
+                                           i, i, p]
         so.acx_flash_attention.restype = i
         so.acx_flash_attention_lse.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                               i, s, i, p]
+                                               i, s, i, i, p]
         so.acx_flash_attention_lse.restype = i
         so.acx_flash_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
                                         i, i, i, s, p]

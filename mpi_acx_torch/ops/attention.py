@@ -41,6 +41,7 @@ from mpi_acx_torch.ops import _build
 _NEG_INF = -1e30
 HEAD_DIM = 64       # the one head dim the kernels are built for (GPT-2's)
 STREAM_MIN_SK = 16384   # streaming=None turns the streaming entry on here
+TMA_ALIGN = 16      # bytes: TMA's granule for base addresses and strides
 
 
 def attention_reference(q, k, v, causal: bool = True):
@@ -191,10 +192,46 @@ def _check_inputs(q, k, v, causal):
         raise ValueError(f"flash_attention: causal needs S == Sk ({S}, {Sk})")
 
 
+def block_rows(B, S, H, sm_count):
+    """Query rows per CTA of K1's bf16 kernel, a rule of the shape and the
+    card alone: 64 (one consumer warpgroup) when CTAs of 64 rows all run in
+    one wave, B * H * ceil(S / 64) <= ``sm_count`` (the card's SMs, one CTA
+    each), else 128 (two consumer warpgroups). Within one wave the smaller
+    CTA finishes sooner (its warpgroup has the SM's tensor cores to
+    itself); past it, the 128-row CTAs' single wave wins. On an H100's 132
+    SMs serving prefill at B=1, H=12 (S <= 704) takes 64 rows, training
+    (B=4, S=1024) and long context take 128. ``chip_smoke.py`` times both
+    sizes on either side of the boundary."""
+    return 64 if B * H * -(-S // 64) <= sm_count else 128
+
+
+def tma_strides(x):
+    """(batch, seq) element strides of a [B, S, H, D] operand as K1 takes
+    them: a dimension of size 1 never moves the index, so its stride is
+    that of a contiguous layout of the dimensions inside it."""
+    B, S, H, D = x.shape
+    ss = x.stride(1) if S > 1 else H * D
+    sb = x.stride(0) if B > 1 else S * ss
+    return sb, ss
+
+
+def tma_ready(x):
+    """Whether K1's tensor maps can read the bf16 operand ``x`` where it
+    lies: a base address and (batch, seq) strides that are positive
+    multiples of TMA_ALIGN bytes (the head stride, D = 64 elements, is
+    128 bytes). An operand that is not gets copied by the wrapper."""
+    es = x.element_size()
+    return x.data_ptr() % TMA_ALIGN == 0 and all(
+        st > 0 and st * es % TMA_ALIGN == 0 for st in tma_strides(x))
+
+
 def _launch(q, k, v, causal, emit_lse):
     """One launch of K1 on CUDA tensors: ``o``, and with ``emit_lse`` the
-    row logsumexp (B10) -> ``(o, lse)``. Raises on what the kernel does
-    not take and on a failed launch."""
+    row logsumexp (B10) -> ``(o, lse)``. The bf16 kernel reads q, k, v by
+    TMA: an operand that :func:`tma_ready` refuses is copied to a fresh
+    contiguous tensor first, counted in ``flash_attention.copies`` (over
+    all three entry points). Raises on what the kernel does not take and on
+    a failed launch."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     if not (q.dtype == k.dtype == v.dtype):
@@ -207,12 +244,22 @@ def _launch(q, k, v, causal, emit_lse):
     code = _build.dtype_code(q.dtype)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_rows(name, x, D)
+    rows = 64                               # the f32 kernel's blocks
+    if q.dtype == torch.bfloat16:
+        rows = block_rows(B, S, H, torch.cuda.get_device_properties(
+            q.device).multi_processor_count)
+        ops = []
+        for x in (q, k, v):
+            if not tma_ready(x):
+                x = x.clone(memory_format=torch.contiguous_format)
+                flash_attention.copies += 1
+            ops.append(x)
+        q, k, v = ops
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    st = _build.strides(q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                        v.stride(0), v.stride(1), out.stride(0),
-                        out.stride(1))
+    st = _build.strides(*tma_strides(q), *tma_strides(k), *tma_strides(v),
+                        out.stride(0), out.stride(1))
     stream = _build.stream_handle(q.device)
-    args = (code, B, S, Sk, H, D, st, int(causal), stream)
+    args = (code, B, S, Sk, H, D, st, int(causal), rows, stream)
     if emit_lse:
         lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
         rc = _build.lib().acx_flash_attention_lse(
@@ -222,6 +269,9 @@ def _launch(q, k, v, causal, emit_lse):
         lse = None
         rc = _build.lib().acx_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *args)
+    if rc < 0:
+        raise RuntimeError(f"flash_attention: TMA tensor-map encode failed: "
+                           f"CUresult {-rc}")
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
@@ -306,6 +356,7 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
 
 flash_attention.launches = 0
 flash_attention.launches_stream = 0
+flash_attention.copies = 0
 
 
 def flash_attention_lse(q, k, v, causal: bool = True, block_q: int = 512,
