@@ -8,9 +8,11 @@ in the repository. Phases, each of which exits non-zero on failure:
 1. build   — compile the CUDA kernels in mpi_acx_torch/csrc/ for sm_90a
              (one nvcc per source, in parallel) into build/torch_kernels/;
              then count HGMMA, UTMALDG and HMMA in each bf16
-             instantiation of K1 (cuobjdump -sass), with its registers
-             and spills: each must issue wgmma and none the legacy
-             mma.sync.
+             instantiation of K1 and LDGSTS (cp.async) in each of the 32
+             decode instantiations (cuobjdump -sass), with registers,
+             stack and local memory: each K1 one must issue wgmma and
+             none the legacy mma.sync; each decode one must issue
+             cp.async with no stack and no spills.
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the serving path's shapes, in bf16 and f32: max abs error
              and row errors within TOL_ABS, TOL_ROW, TOL_ROW_F32. K1 also
@@ -22,8 +24,12 @@ in the repository. Phases, each of which exits non-zero on failure:
              both CTA sizes of the wrapper's rule. The
              decode kernels in all four forms: K2 and B9 (paged), each
              over bf16/f32 and int8 caches; B9 over page sizes 16, 64
-             and 128 with shuffled tables and an aliased first page, and
-             equal to K2 bit for bit on the same rows in every case.
+             and 128 with shuffled tables and an aliased first page; both
+             at the edges of the split rule's chunks, at max_len 1000, at
+             W * n_rep of 8 and 12, and with each candidate chunk stood
+             in for the rule; B9 equal to K2 bit for bit on the same rows
+             and each kernel equal to itself over two calls, in every
+             case.
 2b. train kernels — B10 (flash_attention_lse, bf16 and f32, B=4) over
              causal S = Sk of 64, 1000 and 1024 and two non-causal Sk != S:
              o within the phase-2 limits, the lse within TOL_LSE; B7 (the
@@ -56,9 +62,12 @@ in the repository. Phases, each of which exits non-zero on failure:
 5. timing  — each kernel, its plain version, the equivalent PyTorch
              library call (where one call computes the same function) and
              the roofline bound at the phase-4 and 4b shapes
-             (device time: the calls are replayed from a CUDA graph), and
-             one decode step as the server issues it against its device
-             time (the device's busy share of a step).
+             (device time: the calls are replayed from a CUDA graph); the
+             decode kernels also with every slot at its last row (the full
+             cache), the split rule's candidates at both shapes, and K2's
+             wrapper's host cost per call; and one decode step as the
+             server issues it against its device time (the device's busy
+             share of a step).
 5b. train  — GPT-2 124M at full width and depth (seed-0 f32 params, bf16
              compute) trained through the port's train step on a 1x1x1
              mesh: 5 AdamW steps of 2 microbatches of 4 x 1024 tokens (the
@@ -134,8 +143,12 @@ import torch
 # K2-int8 row error up to 2.8e-2 against its plain version (whose own row
 # error against f32 is up to 2.7e-2) and 1.3e-2 against f32; B9 up to
 # 4.3e-2 and 1.4e-2 (its plain version's own: 4.2e-2), B9-int8 up to
-# 3.8e-2 and 1.3e-2 (3.1e-2); every f32 form at most 9.6e-6. B9 equals K2
-# bit for bit on the same rows, so its limits are K2's.
+# 3.8e-2 and 1.3e-2 (3.1e-2); every f32 form at most 9.6e-6. The split
+# decode template (chunks merged on chip) over the wider phase-2 grid of
+# chunk edges: bf16 and int8 forms up to 4.5e-2 against their plain
+# versions (whose own is up to 4.7e-2) and 1.6e-2 against f32; every f32
+# form at most 4.4e-6. B9 equals K2 bit for bit on the same rows, so its
+# limits are K2's.
 TOL_ABS = {torch.float32: 1e-4, torch.bfloat16: 4e-2}
 TOL_ROW = {torch.float32: 1e-4, torch.bfloat16: 8e-2}
 TOL_ROW_F32 = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -256,14 +269,28 @@ def phase_build() -> float:
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+DECODE_TYPES = {"f": "f32", "t": "bf16", "a": "int8"}
+
+
+def decode_name(fn):
+    """``<q type, cache type, R, paged>`` of a decode_kernel instantiation
+    from its mangled name, or None for another function."""
+    t = re.search(r"decode_kernelI([fta])([fta])Li64ELi(\d)ELb(\d)E", fn)
+    if t is None:
+        return None
+    return (f"<{DECODE_TYPES[t.group(1)]}, {DECODE_TYPES[t.group(2)]}, "
+            f"R={t.group(3)}, {'paged' if t.group(4) == '1' else 'fixed'}>")
 
 
 def phase_sass() -> None:
-    """Counts of wgmma (HGMMA), TMA load (UTMALDG) and legacy mma.sync
-    (HMMA) instructions in each bf16 instantiation of K1, from
-    ``cuobjdump -sass`` of the built library, beside its registers at
-    launch, stack and local memory (``cuobjdump -res-usage``). Fails
-    unless every one issues HGMMA and no HMMA."""
+    """From ``cuobjdump -sass`` of the built library: counts of wgmma
+    (HGMMA), TMA load (UTMALDG) and legacy mma.sync (HMMA) instructions in
+    each bf16 instantiation of K1, and of cp.async (LDGSTS) in each of the
+    32 decode instantiations (K2 and B9, both operand forms); beside each
+    its registers at launch, stack and local memory (``cuobjdump
+    -res-usage``). Fails unless every K1 one issues HGMMA and no HMMA, and
+    every decode one issues LDGSTS with no stack and no local memory (no
+    spills)."""
     from mpi_acx_torch.ops import _build
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     res = subprocess.run([str(cuobjdump), "-sass",
@@ -271,16 +298,22 @@ def phase_sass() -> None:
                          capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
         fail(f"cuobjdump -sass failed: {res.stderr.strip()[-2000:]}")
-    counts, fn = {}, None
+    counts, decode, fn = {}, {}, None
     for line in res.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = m.group(1) if "flash_fwd_bf16" in m.group(1) else None
-            if fn:
+            fn = m.group(1)
+            if "flash_fwd_bf16" in fn:
                 counts[fn] = dict.fromkeys(SASS_OPS, 0)
-        elif fn:
+            elif decode_name(fn):
+                decode[fn] = 0
+            else:
+                fn = None
+        elif fn in counts:
             for op in SASS_OPS:
                 counts[fn][op] += len(re.findall(rf"\b{op}\b", line))
+        elif fn in decode:
+            decode[fn] += len(re.findall(r"\bLDGSTS\b", line))
     # Registers, stack and local memory (spills) per function.
     res = subprocess.run([str(cuobjdump), "-res-usage",
                           str(_build.BUILD_DIR / _build.LIB_NAME)],
@@ -292,26 +325,41 @@ def phase_sass() -> None:
         m = re.search(r"Function (\S+?):?$", line.strip())
         if m:
             fn = m.group(1)
-        elif fn in counts and "REG:" in line:
+        elif (fn in counts or fn in decode) and "REG:" in line:
             usage[fn] = dict(re.findall(r"(REG|STACK|LOCAL):(\d+)", line))
+
+    def res_str(fn):
+        u = usage.get(fn, {})
+        return (f"registers at launch {u.get('REG', 'missing')}, stack "
+                f"{u.get('STACK', 'missing')} B, local (spills) "
+                f"{u.get('LOCAL', 'missing')} B")
     for fn, c in counts.items():
         t = re.search(r"flash_fwd_bf16ILi(\d)ELb(\d)EE", fn)
         name = (f"<{t.group(1)}, {'true' if t.group(2) == '1' else 'false'}>"
                 if t else fn)
-        u = usage.get(fn, {})
         print(f"sass flash_fwd_bf16{name} (consumer warpgroups, EmitLse): "
               + ", ".join(f"{op} {n}" for op, n in c.items())
-              + f"; registers at launch {u.get('REG', 'missing')}, stack "
-              f"{u.get('STACK', 'missing')} B, local (spills) "
-              f"{u.get('LOCAL', 'missing')} B", flush=True)
+              + f"; {res_str(fn)}", flush=True)
+    for fn, n in sorted(decode.items(), key=lambda kv: decode_name(kv[0])):
+        print(f"sass decode_kernel{decode_name(fn)}: LDGSTS {n}; "
+              f"{res_str(fn)}", flush=True)
     if len(counts) != 4:
         fail(f"expected 4 bf16 instantiations of K1 in the library, found "
              f"{len(counts)}")
-    if set(usage) != set(counts):
+    if len(decode) != 32:
+        fail(f"expected 32 decode instantiations in the library, found "
+             f"{len(decode)}")
+    missing = set(counts) | set(decode)
+    if set(usage) != missing:
         fail(f"cuobjdump -res-usage gave no registers for "
-             f"{sorted(set(counts) - set(usage))}")
+             f"{sorted(missing - set(usage))}")
     if any(c["HGMMA"] == 0 or c["HMMA"] for c in counts.values()):
         fail("a bf16 instantiation of K1 has no HGMMA or still has HMMA")
+    for fn, n in decode.items():
+        u = usage[fn]
+        if n == 0 or int(u.get("STACK", 1)) or int(u.get("LOCAL", 1)):
+            fail(f"decode_kernel{decode_name(fn)}: LDGSTS {n}, stack "
+                 f"{u.get('STACK')}, local {u.get('LOCAL')}")
 
 
 # --- phase 2 ---------------------------------------------------------------
@@ -406,8 +454,10 @@ def paged_errs(form, pt, W, n_rep, pos, gen, B=8, max_len=1024):
     """B9 against its plain version on a pool whose pages hold a
     [B, max_len] cache in shuffled order, every slot's first page aliased
     to one shared page; and B9 against K2 on the same rows (gathered into
-    the contiguous layout), which must agree bit for bit. ``form`` is
-    (q dtype, int8 cache?)."""
+    the contiguous layout), which must agree bit for bit. Each kernel runs
+    twice and must give the same bits both times. ``form`` is (q dtype,
+    int8 cache?). Returns B9's errors and K2's (on the gathered rows)
+    against the plain version."""
     from mpi_acx_torch.ops.flash_decode import flash_decode_attend, \
         paged_flash_decode_attend, paged_gather_attend
     dtype, int8 = form
@@ -425,6 +475,7 @@ def paged_errs(form, pt, W, n_rep, pos, gen, B=8, max_len=1024):
     kp, vp = pools
     pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
     out = paged_flash_decode_attend(q, kp, vp, table, pos_t, pt, n_rep)
+    again = paged_flash_decode_attend(q, kp, vp, table, pos_t, pt, n_rep)
     ref = paged_gather_attend(q, kp, vp, table, pos_t, pt, n_rep)
 
     def f32(c):
@@ -437,13 +488,18 @@ def paged_errs(form, pt, W, n_rep, pos, gen, B=8, max_len=1024):
         if isinstance(pool, tuple):
             return tuple(rows(x) for x in pool)
         return pool[idx].reshape((B, max_len) + tuple(pool.shape[2:]))
-    fixed = flash_decode_attend(q, rows(kp), rows(vp), pos_t, max_len, n_rep)
+    kc, vc = rows(kp), rows(vp)
+    fixed = flash_decode_attend(q, kc, vc, pos_t, max_len, n_rep)
+    fixed2 = flash_decode_attend(q, kc, vc, pos_t, max_len, n_rep)
     torch.cuda.synchronize()
+    desc = f"{form} pt={pt} W={W} n_rep={n_rep} max_len={max_len}"
+    if not (same(out, again) and same(fixed, fixed2)):
+        fail(f"decode {desc}: two calls on the same inputs differ (B9 "
+             f"{same(out, again)}, K2 {same(fixed, fixed2)} equal)")
     if not same(out, fixed):
-        fail(f"paged decode {form} pt={pt} W={W} n_rep={n_rep}: B9 differs "
-             f"from K2 on the same rows (max "
+        fail(f"paged decode {desc}: B9 differs from K2 on the same rows (max "
              f"{(out.float() - fixed.float()).abs().max().item():.3e})")
-    return errors(out, ref, ref32)
+    return errors(out, ref, ref32), errors(fixed, ref, ref32)
 
 
 def k2_int8_errs(B, W, n_rep, pos, dtype, gen, max_len=1024):
@@ -460,6 +516,64 @@ def k2_int8_errs(B, W, n_rep, pos, dtype, gen, max_len=1024):
     ref32 = dense_decode_attend(q.float(), kc, vc, pos_t, max_len, n_rep)
     torch.cuda.synchronize()
     return errors(out, ref, ref32)
+
+
+def edge_positions(chunk, max_len, W):
+    """Eight slot positions at the edges of ``chunk``-position CTAs: 0,
+    c - 1, c, 2c - 1 and the last row, then c + 1, 2c and 3c - 1, each
+    capped at the last row ``max_len - W``."""
+    last = max_len - W
+    return [min(p, last) for p in (0, chunk - 1, chunk, 2 * chunk - 1, last,
+                                   chunk + 1, 2 * chunk, 3 * chunk - 1)]
+
+
+# The split rule's candidates (positions per CTA), timed by
+# phase_decode_split; 1024 is one chunk per slot at the served max_len.
+CHUNKS = (128, 256, 512, 1024)
+SPLIT_TIE = 0.03
+
+
+def decode_split_cases(dtype, gen, keep) -> int:
+    """K2 and B9 in both operand forms at the edges of the split rule's
+    chunks: at max_len 1024 and 1000 (no multiple of the chunk), at W *
+    n_rep of 8 and 12 (two row blocks), and with each of CHUNKS stood in
+    for the rule (the ring of stages, full and wrapped). Each case holds
+    both kernels to the plain version, B9 to K2 bit for bit, and each to
+    itself over two calls. Returns the number of cases."""
+    from mpi_acx_torch.ops import flash_decode as fd
+    n, sms = 0, sm_count()
+
+    def case(int8, pt, W, n_rep, max_len, chunk=None):
+        nonlocal n
+        rule = fd.decode_chunk
+        if chunk is not None:
+            fd.decode_chunk = lambda *_, c=chunk: c
+        try:
+            c = fd.decode_chunk(8, H // n_rep, W * n_rep, max_len, sms)
+            pos = edge_positions(c, max_len, W)
+            e9, e2 = paged_errs((dtype, int8), pt, W, n_rep, pos, gen,
+                                max_len=max_len)
+        finally:
+            fd.decode_chunk = rule
+        n += 1
+        sfx = "_int8" if int8 else ""
+        desc = (f"B=8 W={W} n_rep={n_rep} Hq={H} D={D} max_len={max_len} "
+                f"page_tokens={pt}, {c}-position chunks"
+                + (" (stood in)" if chunk else "") + f", pos={pos}")
+        for name, e in ((f"paged_flash_decode_attend{sfx}", e9),
+                        (f"flash_decode_attend{sfx}", e2)):
+            check(name, desc, dtype, e)
+            keep(name, dtype, e)
+
+    for int8 in (False, True):
+        case(int8, 16, 1, 1, 1024)
+        case(int8, 40, 1, 1, 1000)
+        case(int8, 64, 4, 2, 1024)          # W * n_rep = 8
+        case(int8, 128, 4, 3, 1024)         # 12: two row blocks of 8
+        case(int8, 16, 1, 12, 1024)         # 12, one KV group
+        for chunk in CHUNKS:
+            case(int8, 128, 1, 1, 1024, chunk)
+    return n
 
 
 def phase_kernels() -> dict:
@@ -537,15 +651,17 @@ def phase_kernels() -> dict:
                 for W, n_rep in ((1, 1), (4, 2), (1, 2), (4, 1)):
                     last = 1024 - W
                     for pos in (slot_pos[:7] + [last], 300, last):
-                        e = paged_errs((dtype, int8), pt, W, n_rep, pos, gen)
+                        e, _ = paged_errs((dtype, int8), pt, W, n_rep, pos,
+                                          gen)
                         n_bit += 1
                         check(name, f"B=8 W={W} n_rep={n_rep} Hq={H} D={D} "
                               f"page_tokens={pt} pages=1024/{pt} shuffled, "
                               f"first page shared, pos={pos}", dtype, e)
                         keep(name, dtype, e)
-        print(f"B9 equal to K2 bit for bit on the same rows in all {n_bit} "
-              f"{str(dtype)[6:]} cases (bf16/f32 and int8 caches)",
-              flush=True)
+        n_bit += decode_split_cases(dtype, gen, keep)
+        print(f"B9 equal to K2 bit for bit on the same rows, and each equal "
+              f"to itself over two calls, in all {n_bit} {str(dtype)[6:]} "
+              f"cases (bf16/f32 and int8 caches)", flush=True)
     if rows_seen != {64, 128}:
         fail(f"phase 2's K1 cases reached only {sorted(rows_seen)}-row CTAs")
     # An operand TMA cannot read in place (odd element offset): the wrapper
@@ -1073,8 +1189,6 @@ def phase_timing(card_str) -> dict:
     import torch.nn.functional as F
     from mpi_acx_torch.ops.attention import attention_reference, \
         block_rows, flash_attention
-    from mpi_acx_torch.ops.flash_decode import dense_decode_attend, \
-        flash_decode_attend, paged_flash_decode_attend, paged_gather_attend
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf = torch.bfloat16
     out = {}
@@ -1105,12 +1219,38 @@ def phase_timing(card_str) -> dict:
                                   library_ms=mean[2], bound_ms=b_ms,
                                   bound_by=b_by)
 
-    # K2 at the phase-4 decode shape: 8 slots at mid-request positions,
-    # rotating over 12 layers' caches so each call finds its cache cold in
-    # L2, as the decode step does.
+    out.update(phase_decode_timing(card_str))
+    return out
+
+
+def decode_bytes(live, B, int8, paged, max_pages=0):
+    """Bytes a decode call at W = 1, H = 12 must move: the live K/V rows
+    (int8 codes and their f32 scales, or bf16), q and the output, pos, and
+    for the paged form the table."""
+    return (live * H * D * (1 if int8 else 2) * 2
+            + (live * H * 4 * 2 if int8 else 0)
+            + 2 * B * H * D * 2 + B * 4 + (B * max_pages * 4 if paged else 0))
+
+
+def phase_decode_timing(card_str) -> dict:
+    """K2, K2-int8, B9 and B9-int8 at the phase-4 decode shape (B = 8, W = 1,
+    positions 40/160/320/528 twice, 12 layers' caches rotated so each call
+    finds its cache cold in L2, as the decode step does; B9 over 128-token
+    pages in shuffled order, timed in turns with K2 on the same rows), each
+    beside its plain version, the library call where one exists, and its
+    bound; then K2 and B9 with every slot at its last row (the full cache);
+    the split rule's candidates at both shapes (phase_decode_split); and
+    the wrapper's host cost per call."""
+    import torch.nn.functional as F
+    from mpi_acx_torch.ops.flash_decode import dense_decode_attend, \
+        flash_decode_attend, paged_flash_decode_attend, paged_gather_attend
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bf = torch.bfloat16
+    out = {}
     B, max_len, L = 8, 1024, 12
     pos_l = [40, 160, 320, 528, 40, 160, 320, 528]
     pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    full = torch.full((B,), max_len - 1, dtype=torch.int32, device="cuda")
     q = randn((B, 1, H, D), bf, gen)
     kc = randn((L, B, max_len, H, D), bf, gen)
     vc = randn((L, B, max_len, H, D), bf, gen)
@@ -1130,7 +1270,7 @@ def phase_timing(card_str) -> dict:
     t_l = time_ms(run(lambda i: F.scaled_dot_product_attention(
         qt, kt[i], vt[i], attn_mask=mask)), iters=240)
     live = sum(min(p + 1, max_len) for p in pos_l)
-    nbytes = live * H * D * 2 * 2 + 2 * B * H * D * 2 + B * 4
+    nbytes = decode_bytes(live, B, False, False)
     b_ms, b_by = bound_ms(4 * live * H * D, nbytes, bf)
     print(f"time flash_decode_attend bf16 B={B} W=1 H={H} D={D} max_len="
           f"{max_len} pos={pos_l}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
@@ -1161,15 +1301,25 @@ def phase_timing(card_str) -> dict:
 
     def pick(c, i):
         return tuple(x[i] for x in c) if isinstance(c, tuple) else c[i]
-    def fixed(c, v):
-        return lambda i: flash_decode_attend(q, pick(c, i), pick(v, i), pos,
+
+    def fixed(c, v, at=pos):
+        return lambda i: flash_decode_attend(q, pick(c, i), pick(v, i), at,
                                              max_len, 1)
 
-    def paged(c, v):
+    def paged(c, v, at=pos):
         return lambda i: paged_flash_decode_attend(q, pick(c, i), pick(v, i),
-                                                   table, pos, pt, 1)
-    # (kernel, plain version, and for B9 K2 on the same rows, timed in
-    # turns K2, B9, B9, K2 within this call)
+                                                   table, at, pt, 1)
+
+    def turns(name, kern, twin):
+        """B9 timed in turns with K2 on the same rows: K2, B9, B9, K2."""
+        ts = [time_ms(run(f), iters=240) for f in (twin, kern, kern, twin)]
+        print(f"time {name} in turns with K2 on the same rows: K2 "
+              f"{ts[0]:.4f} ms, B9 {ts[1]:.4f} ms, B9 {ts[2]:.4f} ms, K2 "
+              f"{ts[3]:.4f} ms: B9 / K2 "
+              f"{(ts[1] + ts[2]) / (ts[0] + ts[3]):.3f} "
+              f"[{card_str}]", flush=True)
+        return (ts[1] + ts[2]) / 2, (ts[0] + ts[3]) / 2
+    # (kernel, plain version, and for B9 K2 on the same rows)
     cases = {
         "flash_decode_attend_int8": (
             fixed(kc8, vc8), lambda i: dense_decode_attend(
@@ -1186,18 +1336,10 @@ def phase_timing(card_str) -> dict:
         if twin is None:
             t_k = time_ms(run(kern), iters=240)
         else:
-            turns = [time_ms(run(f), iters=240)
-                     for f in (twin, kern, kern, twin)]
-            t_k = (turns[1] + turns[2]) / 2
-            print(f"time {name} in turns with K2 on the same rows: K2 "
-                  f"{turns[0]:.4f} ms, B9 {turns[1]:.4f} ms, B9 "
-                  f"{turns[2]:.4f} ms, K2 {turns[3]:.4f} ms [{card_str}]",
-                  flush=True)
+            t_k, _ = turns(name, kern, twin)
         t_p = time_ms(run(plain), iters=240)
-        nbytes = (live * H * D * (1 if int8 else 2) * 2
-                  + (live * H * 4 * 2 if int8 else 0)
-                  + 2 * B * H * D * 2 + B * 4
-                  + (B * max_pages * 4 if name.startswith("paged") else 0))
+        nbytes = decode_bytes(live, B, int8, name.startswith("paged"),
+                              max_pages)
         b_ms, b_by = bound_ms(4 * live * H * D, nbytes,
                               torch.int8 if int8 else bf)
         print(f"time {name} bf16 q, {'int8' if int8 else 'bf16'} cache, B={B} "
@@ -1208,10 +1350,83 @@ def phase_timing(card_str) -> dict:
               f"{nbytes} bytes) [{card_str}]", flush=True)
         out[name] = dict(ms=t_k, plain_ms=t_p, library_ms=None,
                          bound_ms=b_ms, bound_by=b_by)
+
+    # The full cache: every slot at its last row, the same caches (25.2 MB
+    # of live K/V a call), K2 and B9 in turns, then the int8 forms likewise.
+    live_f = B * max_len
+    for int8, (kf, vf, kpf, vpf) in ((False, (kc, vc, kp, vp)),
+                                     (True, (kc8, vc8, kp8, vp8))):
+        sfx = "_int8" if int8 else ""
+        t9, t2 = turns(f"paged_flash_decode_attend{sfx} (full cache)",
+                       paged(kpf, vpf, full), fixed(kf, vf, full))
+        for name, t, paged_form in ((f"flash_decode_attend{sfx}", t2, False),
+                                    (f"paged_flash_decode_attend{sfx}", t9,
+                                     True)):
+            nbytes = decode_bytes(live_f, B, int8, paged_form, max_pages)
+            b_ms, _ = bound_ms(4 * live_f * H * D, nbytes,
+                               torch.int8 if int8 else bf)
+            print(f"time {name} full cache B={B} W=1 H={H} D={D} every slot "
+                  f"at {max_len - 1}: kernel {t:.4f} ms, bound {b_ms:.5f} ms "
+                  f"({nbytes} bytes), {t / b_ms:.2f}x the bound "
+                  f"[{card_str}]", flush=True)
+            out[name].update(full_cache_ms=t, full_cache_bound_ms=b_ms)
+
+    phase_decode_split(card_str, run, q, kc, vc, pos, full, max_len)
+
+    # The wrapper's host cost per call: an eager loop at the served shape,
+    # host clock, no synchronize inside it.
+    n = 500
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(n):
+        flash_decode_attend(q, kc[k % L], vc[k % L], pos, max_len, 1)
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    out["flash_decode_attend"]["host_us"] = host_us
+    print(f"host flash_decode_attend: {host_us:.2f} us a call, eager, issued "
+          f"without a synchronize ({n} calls) [{card_str}]", flush=True)
     return out
 
 
-def phase_step(params16, k2_ms, card_str) -> None:
+def phase_decode_split(card_str, run, q, kc, vc, pos, full, max_len) -> None:
+    """The split rule's A/B: K2 (bf16) with each of CHUNKS positions per CTA
+    stood in for the rule, through the wrapper, at the served positions and
+    the full cache, in the order CHUNKS then reversed (the means are
+    printed, with whether the rule's pick is the fastest within SPLIT_TIE).
+    At the served shape the pick must beat one chunk per slot (1024). The
+    full cache has the same observable inputs, so the rule picks the same
+    chunk there."""
+    from mpi_acx_torch.ops import flash_decode as fd
+    rule, B = fd.decode_chunk, q.shape[0]
+    pick = rule(B, H, 1, max_len, sm_count())
+    for label, at in (("served pos=[40, 160, 320, 528] x 2", pos),
+                      (f"full cache pos={max_len - 1}", full)):
+        ts = {c: [] for c in CHUNKS}
+        try:
+            for c in CHUNKS + CHUNKS[::-1]:
+                fd.decode_chunk = lambda *_, c=c: c
+                ts[c].append(time_ms(run(lambda i: fd.flash_decode_attend(
+                    q, kc[i], vc[i], at, max_len, 1)), iters=240))
+        finally:
+            fd.decode_chunk = rule
+        t = {c: float(np.mean(x)) for c, x in ts.items()}
+        fastest = min(t, key=t.get)
+        # A near tie within the run-to-run spread of a graph-replayed
+        # kernel (SPLIT_TIE) counts as the fastest.
+        ok = t[pick] <= t[fastest] * (1 + SPLIT_TIE)
+        verdict = ("the fastest" if ok
+                   else f"{t[pick] / t[fastest]:.3f}x the fastest")
+        print(f"time flash_decode_attend bf16 B={B} W=1 H={H} D={D} "
+              f"max_len={max_len} {label} by positions per CTA: "
+              + ", ".join(f"{c} {v:.5f} ms" for c, v in t.items())
+              + f"; fastest {fastest}, the rule picks {pick} ({verdict}) "
+              f"[{card_str}]", flush=True)
+        if at is pos and not t[pick] < t[CHUNKS[-1]]:
+            fail(f"decode split rule's {pick} positions per CTA at {label} "
+                 f"are not faster than one chunk per slot")
+
+
+def phase_step(params16, k2_ms, k2_host_us, card_str) -> None:
     """One batched decode step at the phase-4 shape (8 slots at mid-request
     positions): as the server issues it (eager, host clock around steps
     that end in a synchronize) against its device time (the same step
@@ -1245,7 +1460,9 @@ def phase_step(params16, k2_ms, card_str) -> None:
           f"{host_ms:.3f} ms, device {dev_ms:.3f} ms (graph replay): device "
           f"busy {100 * dev_ms / host_ms:.1f}% of the eager step; decode "
           f"attention 12 x {k2_ms:.4f} ms = {100 * 12 * k2_ms / dev_ms:.1f}% "
-          f"of device time [{card_str}]", flush=True)
+          f"of device time; K2's wrapper issues in {k2_host_us:.2f} us a call, "
+          f"12 x = {100 * 12 * k2_host_us / 1e3 / host_ms:.1f}% of the issued "
+          f"step [{card_str}]", flush=True)
 
 
 # --- phase 5b --------------------------------------------------------------
@@ -1849,7 +2066,8 @@ def main() -> int:
     counts.update(phase_paged(params16, fixed, card_str))
     times = phase_timing(card_str)
     phase_cta_sizes(card_str)
-    phase_step(params16, times["flash_decode_attend"]["ms"], card_str)
+    k2 = times["flash_decode_attend"]
+    phase_step(params16, k2["ms"], k2["host_us"], card_str)
     del params16
     torch.cuda.empty_cache()
 
@@ -1881,6 +2099,9 @@ def main() -> int:
         entry.update(ms=t["ms"], plain_ms=t["plain_ms"],
                      bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                      library_ms=t["library_ms"])
+        entry.update({k: t[k] for k in ("full_cache_ms",
+                                        "full_cache_bound_ms", "host_us")
+                      if k in t})
         line.append(entry)
     print(json.dumps({"kernels": line}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -111,10 +111,10 @@ def lib() -> ctypes.CDLL:
                                                i, s, i, i, p]
         so.acx_flash_attention_lse.restype = i
         so.acx_flash_decode.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
-                                        i, i, i, s, p]
+                                        i, i, i, i, s, p]
         so.acx_flash_decode.restype = i
         so.acx_paged_decode.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
-                                        i, i, i, i, i, i, s, p]
+                                        i, i, i, i, i, i, i, s, p]
         so.acx_paged_decode.restype = i
         so.acx_flags_pready.argtypes = [p, i, p, i, i, p]
         so.acx_flags_pready.restype = i

@@ -17,6 +17,13 @@ on a CPU tensor it runs the plain version: :func:`dense_decode_attend`, the
 JAX package's ``models/decoding.py:dense_decode_attend``, and
 :func:`paged_gather_attend`, which gathers each slot's pages into that
 layout first.
+
+The kernel splits each slot's keys over CTAs in chunks of
+:func:`decode_chunk` positions, a rule of what the host knows (the shape
+and the card's SM count, never ``pos``, which stays on the card). A slot's
+chunks form one thread block cluster, and its first chunk merges the
+others' partial states from its own shared memory: a call allocates
+nothing but its output.
 """
 
 from __future__ import annotations
@@ -26,7 +33,9 @@ import torch
 from mpi_acx_torch.ops import _build
 from mpi_acx_torch.ops.attention import HEAD_DIM
 
-MAX_PAGES = 4096    # table row a B9 block holds in shared memory
+TILE = 128          # keys a CTA stages at a time (csrc kTile)
+MAX_CLUSTER = 8     # chunks per slot at most: a portable cluster (csrc)
+CTAS_PER_SM = 4     # full-cache CTAs an SM is given (see decode_chunk)
 
 
 def dense_decode_attend(q, kc, vc, pos, max_len, n_rep):
@@ -160,6 +169,33 @@ def _pos_vector(name, pos, B, dev):
     return pos.to(torch.int32).contiguous()
 
 
+def row_block(rows):
+    """Window rows (``W * n_rep``) per CTA: the kernel's row templates 1,
+    2, 4 and 8."""
+    return 1 if rows <= 1 else 2 if rows <= 2 else 4 if rows <= 4 else 8
+
+
+def decode_chunk(B, Hkv, rows, max_len, sm_count):
+    """Positions per CTA of the decode kernels, a rule of what the host
+    knows: the slots ``B``, KV groups ``Hkv``, window rows ``rows`` (``W *
+    n_rep``), the cache length ``max_len`` and the card's SMs. Never the
+    positions: they live on the card. A multiple of :data:`TILE`: the
+    smallest one for which a full cache (every slot at ``max_len``) needs
+    no more than ``CTAS_PER_SM`` CTAs on each SM and a slot no more chunks
+    than one cluster holds (:data:`MAX_CLUSTER`). Below that a shorter live
+    length spreads over the most SMs; past it more, smaller chunks queue
+    for the SMs and add partials to merge. ``CTAS_PER_SM`` was set on an
+    H100 from the A/B that ``chip_smoke.py`` runs every time (128 to 1024
+    positions a CTA, at the served positions and the full cache)."""
+    units = B * Hkv * -(-rows // row_block(rows))
+    chunks = min(MAX_CLUSTER, max(1, CTAS_PER_SM * sm_count // units))
+    return TILE * -(-max_len // (TILE * chunks))
+
+
+def _sm_count(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _scale_strides(quant, ks, vs):
     if not quant:
         return (0, 0, 0, 0)
@@ -189,6 +225,7 @@ def flash_decode_attend(q, kc, vc, pos, max_len, n_rep):
     Hkv = Hq // n_rep
     k, v, ks, vs, quant = _cache_operands(name, q, kc, vc, B, max_len, Hkv)
     pos = _pos_vector(name, pos, B, q.device)
+    chunk = decode_chunk(B, Hkv, W * n_rep, max_len, _sm_count(q.device))
     out = torch.empty((B, W, Hq * D), dtype=q.dtype, device=q.device)
     st = _build.strides(q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                         v.stride(0), v.stride(1),
@@ -196,7 +233,7 @@ def flash_decode_attend(q, kc, vc, pos, max_len, n_rep):
     rc = _build.lib().acx_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
         pos.data_ptr(), out.data_ptr(), _build.dtype_code(q.dtype),
-        int(quant), B, W, Hkv, n_rep, D, max_len, st,
+        int(quant), B, W, Hkv, n_rep, D, max_len, chunk, st,
         _build.stream_handle(q.device))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -223,14 +260,15 @@ def paged_flash_decode_attend(q, kp, vp, table, pos, page_tokens, n_rep):
     if table.ndim != 2 or table.shape[0] != B:
         raise ValueError(f"{name}: table {tuple(table.shape)} for {B} slots")
     max_pages = table.shape[1]
-    if not 0 < max_pages <= MAX_PAGES:
-        raise ValueError(f"{name}: {max_pages} pages per slot (the kernel "
-                         f"holds at most {MAX_PAGES})")
+    if max_pages <= 0:
+        raise ValueError(f"{name}: a table of no pages")
     table = table.to(torch.int32).contiguous()
     P = (kp[0] if isinstance(kp, tuple) else kp).shape[0]
     k, v, ks, vs, quant = _cache_operands(name, q, kp, vp, P, page_tokens,
                                           Hkv)
     pos = _pos_vector(name, pos, B, q.device)
+    chunk = decode_chunk(B, Hkv, W * n_rep, max_pages * page_tokens,
+                         _sm_count(q.device))
     out = torch.empty((B, W, Hq * D), dtype=q.dtype, device=q.device)
     st = _build.strides(q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                         v.stride(0), v.stride(1),
@@ -239,7 +277,7 @@ def paged_flash_decode_attend(q, kp, vp, table, pos, page_tokens, n_rep):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ks), _ptr(vs),
         pos.data_ptr(), table.data_ptr(), out.data_ptr(),
         _build.dtype_code(q.dtype), int(quant), B, W, Hkv, n_rep, D,
-        page_tokens, max_pages, P, st, _build.stream_handle(q.device))
+        page_tokens, max_pages, P, chunk, st, _build.stream_handle(q.device))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     _count(paged_flash_decode_attend, quant)

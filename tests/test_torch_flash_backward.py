@@ -134,11 +134,14 @@ def test_blockwise_backward_matches_jax_function(causal, with_lse):
         _close(a, b)
 
 
-def test_ragged_backward_where_jax_falls_back_to_dense():
+def test_ragged_backward_where_jax_falls_back_to_dense(monkeypatch):
     """S=648 has no 128-multiple divisor: the JAX package runs (and
     differentiates) the dense reference there, the port the kernel's
     plain version with a backward whose last block is short. Same
-    gradients."""
+    gradients. The JAX package warns once per shape and process, so the
+    set of shapes it has warned about starts empty here, whatever ran
+    before in this process."""
+    monkeypatch.setattr(jattn, "_fallback_warned", set())
     q, k, v = _qkv(13, 648, 648, B=1, H=1, D=8)
     rng = np.random.default_rng(14)
     do = rng.standard_normal(q.shape, dtype=np.float32)
