@@ -7,12 +7,13 @@ in the repository. Phases, each of which exits non-zero on failure:
 
 1. build   — compile the CUDA kernels in mpi_acx_torch/csrc/ for sm_90a
              (one nvcc per source, in parallel) into build/torch_kernels/;
-             then count HGMMA, UTMALDG and HMMA in each bf16
-             instantiation of K1 and LDGSTS (cp.async) in each of the 32
-             decode instantiations (cuobjdump -sass), with registers,
-             stack and local memory: each K1 one must issue wgmma and
-             none the legacy mma.sync; each decode one must issue
-             cp.async with no stack and no spills.
+             then count HGMMA, UTMALDG and HMMA in each of the 6 bf16
+             instantiations of K1 (head dims 64 and 128) and LDGSTS
+             (cp.async) in each of the 48 decode instantiations (K2 and
+             B9 at head dim 64, K2 at 128; cuobjdump -sass), with
+             registers, stack and local memory: each K1 one must issue
+             wgmma and TMA loads and none the legacy mma.sync; each
+             decode one must issue cp.async with no stack and no spills.
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the serving path's shapes, in bf16 and f32: max abs error
              and row errors within TOL_ABS, TOL_ROW, TOL_ROW_F32. K1 also
@@ -29,7 +30,12 @@ in the repository. Phases, each of which exits non-zero on failure:
              W * n_rep of 8 and 12, and with each candidate chunk stood
              in for the rule; B9 equal to K2 bit for bit on the same rows
              and each kernel equal to itself over two calls, in every
-             case.
+             case. At head dim 128 (Llama-3-8B: 32 query heads over 8 KV
+             groups): K1 over the same ragged edges at H=32 on both CTA
+             sizes, and K2 in both operand forms at n_rep 4, W * n_rep of
+             4, 8 and 12, max_len 1024 and 1000 and each candidate chunk,
+             each equal to itself over two calls; all under the same
+             limits.
 2b. train kernels — B10 (flash_attention_lse, bf16 and f32, B=4) over
              causal S = Sk of 64, 1000 and 1024 and two non-causal Sk != S:
              o within the phase-2 limits, the lse within TOL_LSE; B7 (the
@@ -59,6 +65,19 @@ in the repository. Phases, each of which exits non-zero on failure:
              cache on: 15 hits, pages reused, a lower page high-water mark
              than the same requests cold, tokens held to the cold run.
              Every decode kernel form must have launched.
+4c. llama  — (runs after phase 5's GPT-2 timings, with GPT-2's parameters
+             freed) Llama-3-8B (seed-0 weights drawn on the card): at full
+             width cut to 4 layers in f32, 8 requests through the kernels
+             and the plain versions (tokens and logits as phase 3); then
+             at full width and depth in bf16 (16.06 GB), phase 4's 16
+             requests with bf16 and then int8 KV caches, each held to the
+             same requests through the plain versions (ties within
+             TIE_LLAMA; with bf16 KV the kernel path's logits no farther
+             from an f32 forward of the same weights than the plain
+             path's), K1's launches exactly the prefills x 32 layers;
+             tokens/s, TTFT, ITL, the D = 128 kernels timed at the path's
+             shapes (with the split rule's A/B and K1's CTA sizes there),
+             and a decode step issued against its device time.
 5. timing  — each kernel, its plain version, the equivalent PyTorch
              library call (where one call computes the same function) and
              the roofline bound at the phase-4 and 4b shapes
@@ -86,7 +105,9 @@ in the repository. Phases, each of which exits non-zero on failure:
              versions with exact equality over tables of 1 to 4096 slots,
              indices in and out of range, repeated, as ints and as tensors
              on the card, and B5's payload bit for bit at 8x128 and at the
-             4 MiB partition; then each timed by CUDA-graph replay beside
+             4 MiB partition, with its compiled producers and a general
+             one (tanh(t) * 3, computed on the stream with B1's flag store
+             behind it); then each timed by CUDA-graph replay beside
              its plain version and its one-call PyTorch equivalent.
 7. exchange — `make lib tools`, then two ranks on the card under
              build/acxrun: 64 MiB of f32 in 16 partitions produced and
@@ -159,6 +180,19 @@ TOL_ROW_F32 = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # an H100: logits differ by at most 3.1e-6 (f32) and 3.9e-2 (bf16); the
 # three bf16 divergences of phase 4 sit at margins up to 9.4e-3.
 TIE = {torch.float32: 1e-4, torch.bfloat16: 8e-2}
+# The same rule for Llama-3-8B in bf16 at full depth (phase 4c), whose plain
+# path differs from itself by more than TIE: over its 16 served sequences
+# (probes/llama_paths.py on an H100) its forward pass and its own decode,
+# replayed, differ by up to 0.60 in a logit (a max over 128256 logits at
+# each of up to 640 positions, bf16 through 32 layers); 171 of the 960
+# tokens its server emitted are not its own forward's argmax, at forward
+# margins up to 0.44; the kernel path's forward differs from the plain
+# path's by 0.43-0.57. The f32 run at full width (4 layers) holds the same
+# path to TIE[f32], and against an f32 forward of the same weights the
+# kernel path's logits read RMS 7.70e-2 (max 0.46), the plain path's
+# 8.80e-2 (0.61): phase 4c requires the kernel path to be no farther.
+# Limit: about twice the plain path's own largest disagreement.
+TIE_LLAMA = 1.2
 # B10's lse (f32 in both dtypes), max abs error against the plain version
 # in the same dtype and against an f32 plain run on the same inputs.
 # Readings on an H100 over the phase-2b cases: bf16 1.4e-2 against the
@@ -273,23 +307,44 @@ DECODE_TYPES = {"f": "f32", "t": "bf16", "a": "int8"}
 
 
 def decode_name(fn):
-    """``<q type, cache type, R, paged>`` of a decode_kernel instantiation
-    from its mangled name, or None for another function."""
-    t = re.search(r"decode_kernelI([fta])([fta])Li64ELi(\d)ELb(\d)E", fn)
+    """``<q type, cache type, D, R, paged>`` of a decode_kernel
+    instantiation from its mangled name, or None for another function."""
+    t = re.search(r"decode_kernelI([fta])([fta])Li(\d+)ELi(\d)ELb(\d)E",
+                  fn)
     if t is None:
         return None
     return (f"<{DECODE_TYPES[t.group(1)]}, {DECODE_TYPES[t.group(2)]}, "
-            f"R={t.group(3)}, {'paged' if t.group(4) == '1' else 'fixed'}>")
+            f"D={t.group(3)}, R={t.group(4)}, "
+            f"{'paged' if t.group(5) == '1' else 'fixed'}>")
+
+
+def k1_name(fn):
+    """``<consumer warpgroups, D, EmitLse>`` of a flash_fwd_bf16
+    instantiation from its mangled name."""
+    t = re.search(r"flash_fwd_bf16ILi(\d)ELi(\d+)ELb(\d)EE", fn)
+    if t is None:
+        return fn
+    return (f"<{t.group(1)}, D={t.group(2)}, "
+            f"{'true' if t.group(3) == '1' else 'false'}>")
+
+
+# Instantiations in the library: K1's bf16 form at D = 64 (1 or 2 consumer
+# warpgroups, with and without the lse) and at D = 128 (B6 alone); the
+# decode template at D = 64 (2 q types x 2 cache forms x 4 row blocks x
+# contiguous and paged) and at D = 128 (contiguous only).
+K1_INSTANTIATIONS = 6
+DECODE_INSTANTIATIONS = 48
 
 
 def phase_sass() -> None:
     """From ``cuobjdump -sass`` of the built library: counts of wgmma
     (HGMMA), TMA load (UTMALDG) and legacy mma.sync (HMMA) instructions in
-    each bf16 instantiation of K1, and of cp.async (LDGSTS) in each of the
-    32 decode instantiations (K2 and B9, both operand forms); beside each
-    its registers at launch, stack and local memory (``cuobjdump
-    -res-usage``). Fails unless every K1 one issues HGMMA and no HMMA, and
-    every decode one issues LDGSTS with no stack and no local memory (no
+    each bf16 instantiation of K1 (head dims 64 and 128), and of cp.async
+    (LDGSTS) in each of the 48 decode instantiations (K2 and B9, both
+    operand forms, at head dim 64; K2 at 128); beside each its registers at
+    launch, stack and local memory (``cuobjdump -res-usage``). Fails
+    unless every K1 one issues HGMMA and UTMALDG and no HMMA, and every
+    decode one issues LDGSTS with no stack and no local memory (no
     spills)."""
     from mpi_acx_torch.ops import _build
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
@@ -333,28 +388,32 @@ def phase_sass() -> None:
         return (f"registers at launch {u.get('REG', 'missing')}, stack "
                 f"{u.get('STACK', 'missing')} B, local (spills) "
                 f"{u.get('LOCAL', 'missing')} B")
-    for fn, c in counts.items():
-        t = re.search(r"flash_fwd_bf16ILi(\d)ELb(\d)EE", fn)
-        name = (f"<{t.group(1)}, {'true' if t.group(2) == '1' else 'false'}>"
-                if t else fn)
-        print(f"sass flash_fwd_bf16{name} (consumer warpgroups, EmitLse): "
-              + ", ".join(f"{op} {n}" for op, n in c.items())
+    for fn, c in sorted(counts.items(), key=lambda kv: k1_name(kv[0])):
+        print(f"sass flash_fwd_bf16{k1_name(fn)} (consumer warpgroups, head "
+              f"dim, EmitLse): " + ", ".join(f"{op} {n}" for op, n in c.items())
               + f"; {res_str(fn)}", flush=True)
     for fn, n in sorted(decode.items(), key=lambda kv: decode_name(kv[0])):
         print(f"sass decode_kernel{decode_name(fn)}: LDGSTS {n}; "
               f"{res_str(fn)}", flush=True)
-    if len(counts) != 4:
-        fail(f"expected 4 bf16 instantiations of K1 in the library, found "
-             f"{len(counts)}")
-    if len(decode) != 32:
-        fail(f"expected 32 decode instantiations in the library, found "
-             f"{len(decode)}")
+    if len(counts) != K1_INSTANTIATIONS:
+        fail(f"expected {K1_INSTANTIATIONS} bf16 instantiations of K1 in the "
+             f"library, found {len(counts)}")
+    if len(decode) != DECODE_INSTANTIATIONS:
+        fail(f"expected {DECODE_INSTANTIATIONS} decode instantiations in the "
+             f"library, found {len(decode)}")
+    for d in (64, 128):
+        if not any(f"D={d}," in k1_name(fn) for fn in counts) or not any(
+                f"D={d}," in decode_name(fn) for fn in decode):
+            fail(f"no head dim {d} instantiation of K1 or of the decode "
+                 f"template in the library")
     missing = set(counts) | set(decode)
     if set(usage) != missing:
         fail(f"cuobjdump -res-usage gave no registers for "
              f"{sorted(missing - set(usage))}")
-    if any(c["HGMMA"] == 0 or c["HMMA"] for c in counts.values()):
-        fail("a bf16 instantiation of K1 has no HGMMA or still has HMMA")
+    for fn, c in counts.items():
+        if c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"]:
+            fail(f"flash_fwd_bf16{k1_name(fn)}: HGMMA {c['HGMMA']}, UTMALDG "
+                 f"{c['UTMALDG']}, HMMA {c['HMMA']}")
     for fn, n in decode.items():
         u = usage[fn]
         if n == 0 or int(u.get("STACK", 1)) or int(u.get("LOCAL", 1)):
@@ -364,16 +423,18 @@ def phase_sass() -> None:
 
 # --- phase 2 ---------------------------------------------------------------
 
-def errors(out, ref, ref32, rms_floor: float = 0.0) -> dict:
+def errors(out, ref, ref32, rms_floor: float = 0.0, head_dim: int = D
+           ) -> dict:
     """Errors of ``out`` (kernel) against ``ref`` (plain version, same
     dtype) and ``ref32`` (plain version in f32 on the same inputs), over
-    output rows of D values: max abs error, row error against each, and the
-    plain version's own row error against f32 (what bf16 costs it). A row's
-    RMS is taken no smaller than ``rms_floor`` times the whole tensor's."""
+    output rows of ``head_dim`` values: max abs error, row error against
+    each, and the plain version's own row error against f32 (what bf16
+    costs it). A row's RMS is taken no smaller than ``rms_floor`` times the
+    whole tensor's."""
     if out.shape != ref.shape or not torch.isfinite(out.float()).all():
         fail(f"kernel output: shape {tuple(out.shape)}, plain "
              f"{tuple(ref.shape)}, or non-finite values")
-    o, r, r32 = (x.float().reshape(-1, D) for x in (out, ref, ref32))
+    o, r, r32 = (x.float().reshape(-1, head_dim) for x in (out, ref, ref32))
     rms = r32.square().mean(-1).sqrt().clamp(
         min=rms_floor * r32.square().mean().sqrt().item())
 
@@ -394,10 +455,10 @@ def check(name, desc, dtype, e) -> None:
         fail(f"{name} disagrees with its plain version")
 
 
-def k1_errs(S, Sk, causal, dtype, gen, B=1):
-    q = randn((B, S, H, D), dtype, gen)
-    k = randn((B, Sk, H, D), dtype, gen)
-    v = randn((B, Sk, H, D), dtype, gen)
+def k1_errs(S, Sk, causal, dtype, gen, B=1, heads=H, head_dim=D):
+    q = randn((B, S, heads, head_dim), dtype, gen)
+    k = randn((B, Sk, heads, head_dim), dtype, gen)
+    v = randn((B, Sk, heads, head_dim), dtype, gen)
     return k1_check(q, k, v, causal)
 
 
@@ -426,23 +487,30 @@ def k1_check(q, k, v, causal):
     ref32 = attention_reference(q.float(), k.float(), v.float(),
                                 causal=causal)
     torch.cuda.synchronize()
-    return errors(out, ref, ref32)
+    return errors(out, ref, ref32, head_dim=q.shape[-1])
 
 
-def k2_errs(B, W, n_rep, pos, dtype, gen, max_len=1024):
+def k2_errs(B, W, n_rep, pos, dtype, gen, max_len=1024, heads=H,
+            head_dim=D, twice=False):
+    """K2 against its plain version; with ``twice`` the kernel runs again
+    on the same inputs and must give the same bits."""
     from mpi_acx_torch.ops.flash_decode import dense_decode_attend, \
         flash_decode_attend
-    Hkv = H // n_rep
-    q = randn((B, W, H, D), dtype, gen)
-    kc = randn((B, max_len, Hkv, D), dtype, gen)
-    vc = randn((B, max_len, Hkv, D), dtype, gen)
+    Hkv = heads // n_rep
+    q = randn((B, W, heads, head_dim), dtype, gen)
+    kc = randn((B, max_len, Hkv, head_dim), dtype, gen)
+    vc = randn((B, max_len, Hkv, head_dim), dtype, gen)
     pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
     out = flash_decode_attend(q, kc, vc, pos_t, max_len, n_rep)
+    if twice and not same(out, flash_decode_attend(q, kc, vc, pos_t, max_len,
+                                                   n_rep)):
+        fail(f"flash_decode_attend {dtype} D={head_dim} n_rep={n_rep} W={W}: "
+             f"two calls on the same inputs differ")
     ref = dense_decode_attend(q, kc, vc, pos_t, max_len, n_rep)
     ref32 = dense_decode_attend(q.float(), kc.float(), vc.float(), pos_t,
                                 max_len, n_rep)
     torch.cuda.synchronize()
-    return errors(out, ref, ref32)
+    return errors(out, ref, ref32, head_dim=head_dim)
 
 
 def quantize(c):
@@ -502,20 +570,26 @@ def paged_errs(form, pt, W, n_rep, pos, gen, B=8, max_len=1024):
     return errors(out, ref, ref32), errors(fixed, ref, ref32)
 
 
-def k2_int8_errs(B, W, n_rep, pos, dtype, gen, max_len=1024):
-    """K2's int8 form against the plain version on (codes, scales)."""
+def k2_int8_errs(B, W, n_rep, pos, dtype, gen, max_len=1024, heads=H,
+                 head_dim=D, twice=False):
+    """K2's int8 form against the plain version on (codes, scales); with
+    ``twice`` as :func:`k2_errs`."""
     from mpi_acx_torch.ops.flash_decode import dense_decode_attend, \
         flash_decode_attend
-    Hkv = H // n_rep
-    q = randn((B, W, H, D), dtype, gen)
-    kc = quantize(randn((B, max_len, Hkv, D), dtype, gen))
-    vc = quantize(randn((B, max_len, Hkv, D), dtype, gen))
+    Hkv = heads // n_rep
+    q = randn((B, W, heads, head_dim), dtype, gen)
+    kc = quantize(randn((B, max_len, Hkv, head_dim), dtype, gen))
+    vc = quantize(randn((B, max_len, Hkv, head_dim), dtype, gen))
     pos_t = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
     out = flash_decode_attend(q, kc, vc, pos_t, max_len, n_rep)
+    if twice and not same(out, flash_decode_attend(q, kc, vc, pos_t, max_len,
+                                                   n_rep)):
+        fail(f"flash_decode_attend int8 {dtype} D={head_dim} n_rep={n_rep} "
+             f"W={W}: two calls on the same inputs differ")
     ref = dense_decode_attend(q, kc, vc, pos_t, max_len, n_rep)
     ref32 = dense_decode_attend(q.float(), kc, vc, pos_t, max_len, n_rep)
     torch.cuda.synchronize()
-    return errors(out, ref, ref32)
+    return errors(out, ref, ref32, head_dim=head_dim)
 
 
 def edge_positions(chunk, max_len, W):
@@ -573,6 +647,70 @@ def decode_split_cases(dtype, gen, keep) -> int:
         case(int8, 16, 1, 12, 1024)         # 12, one KV group
         for chunk in CHUNKS:
             case(int8, 128, 1, 1, 1024, chunk)
+    return n
+
+
+# Llama-3-8B's attention: 32 query heads over 8 KV groups, head dim 128.
+LLAMA_H, LLAMA_HKV, LLAMA_D = 32, 8, 128
+LLAMA_REP = LLAMA_H // LLAMA_HKV
+
+
+def d128_cases(dtype, gen, keep, rows_seen) -> int:
+    """The head dim 128 instantiations at Llama-3-8B's heads: K1 (B6) over
+    the ragged edges of its tiles, causal and against Sk of 333 and 1000,
+    on both CTA sizes; K2 in both operand forms with 8 KV groups of 4
+    query heads, at W * n_rep of 4, 8 and 12, positions at the tiles' and
+    the split rule's chunk edges, max_len 1024 and 1000, and with each
+    candidate chunk stood in for the rule, each kernel equal to itself
+    over two calls. Returns the number of K2 cases."""
+    from mpi_acx_torch.ops import flash_decode as fd
+    from mpi_acx_torch.ops.attention import block_rows
+    sms, Hq, Dh = sm_count(), LLAMA_H, LLAMA_D
+    for S, Sk, causal in ([(S, S, True) for S in (1, 63, 65, 127, 129, 200,
+                                                   256, 512, 1000)]
+                          + [(S, Sk, False) for S in (1, 129, 512)
+                             for Sk in (333, 1000)]):
+        e = k1_errs(S, Sk, causal, dtype, gen, heads=Hq, head_dim=Dh)
+        rows = block_rows(1, S, Hq, sms)
+        check("flash_attention_d128", f"B=1 S={S} Sk={Sk} causal={causal} "
+              f"H={Hq} D={Dh}" + (f", {rows}-row CTAs"
+                                  if dtype == torch.bfloat16 else ""),
+              dtype, e)
+        keep("flash_attention_d128", dtype, e)
+        if dtype == torch.bfloat16:
+            rows_seen.add(rows)
+    n = 0
+
+    def case(W, max_len, chunk=None):
+        nonlocal n
+        rule = fd.decode_chunk
+        if chunk is not None:
+            fd.decode_chunk = lambda *_, c=chunk: c
+        try:
+            c = fd.decode_chunk(8, LLAMA_HKV, W * LLAMA_REP, max_len, sms,
+                                Dh)
+            pos = edge_positions(c, max_len, W)
+            args = (8, W, LLAMA_REP, pos, dtype, gen)
+            kw = dict(max_len=max_len, heads=Hq, head_dim=Dh, twice=True)
+            forms = (("flash_decode_attend_d128", k2_errs(*args, **kw)),
+                     ("flash_decode_attend_int8_d128",
+                      k2_int8_errs(*args, **kw)))
+        finally:
+            fd.decode_chunk = rule
+        n += 1
+        desc = (f"B=8 W={W} n_rep={LLAMA_REP} Hq={Hq} D={Dh} max_len="
+                f"{max_len}, {c}-position chunks"
+                + (" (stood in)" if chunk else "") + f", pos={pos}")
+        for name, e in forms:
+            check(name, desc, dtype, e)
+            keep(name, dtype, e)
+
+    case(1, 1024)
+    case(1, 1000)
+    case(2, 1024)                   # W * n_rep = 8
+    case(3, 1024)                   # 12: two row blocks of 8
+    for chunk in CHUNKS:
+        case(1, 1024, chunk)
     return n
 
 
@@ -662,6 +800,13 @@ def phase_kernels() -> dict:
         print(f"B9 equal to K2 bit for bit on the same rows, and each equal "
               f"to itself over two calls, in all {n_bit} {str(dtype)[6:]} "
               f"cases (bf16/f32 and int8 caches)", flush=True)
+        rows128 = set()
+        n128 = d128_cases(dtype, gen, keep, rows128)
+        print(f"head dim 128: K2 equal to itself over two calls in all "
+              f"{n128} {str(dtype)[6:]} cases of each operand form", flush=True)
+        if dtype == torch.bfloat16 and rows128 != {64, 128}:
+            fail(f"phase 2's head dim 128 K1 cases reached only "
+                 f"{sorted(rows128)}-row CTAs")
     if rows_seen != {64, 128}:
         fail(f"phase 2's K1 cases reached only {sorted(rows_seen)}-row CTAs")
     # An operand TMA cannot read in place (odd element offset): the wrapper
@@ -852,11 +997,16 @@ def attention_counters():
     from mpi_acx_torch.ops.flash_decode import flash_decode_attend, \
         paged_flash_decode_attend
     return [("flash_attention", flash_attention, "launches"),
+            ("flash_attention_d128", flash_attention, "launches_d128"),
             ("flash_attention_stream", flash_attention, "launches_stream"),
             ("flash_attention_lse", flash_attention_lse, "launches"),
             ("flash_decode_attend", flash_decode_attend, "launches"),
             ("flash_decode_attend_int8", flash_decode_attend,
              "launches_int8"),
+            ("flash_decode_attend_d128", flash_decode_attend,
+             "launches_d128"),
+            ("flash_decode_attend_int8_d128", flash_decode_attend,
+             "launches_int8_d128"),
             ("paged_flash_decode_attend", paged_flash_decode_attend,
              "launches"),
             ("paged_flash_decode_attend_int8", paged_flash_decode_attend,
@@ -887,12 +1037,14 @@ def read_counts(names=None):
             if names is None or name in names}
 
 
-def plain_logits(params, plain, ctx, S, int8):
+def plain_logits(params, plain, ctx, S, int8, fam=None):
     """The plain path's next-token logits after ``ctx`` (a served sequence
     cut where two paths diverge): a forward pass, or with ``int8`` the
     int8-cache decode the server ran (the prompt's ``S`` tokens prefilled
-    into an int8 cache, then one decode step per generated token)."""
-    from mpi_acx_torch.models import transformer as tfm
+    into an int8 cache, then one decode step per generated token).
+    ``fam`` is the model family's module (GPT-2's by default)."""
+    from mpi_acx_torch.models import transformer
+    tfm = fam or transformer
     toks = torch.as_tensor(ctx, device="cuda")[None]
     if not int8:
         return tfm.forward(params, plain, toks)[0, -1]
@@ -906,25 +1058,33 @@ def plain_logits(params, plain, ctx, S, int8):
 
 
 def compare_paths(label, params, cfg, got, want, prompts,
-                  int8=False) -> None:
+                  int8=False, fam=None, tie=None, ref=None) -> None:
     """Hold the kernel path's served tokens (``got``) to the plain path's
     (``want``). A divergence passes only at a tie: the plain path's logits
     of the two tokens at that step, recomputed over the common prefix
     (:func:`plain_logits`), differ by less than TIE. Then, for a bf16/f32
     cache, the two paths' logits over every served sequence (forward
     passes, so K1 at every length the sequences reach) must agree within
-    TIE."""
-    from mpi_acx_torch.models import serving, transformer as tfm
+    TIE. ``fam`` is the model family's module (GPT-2's by default);
+    ``tie`` the limit (TIE of the config's dtype by default). With ``ref``,
+    ``(params, config)`` of the same model in f32, both paths' forwards are
+    also held to its forward: the kernel path's logits must lie no farther
+    from it (RMS over the served positions) than the plain path's."""
+    from mpi_acx_torch.models import serving, transformer
+    tfm = fam or transformer
     plain = dataclasses.replace(cfg, use_flash=False, decode_flash=False)
-    tie = TIE[cfg.dtype]
-    ties, spread = [], 0.0
+    tie = TIE[cfg.dtype] if tie is None else tie
+    ties, spread, sq, n = [], 0.0, 0.0, 0
+    forced = [0, 0, 0.0]    # argmax apart, positions, largest plain margin
+    to_ref = {"kernel": 0.0, "plain": 0.0}     # squared error against ref
     for rid, (g, w) in enumerate(zip(got, want)):
         for o in (g, w):
             if isinstance(o, serving.RequestRejected):
                 fail(f"{label} request {rid} rejected: {o.detail}")
         if not np.array_equal(g, w):
             t = int(np.argmax(g != w))      # first differing position
-            lp = plain_logits(params, plain, w[:t], len(prompts[rid]), int8)
+            lp = plain_logits(params, plain, w[:t], len(prompts[rid]), int8,
+                              tfm)
             margin = (lp[int(w[t])] - lp[int(g[t])]).item()
             print(f"{label} request {rid}: tokens diverge at position {t} "
                   f"of {len(w)} (kernel {g[t]}, plain {w[t]}): plain logit "
@@ -939,13 +1099,40 @@ def compare_paths(label, params, cfg, got, want, prompts,
         lk = tfm.forward(params, cfg, seq)[0, len(prompts[rid]) - 1:]
         lp = tfm.forward(params, plain, seq)[0, len(prompts[rid]) - 1:]
         spread = max(spread, (lk - lp).abs().max().item())
+        sq += (lk - lp).double().square().sum().item()
+        n += lk.numel()
+        # Teacher-forced: both paths' next-token argmax at every served
+        # position of the same sequence, and where they differ the plain
+        # path's margin between the two (reported, not held).
+        ak, ap = lk.argmax(-1), lp.argmax(-1)
+        apart = ak != ap
+        forced[0] += int(apart.sum())
+        forced[1] += ak.numel()
+        if apart.any():
+            gap = (lp.gather(-1, ap[:, None]) - lp.gather(-1, ak[:, None]))
+            forced[2] = max(forced[2], gap[apart].max().item())
+        if ref is not None:
+            l32 = tfm.forward(*ref, seq)[0, len(prompts[rid]) - 1:]
+            for key, lx in (("kernel", lk), ("plain", lp)):
+                to_ref[key] += (lx - l32).double().square().sum().item()
     print(f"{label}: kernel path vs plain path: tokens equal in "
           f"{len(got) - len(ties)} of {len(got)} requests, ties in {ties}"
           + ("" if int8 else f"; max |logit difference| over the served "
-             f"positions {spread:.4e} (tol {tie})"), flush=True)
+             f"positions {spread:.4e} (tol {tie}), RMS "
+             f"{math.sqrt(sq / n):.4e}; teacher-forced argmax apart at "
+             f"{forced[0]} of {forced[1]} positions, plain margins there up "
+             f"to {forced[2]:.4e}"), flush=True)
     if not spread < tie:
         fail(f"{label}: kernel-path logits differ from the plain path's by "
              f"{spread:.4e}")
+    if ref is not None:
+        rms = {k: math.sqrt(v / n) for k, v in to_ref.items()}
+        print(f"{label}: logits against an f32 forward of the same weights, "
+              f"RMS over the served positions: kernel path {rms['kernel']:.4e}"
+              f", plain path {rms['plain']:.4e}", flush=True)
+        if not rms["kernel"] <= rms["plain"]:
+            fail(f"{label}: the kernel path lies farther from f32 than the "
+                 f"plain path")
 
 
 def phase_f32(params32):
@@ -1148,12 +1335,18 @@ def bound_ms(flops, nbytes, dtype):
                                  else "bytes")
 
 
-CTA_SHAPES = ((1, 32), (1, 128), (1, 256), (1, 512),  # B6's buckets
-              (1, 704), (1, 768),     # 132 and 144 CTAs of 64 rows
-              (4, 129), (4, 1024))    # B=4: 144 and 768 CTAs of 64 rows
+# (B, S, heads, head dim)
+CTA_SHAPES = tuple((B, S, H, D) for B, S in (
+    (1, 32), (1, 128), (1, 256), (1, 512),  # B6's buckets
+    (1, 704), (1, 768),     # 132 and 144 CTAs of 64 rows
+    (4, 129), (4, 1024)))   # B=4: 144 and 768 CTAs of 64 rows
+# Llama-3-8B's prefill buckets (32 heads, D = 128): 32-128 CTAs of 64 rows
+# up to S = 256, then 160 and 256.
+LLAMA_CTA_SHAPES = ((1, 32, 32, 128), (1, 128, 32, 128), (1, 256, 32, 128),
+                    (1, 320, 32, 128), (1, 512, 32, 128))
 
 
-def phase_cta_sizes(card_str) -> None:
+def phase_cta_sizes(card_str, shapes=CTA_SHAPES) -> None:
     """K1's bf16 kernel timed with each CTA size at the same shapes,
     causal, through the wrapper with its rule stood in for, in the order
     64, 128, 128, 64 rows (the means are printed): at B6's four buckets and
@@ -1161,8 +1354,8 @@ def phase_cta_sizes(card_str) -> None:
     from mpi_acx_torch.ops import attention as attn
     gen = torch.Generator(device="cuda").manual_seed(4)
     rule, sms, agree = attn.block_rows, sm_count(), 0
-    for B, S in CTA_SHAPES:
-        q, k, v = (randn((B, S, H, D), torch.bfloat16, gen)
+    for B, S, Hs, Dh in shapes:
+        q, k, v = (randn((B, S, Hs, Dh), torch.bfloat16, gen)
                    for _ in range(3))
         ts = {64: [], 128: []}
         try:
@@ -1173,63 +1366,68 @@ def phase_cta_sizes(card_str) -> None:
         finally:
             attn.block_rows = rule
         t = {r: float(np.mean(x)) for r, x in ts.items()}
-        pick = rule(B, S, H, sms)
+        pick = rule(B, S, Hs, sms)
         faster = min(t, key=t.get)
         agree += pick == faster
-        print(f"time flash_attention bf16 B={B} S={S} H={H} D={D} causal by "
-              f"CTA size: 64 rows {t[64]:.5f} ms ({B * H * -(-S // 64)} "
-              f"CTAs), 128 rows {t[128]:.5f} ms ({B * H * -(-S // 128)} "
+        print(f"time flash_attention bf16 B={B} S={S} H={Hs} D={Dh} causal "
+              f"by CTA size: 64 rows {t[64]:.5f} ms ({B * Hs * -(-S // 64)} "
+              f"CTAs), 128 rows {t[128]:.5f} ms ({B * Hs * -(-S // 128)} "
               f"CTAs), 64/128 {t[64] / t[128]:.3f}; the rule picks {pick} "
               f"[{card_str}]", flush=True)
     print(f"K1's CTA-size rule picked the faster size at {agree} of "
-          f"{len(CTA_SHAPES)} shapes ({sms} SMs)", flush=True)
+          f"{len(shapes)} shapes ({sms} SMs)", flush=True)
 
 
-def phase_timing(card_str) -> dict:
+def k1_timing(card_str, heads, head_dim, label) -> dict:
+    """K1 at the four prefill buckets of the serving phase (4 prefills
+    each, so the mean over the buckets is the mean per launch on that
+    path), B = 1, causal, beside its plain version, SDPA and its bound."""
     import torch.nn.functional as F
     from mpi_acx_torch.ops.attention import attention_reference, \
         block_rows, flash_attention
     gen = torch.Generator(device="cuda").manual_seed(3)
     bf = torch.bfloat16
-    out = {}
-
-    # K1 at the four prefill buckets of phase 4 (4 prefills each, so the
-    # mean over the buckets is the mean per launch on that path).
     rows = []
     for S in (32, 128, 256, 512):
-        q, k, v = (randn((1, S, H, D), bf, gen) for _ in range(3))
+        q, k, v = (randn((1, S, heads, head_dim), bf, gen) for _ in range(3))
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         t_k = time_ms(lambda: flash_attention(q, k, v))
         t_p = time_ms(lambda: attention_reference(q, k, v))
         t_l = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True))
-        flops = 4 * H * D * S * (S + 1) / 2
-        nbytes = 4 * S * H * D * 2
+        flops = 4 * heads * head_dim * S * (S + 1) / 2
+        nbytes = 4 * S * heads * head_dim * 2
         b_ms, b_by = bound_ms(flops, nbytes, bf)
         rows.append((t_k, t_p, t_l, flops, nbytes))
-        print(f"time flash_attention bf16 B=1 S={S} H={H} D={D} causal, "
-              f"{block_rows(1, S, H, sm_count())}-row CTAs: kernel "
+        print(f"time flash_attention {label}bf16 B=1 S={S} H={heads} "
+              f"D={head_dim} causal, "
+              f"{block_rows(1, S, heads, sm_count())}-row CTAs: kernel "
               f"{t_k:.4f} ms "
               f"({flops / t_k / 1e9:.1f} TFLOP/s), plain {t_p:.4f} ms, "
               f"library (sdpa) {t_l:.4f} ms, bound {b_ms:.5f} ms ({b_by}) "
               f"[{card_str}]", flush=True)
     mean = np.mean(rows, axis=0)
     b_ms, b_by = bound_ms(mean[3], mean[4], bf)
-    out["flash_attention"] = dict(ms=mean[0], plain_ms=mean[1],
-                                  library_ms=mean[2], bound_ms=b_ms,
-                                  bound_by=b_by)
+    return dict(ms=mean[0], plain_ms=mean[1], library_ms=mean[2],
+                bound_ms=b_ms, bound_by=b_by)
 
+
+def phase_timing(card_str) -> dict:
+    out = {"flash_attention": k1_timing(card_str, H, D, "")}
     out.update(phase_decode_timing(card_str))
     return out
 
 
-def decode_bytes(live, B, int8, paged, max_pages=0):
-    """Bytes a decode call at W = 1, H = 12 must move: the live K/V rows
-    (int8 codes and their f32 scales, or bf16), q and the output, pos, and
-    for the paged form the table."""
-    return (live * H * D * (1 if int8 else 2) * 2
-            + (live * H * 4 * 2 if int8 else 0)
-            + 2 * B * H * D * 2 + B * 4 + (B * max_pages * 4 if paged else 0))
+def decode_bytes(live, B, int8, paged, max_pages=0, hkv=H, hq=H,
+                 head_dim=D):
+    """Bytes a decode call at W = 1 must move (GPT-2's 12 heads unless
+    told otherwise): the live K/V rows of the ``hkv`` groups (int8 codes
+    and their f32 scales, or bf16), q and the output of the ``hq`` query
+    heads, pos, and for the paged form the table."""
+    return (live * hkv * head_dim * (1 if int8 else 2) * 2
+            + (live * hkv * 4 * 2 if int8 else 0)
+            + 2 * B * hq * head_dim * 2 + B * 4
+            + (B * max_pages * 4 if paged else 0))
 
 
 def phase_decode_timing(card_str) -> dict:
@@ -1371,7 +1569,8 @@ def phase_decode_timing(card_str) -> dict:
                   f"[{card_str}]", flush=True)
             out[name].update(full_cache_ms=t, full_cache_bound_ms=b_ms)
 
-    phase_decode_split(card_str, run, q, kc, vc, pos, full, max_len)
+    phase_decode_split(card_str, run, q, kc, vc, pos, full, max_len,
+                       label="GPT-2 124M ")
 
     # The wrapper's host cost per call: an eager loop at the served shape,
     # host clock, no synchronize inside it.
@@ -1388,25 +1587,29 @@ def phase_decode_timing(card_str) -> dict:
     return out
 
 
-def phase_decode_split(card_str, run, q, kc, vc, pos, full, max_len) -> None:
+def phase_decode_split(card_str, run, q, kc, vc, pos, full, max_len,
+                       n_rep=1, label="") -> None:
     """The split rule's A/B: K2 (bf16) with each of CHUNKS positions per CTA
     stood in for the rule, through the wrapper, at the served positions and
     the full cache, in the order CHUNKS then reversed (the means are
     printed, with whether the rule's pick is the fastest within SPLIT_TIE).
     At the served shape the pick must beat one chunk per slot (1024). The
     full cache has the same observable inputs, so the rule picks the same
-    chunk there."""
+    chunk there. ``kc`` holds the layers' caches [L, B, max_len, Hkv, Dh];
+    ``label`` names the model whose decode shape this is."""
     from mpi_acx_torch.ops import flash_decode as fd
     rule, B = fd.decode_chunk, q.shape[0]
-    pick = rule(B, H, 1, max_len, sm_count())
-    for label, at in (("served pos=[40, 160, 320, 528] x 2", pos),
+    Hq, Hkv, Dh = q.shape[2], kc.shape[3], q.shape[3]
+    pick = rule(B, Hkv, n_rep, max_len, sm_count(), Dh)
+    served = "[" + ", ".join(map(str, pos.tolist()[:4])) + "] x 2"
+    for shape, at in ((f"served pos={served}", pos),
                       (f"full cache pos={max_len - 1}", full)):
         ts = {c: [] for c in CHUNKS}
         try:
             for c in CHUNKS + CHUNKS[::-1]:
                 fd.decode_chunk = lambda *_, c=c: c
                 ts[c].append(time_ms(run(lambda i: fd.flash_decode_attend(
-                    q, kc[i], vc[i], at, max_len, 1)), iters=240))
+                    q, kc[i], vc[i], at, max_len, n_rep)), iters=240))
         finally:
             fd.decode_chunk = rule
         t = {c: float(np.mean(x)) for c, x in ts.items()}
@@ -1416,26 +1619,57 @@ def phase_decode_split(card_str, run, q, kc, vc, pos, full, max_len) -> None:
         ok = t[pick] <= t[fastest] * (1 + SPLIT_TIE)
         verdict = ("the fastest" if ok
                    else f"{t[pick] / t[fastest]:.3f}x the fastest")
-        print(f"time flash_decode_attend bf16 B={B} W=1 H={H} D={D} "
-              f"max_len={max_len} {label} by positions per CTA: "
-              + ", ".join(f"{c} {v:.5f} ms" for c, v in t.items())
+        print(f"time flash_decode_attend {label}bf16 B={B} W=1 Hq={Hq} "
+              f"Hkv={Hkv} D={Dh} max_len={max_len} {shape} by positions per "
+              f"CTA: " + ", ".join(f"{c} {v:.5f} ms" for c, v in t.items())
               + f"; fastest {fastest}, the rule picks {pick} ({verdict}) "
               f"[{card_str}]", flush=True)
         if at is pos and not t[pick] < t[CHUNKS[-1]]:
-            fail(f"decode split rule's {pick} positions per CTA at {label} "
-                 f"are not faster than one chunk per slot")
+            fail(f"decode split rule's {pick} positions per CTA at {label}"
+                 f"{shape} are not faster than one chunk per slot")
 
 
-def phase_step(params16, k2_ms, k2_host_us, card_str) -> None:
+def step_profile(step) -> str:
+    """One more call of ``step`` under torch.profiler: the device time of
+    its kernels by class (the products: cuBLAS GEMMs; the decode
+    attention: K2; everything else: norms, RoPE, activations, copies and
+    the cache writes, each its own small kernel), the number of kernels,
+    and the three largest by name."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_name, n = {}, 0
+    for ev in prof.events():
+        if ev.device_type.name == "CUDA":
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time_total
+            n += 1
+    cls = dict.fromkeys(("products", "decode attention", "other"), 0.0)
+    for name, us in by_name.items():
+        key = ("decode attention" if "decode_kernel" in name else "products"
+               if re.search(r"gemm|gemv|xmma|cutlass|nvjet", name, re.I)
+               else "other")
+        cls[key] += us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return (f"{n} kernels, device {sum(cls.values()) / 1e3:.3f} ms: "
+            + ", ".join(f"{k} {v / 1e3:.3f} ms" for k, v in cls.items())
+            + "; largest " + "; ".join(f"{nm[:50]} {us / 1e3:.3f} ms"
+                                       for nm, us in top))
+
+
+def phase_step(params, cfg, fam, k2_ms, k2_host_us, card_str,
+               label="GPT-2 124M", profile=False) -> None:
     """One batched decode step at the phase-4 shape (8 slots at mid-request
     positions): as the server issues it (eager, host clock around steps
     that end in a synchronize) against its device time (the same step
     replayed from a CUDA graph). Their ratio is the device's busy share of
-    a served decode step; 12 K2 calls are its attention."""
-    from mpi_acx_torch.models import transformer as tfm
-    cfg = tfm.gpt2_small()
+    a served decode step; one K2 call a layer is its attention. ``fam``
+    is the model family's module, ``label`` its name; with ``profile`` one
+    more step's kernels are split by class (:func:`step_profile`)."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    cache = tfm.init_kv_cache(cfg, 8, 1024)
+    cache = fam.init_kv_cache(cfg, 8, 1024)
     for key in ("k", "v"):
         cache[key].normal_(generator=gen)
     cache["pos"] = torch.tensor([40, 160, 320, 528] * 2, dtype=torch.int32,
@@ -1444,7 +1678,7 @@ def phase_step(params16, k2_ms, k2_host_us, card_str) -> None:
                         dtype=torch.int32)
 
     def step():
-        return tfm.decode_step(params16, cfg, cache, tok)
+        return fam.decode_step(params, cfg, cache, tok)
 
     for _ in range(3):
         step()
@@ -1456,13 +1690,207 @@ def phase_step(params16, k2_ms, k2_host_us, card_str) -> None:
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) / n * 1e3
     dev_ms = time_ms(step, iters=10)
-    print(f"decode step bf16 GPT-2 124M B=8 max_len=1024: host-issued "
+    L = cfg.n_layers
+    host = ("" if k2_host_us is None else
+            f"; K2's wrapper issues in {k2_host_us:.2f} us a call, {L} x = "
+            f"{100 * L * k2_host_us / 1e3 / host_ms:.1f}% of the issued step")
+    print(f"decode step bf16 {label} B=8 max_len=1024: host-issued "
           f"{host_ms:.3f} ms, device {dev_ms:.3f} ms (graph replay): device "
           f"busy {100 * dev_ms / host_ms:.1f}% of the eager step; decode "
-          f"attention 12 x {k2_ms:.4f} ms = {100 * 12 * k2_ms / dev_ms:.1f}% "
-          f"of device time; K2's wrapper issues in {k2_host_us:.2f} us a call, "
-          f"12 x = {100 * 12 * k2_host_us / 1e3 / host_ms:.1f}% of the issued "
-          f"step [{card_str}]", flush=True)
+          f"attention {L} x {k2_ms:.4f} ms = {100 * L * k2_ms / dev_ms:.1f}% "
+          f"of device time{host} [{card_str}]", flush=True)
+    if profile:
+        print(f"decode step bf16 {label} profiled: {step_profile(step)} "
+              f"[{card_str}]", flush=True)
+
+
+# --- phase 4c: Llama-3-8B ---------------------------------------------------
+
+LLAMA_F32_LAYERS = 4    # the f32 check's depth (full width)
+
+
+def llama_decode_timing(card_str) -> dict:
+    """K2 at Llama-3-8B's decode shape (B = 8, W = 1, 32 query heads over 8
+    KV groups, D = 128, max_len 1024, positions 40/160/320/528 twice, 32
+    layers' caches rotated), bf16 and int8 caches, each beside its plain
+    version, its bound and (bf16) SDPA over the same rows with the length
+    mask (a group's 4 query heads as 4 query rows of one head, so one call
+    computes the grouped function); then both with every slot at its last
+    row, and the split rule's candidates (phase_decode_split)."""
+    import torch.nn.functional as F
+    from mpi_acx_torch.ops.flash_decode import dense_decode_attend, \
+        flash_decode_attend
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf = torch.bfloat16
+    B, max_len, L = 8, 1024, 32
+    Hq, Hkv, Dh, rep = LLAMA_H, LLAMA_HKV, LLAMA_D, LLAMA_REP
+    pos_l = [40, 160, 320, 528] * 2
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    full = torch.full((B,), max_len - 1, dtype=torch.int32, device="cuda")
+    q = randn((B, 1, Hq, Dh), bf, gen)
+    kc = randn((L, B, max_len, Hkv, Dh), bf, gen)
+    vc = randn((L, B, max_len, Hkv, Dh), bf, gen)
+    kc8, vc8 = quantize(kc), quantize(vc)
+    it = iter(range(10 ** 9))
+
+    def run(fn):
+        return lambda: fn(next(it) % L)
+
+    def pick(c, i):
+        return tuple(x[i] for x in c) if isinstance(c, tuple) else c[i]
+
+    out = {}
+    for name, int8, (k, v) in (("flash_decode_attend_d128", False, (kc, vc)),
+                               ("flash_decode_attend_int8_d128", True,
+                                (kc8, vc8))):
+        t_k = time_ms(run(lambda i: flash_decode_attend(
+            q, pick(k, i), pick(v, i), pos, max_len, rep)), iters=240)
+        t_p = time_ms(run(lambda i: dense_decode_attend(
+            q, pick(k, i), pick(v, i), pos, max_len, rep)), iters=240)
+        t_f = time_ms(run(lambda i: flash_decode_attend(
+            q, pick(k, i), pick(v, i), full, max_len, rep)), iters=240)
+        t_l = None
+        if not int8:
+            qg = q.reshape(B, Hkv, rep, Dh)
+            kt = kc.transpose(2, 3).contiguous()
+            vt = vc.transpose(2, 3).contiguous()
+            mask = (torch.arange(max_len, device="cuda")[None, :]
+                    <= pos[:, None])[:, None, None, :]
+            t_l = time_ms(run(lambda i: F.scaled_dot_product_attention(
+                qg, kt[i], vt[i], attn_mask=mask)), iters=240)
+            del kt, vt
+        res = {}
+        for label, at_live in (("served", sum(p + 1 for p in pos_l)),
+                               ("full", B * max_len)):
+            nbytes = decode_bytes(at_live, B, int8, False, hkv=Hkv, hq=Hq,
+                                  head_dim=Dh)
+            res[label] = (bound_ms(4 * at_live * Hq * Dh, nbytes,
+                                   torch.int8 if int8 else bf), nbytes)
+        (b_ms, b_by), nbytes = res["served"]
+        (bf_ms, _), _ = res["full"]
+        lib = ("-" if t_l is None else f"{t_l:.4f} ms")
+        print(f"time {name} bf16 q, {'int8' if int8 else 'bf16'} cache, B={B} "
+              f"W=1 Hq={Hq} Hkv={Hkv} D={Dh} max_len={max_len} pos={pos_l}: "
+              f"kernel {t_k:.4f} ms, plain {t_p:.4f} ms, library (sdpa, "
+              f"length mask) {lib}, bound {b_ms:.5f} ms ({b_by}, {nbytes} "
+              f"bytes); full cache {t_f:.4f} ms, bound {bf_ms:.5f} ms, "
+              f"{t_f / bf_ms:.2f}x [{card_str}]", flush=True)
+        out[name] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                         bound_by=b_by, full_cache_ms=t_f,
+                         full_cache_bound_ms=bf_ms)
+    phase_decode_split(card_str, run, q, kc, vc, pos, full, max_len,
+                       n_rep=rep, label="Llama-3-8B ")
+    return out
+
+
+def llama_f32(card_str) -> dict:
+    """Llama-3-8B at full width, depth cut to LLAMA_F32_LAYERS, in f32:
+    served through the kernels and through the plain versions (tokens and
+    logits as phase 3). Returns the launch counts of the kernel path."""
+    from mpi_acx_torch.models import llama, serving
+    cfg = dataclasses.replace(llama.llama3_8b(), n_layers=LLAMA_F32_LAYERS,
+                              dtype=torch.float32)
+    plain = dataclasses.replace(cfg, use_flash=False, decode_flash=False)
+    params = llama.init_params(cfg, seed=0, dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    lens = [16, 40, 64, 100, 23, 77, 50, 128]
+    n_new = [8, 16, 12, 20, 8, 16, 12, 20]
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    kw = dict(n_slots=3, max_len=256, chunk=4, family=llama)
+    reset_counts()
+    got = serving.serve_greedy(params, cfg, prompts, n_new, **kw)
+    counts = read_counts(("flash_attention_d128", "flash_decode_attend_d128"))
+    check_no_copies("Llama f32 serve")
+    want = serving.serve_greedy(params, plain, prompts, n_new, **kw)
+    if min(counts.values()) == 0:
+        fail(f"Llama f32 kernel serve did not launch every kernel: {counts}")
+    if got.metrics.requeues or want.metrics.requeues:
+        fail("Llama f32 serve requeued a request after a failed step")
+    compare_paths(f"Llama f32 serve (8 requests, 3 slots, Llama-3-8B full "
+                  f"width, {LLAMA_F32_LAYERS} layers)", params, cfg, got, want,
+                  prompts, fam=llama)
+    print(f"Llama f32 serve launches {counts}", flush=True)
+    return counts
+
+
+def phase_llama(card_str):
+    """Llama-3-8B (BASELINE.json configs[4]'s geometry) served on the card
+    through the head dim 128 kernels: the f32 check at full width and cut
+    depth, then the full model (32 layers, seed-0 bf16 weights drawn on
+    the card) serving phase 4's requests with bf16 and then int8 KV
+    caches, each held to the same requests through the plain versions;
+    the launch counts of the D = 128 forms (K1's exactly the prefills x 32
+    layers); the D = 128 kernels timed at the path's shapes, K1's CTA
+    sizes at Llama's prefill buckets, and a decode step issued against its
+    device time. Returns (launch counts, timings)."""
+    from mpi_acx_torch.models import llama, serving
+    names = ("flash_attention_d128", "flash_decode_attend_d128",
+             "flash_decode_attend_int8_d128")
+    llama_f32(card_str)
+    torch.cuda.empty_cache()
+    cfg = llama.llama3_8b()
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in
+                  [params["embed"], params["unembed"], params["final_norm"],
+                   *params["layers"].values()])
+    print(f"params: Llama-3-8B, {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} query heads over {cfg.n_kv_heads} KV groups, D "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}: "
+          f"{n_bytes / 1e9:.2f} GB of bf16 drawn on the card from seed 0 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prompts, n_new = serve_requests(cfg.vocab)
+    kw = dict(n_slots=8, max_len=1024, chunk=8, family=llama)
+    plain = dataclasses.replace(cfg, use_flash=False, decode_flash=False)
+    # Warm-up: cuBLAS handles and allocator pools at these shapes.
+    serving.serve_greedy(params, cfg, prompts[:2], 4, **kw)
+    counts = {}
+    for int8 in (False, True):
+        label = f"Llama-3-8B serve {'int8' if int8 else 'bf16'} KV"
+        torch.cuda.synchronize()
+        reset_counts()
+        res = serving.serve_greedy(params, cfg, prompts, n_new,
+                                   kv_int8=int8, **kw)
+        torch.cuda.synchronize()
+        got = read_counts(names)
+        check_no_copies(label)
+        check_served(label, res, prompts, n_new, cfg.vocab)
+        print(f"serve {label}: 16 requests, 8 slots, max_len 1024, chunk 8: "
+              f"{served_figures(res.metrics)} [{card_str}]", flush=True)
+        print(f"launches during {label}: {json.dumps(got)}", flush=True)
+        k2 = "flash_decode_attend_int8_d128" if int8 else \
+            "flash_decode_attend_d128"
+        want_k1 = res.metrics.prefills * cfg.n_layers
+        if got["flash_attention_d128"] != want_k1 or got[k2] == 0:
+            fail(f"{label}: K1 launched {got['flash_attention_d128']} times "
+                 f"(the {res.metrics.prefills} prefills x {cfg.n_layers} "
+                 f"layers are {want_k1}), {k2} {got[k2]} times")
+        counts["flash_attention_d128"] = counts.get(
+            "flash_attention_d128", 0) + got["flash_attention_d128"]
+        counts[k2] = got[k2]
+        want = serving.serve_greedy(params, plain, prompts, n_new,
+                                    kv_int8=int8, **kw)
+        # The f32 reference of the bf16 run: the same weights widened
+        # (32 GB beside the 16), attention through the plain version.
+        ref = None if int8 else (
+            {k: ({n: t.float() for n, t in v.items()} if isinstance(v, dict)
+                 else v.float()) for k, v in params.items()},
+            dataclasses.replace(plain, dtype=torch.float32))
+        compare_paths(f"{label} (16 requests, 8 slots)", params, cfg, res,
+                      want, prompts, int8=int8, fam=llama, tie=TIE_LLAMA,
+                      ref=ref)
+        del ref
+        torch.cuda.empty_cache()
+    times = {"flash_attention_d128": k1_timing(card_str, LLAMA_H, LLAMA_D,
+                                               "Llama-3-8B ")}
+    times.update(llama_decode_timing(card_str))
+    phase_cta_sizes(card_str, LLAMA_CTA_SHAPES)
+    phase_step(params, cfg, llama, times["flash_decode_attend_d128"]["ms"],
+               None, card_str, label="Llama-3-8B", profile=True)
+    del params
+    torch.cuda.empty_cache()
+    return counts, times
 
 
 # --- phase 5b --------------------------------------------------------------
@@ -1744,8 +2172,9 @@ def phase_flags() -> dict:
     it (both sides, and past int32 as a Python int) and repeated; each
     single index as a Python int and as a 0-d int32 tensor on the card; B5
     at 8x128 and at the exchange's 4 MiB partition (1024x1024 f32) with
-    each producer the card has. Returns the max abs error and the number
-    of cases per kernel."""
+    each producer compiled into its kernel and with a general one (tanh(t)
+    * 3: PyTorch on the stream, then B1). Returns the max abs error and
+    the number of cases per kernel."""
     from mpi_acx_torch.ops import flags as fl
     kern = dict(zip(FLAG_KERNELS, fl.select_flags(True)))
     plain = dict(zip(FLAG_KERNELS, fl.select_flags(False)))
@@ -1808,6 +2237,19 @@ def phase_flags() -> dict:
                 pp, fp = plain["produce_and_pready"](produce, x,
                                                      table.clone(), idx)
                 hold("produce_and_pready", [pk, fk], [pp, fp], desc)
+        # A producer the fused kernel does not hold: the caller's own
+        # PyTorch code on the stream, then B1's flag store behind it.
+        b1 = fl.pready.launches
+        for idx in (5, cuda_i32(15), 16, -1):
+            desc = f"x {shape} idx={idx}, produce tanh(t) * 3"
+            pk, fk = kern["produce_and_pready"](
+                lambda t: torch.tanh(t) * 3.0, x, table.clone(), idx)
+            pp, fp = plain["produce_and_pready"](
+                lambda t: torch.tanh(t) * 3.0, x, table.clone(), idx)
+            hold("produce_and_pready", [pk, fk], [pp, fp], desc)
+        if fl.pready.launches != b1 + 4:
+            fail(f"produce_and_pready with a general producer launched B1 "
+                 f"{fl.pready.launches - b1} times for 4 calls")
     torch.cuda.synchronize()
     for name in FLAG_KERNELS:
         print(f"kernel {name}: {res[name]['cases']} cases equal to the plain "
@@ -2008,6 +2450,15 @@ KERNELS = {
     "flash_decode_attend": dict(
         source="mpi_acx_torch/csrc/flash_decode.cu",
         replaces="mpi_acx_tpu/ops/flash_decode.py:80"),
+    "flash_attention_d128": dict(
+        source="mpi_acx_torch/csrc/flash_attention.cu",
+        replaces="mpi_acx_tpu/ops/attention.py:126"),
+    "flash_decode_attend_d128": dict(
+        source="mpi_acx_torch/csrc/flash_decode.cu",
+        replaces="mpi_acx_tpu/ops/flash_decode.py:80"),
+    "flash_decode_attend_int8_d128": dict(
+        source="mpi_acx_torch/csrc/flash_decode.cu",
+        replaces="mpi_acx_tpu/ops/flash_decode.py:80"),
     "flash_decode_attend_int8": dict(
         source="mpi_acx_torch/csrc/flash_decode.cu",
         replaces="mpi_acx_tpu/ops/flash_decode.py:80"),
@@ -2067,9 +2518,14 @@ def main() -> int:
     times = phase_timing(card_str)
     phase_cta_sizes(card_str)
     k2 = times["flash_decode_attend"]
-    phase_step(params16, k2["ms"], k2["host_us"], card_str)
+    phase_step(params16, tfm.gpt2_small(), tfm, k2["ms"], k2["host_us"],
+               card_str)
     del params16
     torch.cuda.empty_cache()
+
+    llama_counts, llama_times = phase_llama(card_str)
+    counts.update(llama_counts)
+    times.update(llama_times)
 
     counts.update(phase_train(card_str))
     torch.cuda.empty_cache()

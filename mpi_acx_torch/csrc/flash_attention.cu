@@ -30,28 +30,38 @@
 //  * Key tiles are 128 keys: with D = 64 a 64-key tile gives each wgmma of
 //    Q.K^T only 4 k-steps of work per barrier round trip and per row
 //    max/sum reduction; 128 keys halve both while the logits (64 f32 per
-//    thread) and P (32 registers) still fit beside the 32 output
-//    accumulators in the consumers' 232 registers.
+//    thread) and P (32 registers) still fit beside the output accumulators
+//    (D / 2 a thread: 32 at D = 64, 64 at D = 128) in the consumers' 232
+//    registers.
 //  * One producer thread loads by TMA (cp.async.bulk.tensor over 4-D tensor
 //    maps [B, S, H, D] with the caller's strides, box [1, rows, 1, 64],
-//    128-byte swizzle: a 64-wide bf16 row is exactly 128 bytes) into a ring
-//    of kStages K/V stages, each with its own full barriers (K apart from V,
-//    so Q.K^T starts before V lands) and an empty barrier that every
-//    consumer warp arrives on when it is done with the stage. Q comes in
-//    once. TMA zero-fills rows past S and Sk; the key tail is still masked.
+//    128-byte swizzle: a 64-wide bf16 row is exactly 128 bytes, one swizzle
+//    atom) into a ring of kStages K/V stages, each with its own full
+//    barriers (K apart from V, so Q.K^T starts before V lands) and an empty
+//    barrier that every consumer warp arrives on when it is done with the
+//    stage. Q comes in once. A D = 128 tile is two atoms, columns 0-63 and
+//    64-127, each its own box of the same map, stored one after the other.
+//    TMA zero-fills rows past S and Sk; the key tail is still masked.
 //    setmaxnreg moves registers from the producer (40) to the consumers.
 //  * S = Q.K^T is wgmma m64n128k16 with both operands in swizzled shared
-//    memory. O += P.V is wgmma m64n64k16 with P in registers: the logits'
-//    accumulator layout is exactly the A-fragment layout, so P is packed to
-//    bf16 in place and never touches shared memory; V is the B operand read
-//    from its row-major tile with the transpose flag, never copied.
-//  * Softmax in raw-logit units. For D = 64 the scale 1/8 is a power of
-//    two, so q*(1/8) rounded to bf16 is q scaled exactly (every normal q)
-//    and the scaled logit is the raw one times 1/8 exactly. The scale
-//    therefore moves into the exponent: m is the raw row max, p =
-//    exp2f(s*c - m*c) with c = log2(e)/8, and lse = m/8 + logf(l). This
-//    rests on D = 64; another head dim needs its own instantiation and
-//    the explicit scaling.
+//    memory, D / 16 k-steps, each inside one atom. O += P.V is wgmma
+//    m64nDk16 with P in registers: the logits' accumulator layout is
+//    exactly the A-fragment layout, so P is packed to bf16 in place and
+//    never touches shared memory; V is the B operand read from its
+//    row-major tile with the transpose flag, never copied. At D = 128 the
+//    product's 128 columns span both atoms of the V tile: the descriptor's
+//    leading byte offset steps from the first atom to the second.
+//  * D = 64: softmax in raw-logit units. The scale 1/8 is a power of two,
+//    so q*(1/8) rounded to bf16 is q scaled exactly (every normal q) and
+//    the scaled logit is the raw one times 1/8 exactly. The scale therefore
+//    moves into the exponent: m is the raw row max, p = exp2f(s*c - m*c)
+//    with c = log2(e)/8, and lse = m/8 + logf(l).
+//  * D = 128: 1/sqrt(128) is not a power of two, so the kernel computes
+//    what the TPU kernel computes: each consumer warpgroup scales its own Q
+//    tile once, in shared memory after the TMA lands (q * (1/sqrt(D)) in
+//    f32, rounded to bf16; a proxy fence orders those stores before wgmma
+//    reads the tile), and the logits are then used as they are: p =
+//    exp2f((s - m) * log2(e)).
 //  * Key tiles are visited from the last (diagonal or tail) to the first,
 //    so only the first one or two iterations evaluate the mask; tiles
 //    above the diagonal are never loaded. q tiles are scheduled heaviest
@@ -75,12 +85,17 @@
 //  * B7, long context (B=1, S=16384, causal): the operations (412 GFLOP,
 //    0.417 ms); 1536 CTAs of 128 rows, up to 128 key tiles each, where the
 //    producer's ring keeps the next tiles in flight behind the products.
-// Resources (nvcc -Xptxas -v, sm_90a): flash_fwd_bf16<2, *> is allocated
-// 168 registers a thread at launch (384 threads), which setmaxnreg turns
-// into 232 for the consumers and 40 for the producer; flash_fwd_bf16<1, *>
-// uses 131; no instantiation spills. Shared memory is dynamic (ptxas
-// reports none): bf16_smem_bytes, 115,792 bytes a CTA of 128 rows and
-// 107,600 of 64, so one CTA per SM, which the registers require anyway.
+//  * B6 at Llama-3-8B's prefill (B=1, H=32, D=128, S = 32..512, causal):
+//    the bytes below a microsecond and the operations at most 8.6 GFLOP
+//    (8.7 us at S=512); 32-128 CTAs of 64 rows, or 128 of 128.
+// Resources (nvcc -Xptxas -v, sm_90a): flash_fwd_bf16<2, 64, *> is
+// allocated 168 registers a thread at launch (384 threads), which
+// setmaxnreg turns into 232 for the consumers and 40 for the producer;
+// flash_fwd_bf16<1, 64, *> uses 131; no instantiation spills. Shared
+// memory is dynamic (ptxas reports none): bf16_smem_bytes, at D = 64
+// 115,792 bytes a CTA of 128 rows and 107,600 of 64, at D = 128 230,480
+// and 214,096 (the three-stage ring of 64 KB K/V stages fits the 227 KB a
+// block may take), so one CTA per SM, which the registers require anyway.
 #include <cuda.h>
 
 #include "common.cuh"
@@ -90,10 +105,14 @@ namespace {
 constexpr int kTileKeys = 128;              // bf16: keys per tile
 constexpr int kStages = 3;                  // bf16: K/V ring depth
 constexpr int kWgRows = 64;                 // bf16: query rows per consumer WG
-constexpr int kHeadDim = 64;
-constexpr float kLog2eOver8 = 1.4426950408889634f / 8.f;  // log2(e)/sqrt(64)
-constexpr int kTileBytes = kTileKeys * kHeadDim * 2;        // one K or V stage
-constexpr int kQBytes = kWgRows * kHeadDim * 2;           // one WG's Q tile
+constexpr int kAtomCols = 64;               // bf16 columns of a 128B atom
+constexpr float kLog2e = 1.4426950408889634f;
+// One K or V stage, and one warpgroup's Q tile, at head dim D: D / 64
+// atoms of rows x 128 bytes, one after the other.
+template <int D>
+__host__ __device__ constexpr int tile_bytes() { return kTileKeys * D * 2; }
+template <int D>
+__host__ __device__ constexpr int q_bytes() { return kWgRows * D * 2; }
 
 // Tiles [0, n_full) are visible to every row of the q tile [q0, q0 +
 // block_q); tiles [n_full, n_tiles) straddle the diagonal or the key tail
@@ -150,27 +169,54 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       : "memory");
 }
 
-// One TMA box of a 4-D map {D, H, S, B} (innermost first) into shared
-// memory; completes `bytes` of the barrier's expected transactions.
+// One TMA box of a 4-D map {D, H, S, B} (innermost first), its columns
+// from d on, into shared memory; completes the box's bytes of the
+// barrier's expected transactions.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int s, int h, int b) {
+                                         uint32_t bar, int d, int s, int h,
+                                         int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(h), "r"(s),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(h), "r"(s),
       "r"(b)
       : "memory");
 }
 
+// The atoms of a `rows`-row tile at head dim D, from one map: atom a holds
+// columns [64a, 64a + 64) at dst + a * rows * 128.
+template <int D>
+__device__ __forceinline__ void tma_load_tile(uint32_t dst,
+                                              const CUtensorMap* map,
+                                              uint32_t bar, int rows, int s,
+                                              int h, int b) {
+#pragma unroll
+  for (int a = 0; a < D / kAtomCols; ++a)
+    tma_load(dst + a * rows * 128, map, bar, a * kAtomCols, s, h, b);
+}
+
 // wgmma shared-memory descriptor of a 128B-swizzled tile whose 8-row groups
-// are 1024 bytes apart (SBO = 1024 B; LBO unused for these layouts), tile
-// base 1024-byte aligned. A k-step within the 128-byte row advances the
-// start address by its byte offset.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+// are 1024 bytes apart (SBO = 1024 B), tile base 1024-byte aligned. A
+// k-step within the 128-byte row advances the start address by its byte
+// offset. LBO: unused (16 B) where the operand's extent along the
+// contiguous dimension is one atom; for the MN-major V read by an n128
+// product it is the byte distance from the first 64 columns' atom to the
+// next one's.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr,
+                                               uint32_t lbo = 16) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) |
          (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier of one warpgroup's 128 threads (named barrier 1 + wg).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -263,12 +309,59 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// Shared memory of a CTA with NC consumer warpgroups: 1024 bytes of slack to
-// align the tiles to the swizzle's period, Q (64 rows per warpgroup), the
-// K and V rings, and the barriers (q_full, k_full[], v_full[], empty[]).
-template <int NC>
+// O += P.V at D = 128: m64n128k16, A (P) from registers, B (V) MN-major in
+// 128B-swizzled shared memory over two atoms (LBO in the descriptor), read
+// transposed.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Shared memory of a CTA with NC consumer warpgroups at head dim D: 1024
+// bytes of slack to align the tiles to the swizzle's period, Q (64 rows per
+// warpgroup), the K and V rings, and the barriers (q_full, k_full[],
+// v_full[], empty[]).
+template <int NC, int D>
 constexpr int bf16_smem_bytes() {
-  return 1024 + NC * kQBytes + 2 * kStages * kTileBytes + 8 * (1 + 3 * kStages);
+  return 1024 + NC * q_bytes<D>() + 2 * kStages * tile_bytes<D>() +
+         8 * (1 + 3 * kStages);
+}
+
+// A bf16 pair times `scale` in f32, each rounded back to bf16.
+__device__ __forceinline__ uint32_t scale_pair(uint32_t w, float scale) {
+  return pack_bf16(__uint_as_float(w << 16) * scale,
+                   __uint_as_float(w & 0xffff0000u) * scale);
 }
 
 // Accumulator layout of wgmma m64nN (f32), thread t of a warpgroup, warp
@@ -277,19 +370,26 @@ constexpr int bf16_smem_bytes() {
 // A fragment of a k16 step ks is {d[8ks..8ks+1], d[8ks+2..+3],
 // d[8ks+4..+5], d[8ks+6..+7]}, each pair packed: the logits' accumulators
 // of keys [16ks, 16ks + 16) are P's A fragment for that step.
-template <int NC, bool EmitLse>
+template <int NC, int D, bool EmitLse>
 __global__ void __launch_bounds__((NC + 1) * 128, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v,
                uint16_t* __restrict__ o, float* __restrict__ lse, int S,
-               int Sk, long long o_sb, long long o_ss, int causal) {
+               int Sk, long long o_sb, long long o_ss, int causal,
+               float qscale) {
+  static_assert(D == 64 || D == 128, "head dim");
+  // D = 64 folds the scale into the exponent (see the note above); the
+  // lse output is built on that form alone.
+  constexpr bool kFold = D == 64;
+  static_assert(kFold || !EmitLse, "lse at D = 64 only");
   constexpr int kRowsPerCta = NC * kWgRows;
+  constexpr int kTB = tile_bytes<D>(), kQB = q_bytes<D>();
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t sk = sq + NC * kQBytes;
-  const uint32_t sv = sk + kStages * kTileBytes;
-  const uint32_t q_full = sv + kStages * kTileBytes;
+  const uint32_t sk = sq + NC * kQB;
+  const uint32_t sv = sk + kStages * kTB;
+  const uint32_t q_full = sv + kStages * kTB;
   const uint32_t k_full = q_full + 8;             // + 8 * stage
   const uint32_t v_full = k_full + 8 * kStages;
   const uint32_t empty = v_full + 8 * kStages;
@@ -318,18 +418,21 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     // is small enough that every thread already has what it needs.
     if (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid == NC * 128) {
-      mbar_expect_tx(q_full, NC * kQBytes);
+      mbar_expect_tx(q_full, NC * kQB);
       for (int w = 0; w < NC; ++w)
-        tma_load(sq + w * kQBytes, &tm_q, q_full, q0 + w * kWgRows, h, b);
+        tma_load_tile<D>(sq + w * kQB, &tm_q, q_full, kWgRows,
+                         q0 + w * kWgRows, h, b);
       int s = 0;
       uint32_t par = 0;
       for (int it = 0; it < n_tiles; ++it) {
         const int c0 = (n_tiles - 1 - it) * kTileKeys;  // last tile first
         mbar_wait(empty + 8 * s, par ^ 1);  // a fresh stage passes at once
-        mbar_expect_tx(k_full + 8 * s, kTileBytes);
-        tma_load(sk + s * kTileBytes, &tm_k, k_full + 8 * s, c0, h, b);
-        mbar_expect_tx(v_full + 8 * s, kTileBytes);
-        tma_load(sv + s * kTileBytes, &tm_v, v_full + 8 * s, c0, h, b);
+        mbar_expect_tx(k_full + 8 * s, kTB);
+        tma_load_tile<D>(sk + s * kTB, &tm_k, k_full + 8 * s, kTileKeys, c0,
+                         h, b);
+        mbar_expect_tx(v_full + 8 * s, kTB);
+        tma_load_tile<D>(sv + s * kTB, &tm_v, v_full + 8 * s, kTileKeys, c0,
+                         h, b);
         if (++s == kStages) {
           s = 0;
           par ^= 1;
@@ -345,26 +448,48 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
   const int g = lane >> 2, qd = lane & 3;
   const int row_lo = q0 + wg * kWgRows + warp * 16 + g;  // this thread's rows
   const int row_hi = row_lo + 8;
-  const uint32_t q_tile = sq + wg * kQBytes;
-  const float c = kLog2eOver8;
+  const uint32_t q_tile = sq + wg * kQB;
+  const float c = kFold ? kLog2e / 8.f : kLog2e;
   float m_lo = acx::neg_inf(), m_hi = acx::neg_inf(), l_lo = 0.f, l_hi = 0.f;
-  float acc[32];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(q_full, 0);
+  if constexpr (!kFold) {
+    // q * (1/sqrt(D)) rounded to bf16, in place, by this warpgroup's 128
+    // threads over its own tile (the swizzle only permutes the elements);
+    // then the stores are made visible to wgmma's async proxy.
+    uint4* qv = reinterpret_cast<uint4*>(smem_raw +
+                                         (q_tile - smem_addr(smem_raw)));
+#pragma unroll
+    for (int i = 0; i < kQB / 16 / 128; ++i) {
+      uint4 w = qv[t + 128 * i];
+      w.x = scale_pair(w.x, qscale);
+      w.y = scale_pair(w.y, qscale);
+      w.z = scale_pair(w.z, qscale);
+      w.w = scale_pair(w.w, qscale);
+      qv[t + 128 * i] = w;
+    }
+    fence_proxy_async();
+    wg_sync(wg);
+  }
   int s = 0;
   uint32_t par = 0;
   for (int it = 0; it < n_tiles; ++it) {
     const int j = n_tiles - 1 - it, c0 = j * kTileKeys;
-    // Raw logits of 64 rows x 128 keys (q unscaled; see the note above).
+    // Logits of 64 rows x 128 keys (D = 64: raw, q unscaled; D = 128:
+    // scaled). k-step ks reads 16 columns of atom ks / 4.
     float sc[64];
     mbar_wait(k_full + 8 * s, par);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kHeadDim / 16; ++ks)
-      wgmma_ss_n128(sc, sw128_desc(q_tile + 32 * ks),
-                    sw128_desc(sk + s * kTileBytes + 32 * ks), ks);
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const int at = ks / 4, off = 32 * (ks % 4);
+      wgmma_ss_n128(sc, sw128_desc(q_tile + at * kWgRows * 128 + off),
+                    sw128_desc(sk + s * kTB + at * kTileKeys * 128 + off),
+                    ks);
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(sc);
@@ -421,21 +546,28 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     l_lo = corr_lo * l_lo + s_lo;
     l_hi = corr_hi * l_hi + s_hi;
 #pragma unroll
-    for (int ob = 0; ob < kHeadDim / 8; ++ob) {
+    for (int ob = 0; ob < D / 8; ++ob) {
       acc[ob * 4] *= corr_lo;
       acc[ob * 4 + 1] *= corr_lo;
       acc[ob * 4 + 2] *= corr_hi;
       acc[ob * 4 + 3] *= corr_hi;
     }
 
-    // acc += P V: 8 k-steps of 16 keys, each 16 rows of the V tile (2048 B).
+    // acc += P V: 8 k-steps of 16 keys, each 16 rows of the V tile (2048 B
+    // of each atom; at D = 128 the second atom lies kTileKeys * 128 bytes
+    // on, the descriptor's LBO).
     mbar_wait(v_full + 8 * s, par);
     fence_regs(acc);
     fence_regs(pa);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < kTileKeys / 16; ++ks)
-      wgmma_rs_n64(acc, pa[ks], sw128_desc(sv + s * kTileBytes + ks * 2048));
+    for (int ks = 0; ks < kTileKeys / 16; ++ks) {
+      if constexpr (D == 64)
+        wgmma_rs_n64(acc, pa[ks], sw128_desc(sv + s * kTB + ks * 2048));
+      else
+        wgmma_rs_n128(acc, pa[ks], sw128_desc(sv + s * kTB + ks * 2048,
+                                              kTileKeys * 128));
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -447,9 +579,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
     }
   }
 
-  uint16_t* obase = o + b * o_sb + h * kHeadDim;
+  uint16_t* obase = o + b * o_sb + h * D;
 #pragma unroll
-  for (int ob = 0; ob < kHeadDim / 8; ++ob) {
+  for (int ob = 0; ob < D / 8; ++ob) {
     const int d = ob * 8 + 2 * qd;
     if (row_lo < S)
       *reinterpret_cast<uint32_t*>(obase + row_lo * o_ss + d) =
@@ -636,19 +768,20 @@ EncodeTiled encode_tiled() {
 
 // A 4-D bf16 map {D, H, S, B} (innermost first) over [B, S, H, D] with
 // element strides sb, ss (head stride D, element stride 1), boxes of `rows`
-// rows of one (b, h), 128-byte swizzle, zero fill out of bounds.
+// rows of one (b, h) and 64 columns (one swizzle atom; a D = 128 tile is
+// two boxes), 128-byte swizzle, zero fill out of bounds.
 CUresult encode_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
-                    long long sb, long long ss, int rows) {
+                    int D, long long sb, long long ss, int rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kHeadDim),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(kHeadDim) * 2,
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(ss) * 2,
                                  static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kHeadDim, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t box[4] = {kAtomCols, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -656,93 +789,115 @@ CUresult encode_map(CUtensorMap* map, const void* ptr, int B, int S, int H,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+float inv_sqrt(int D) {
+  return static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
+}
+
 // Returns 0 when launched, a cudaError_t, or minus the CUresult of a
 // failed tensor-map encode.
-template <int NC, bool EmitLse>
+template <int NC, int D, bool EmitLse>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int S, int Sk, int H, const long long* st,
                 int causal, cudaStream_t stream) {
-  constexpr int smem = bf16_smem_bytes<NC>();
+  constexpr int smem = bf16_smem_bytes<NC, D>();
+  static_assert(smem <= 232448, "a block's shared memory on sm_90");
   // Above 48 KB a block's shared memory must be opted into, once per kernel.
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_bf16<NC, EmitLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_bf16<NC, D, EmitLse>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return attr;
   CUtensorMap mq, mk, mv;
-  CUresult r = encode_map(&mq, q, B, S, H, st[0], st[1], kWgRows);
+  CUresult r = encode_map(&mq, q, B, S, H, D, st[0], st[1], kWgRows);
   if (r == CUDA_SUCCESS)
-    r = encode_map(&mk, k, B, Sk, H, st[2], st[3], kTileKeys);
+    r = encode_map(&mk, k, B, Sk, H, D, st[2], st[3], kTileKeys);
   if (r == CUDA_SUCCESS)
-    r = encode_map(&mv, v, B, Sk, H, st[4], st[5], kTileKeys);
+    r = encode_map(&mv, v, B, Sk, H, D, st[4], st[5], kTileKeys);
   if (r != CUDA_SUCCESS) return -static_cast<int>(r);
   const dim3 grid((S + NC * kWgRows - 1) / (NC * kWgRows), H, B);
-  flash_fwd_bf16<NC, EmitLse><<<grid, (NC + 1) * 128, smem, stream>>>(
+  flash_fwd_bf16<NC, D, EmitLse><<<grid, (NC + 1) * 128, smem, stream>>>(
       mq, mk, mv, static_cast<uint16_t*>(o), lse, S, Sk, st[6], st[7],
-      causal);
+      causal, inv_sqrt(D));
   return cudaGetLastError();
 }
 
-template <bool EmitLse>
+template <int D, bool EmitLse>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int S, int Sk, int H, const long long* st,
                int causal, cudaStream_t stream) {
-  constexpr int smem = f32_smem_bytes<kHeadDim>();
+  constexpr int smem = f32_smem_bytes<D>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_f32<kHeadDim, EmitLse>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_f32<D, EmitLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd_f32<kHeadDim, EmitLse><<<grid, kWarps * 32, smem, stream>>>(
+  flash_fwd_f32<D, EmitLse><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, S, Sk, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], causal,
-      static_cast<float>(1.0 / sqrt(static_cast<double>(kHeadDim))));
+      st[1], st[2], st[3], st[4], st[5], st[6], st[7], causal, inv_sqrt(D));
   return cudaGetLastError();
 }
 
 // bf16 takes block_q 64 or 128 (query rows per CTA, chosen by the
 // wrapper); the f32 kernel's blocks are 64 rows.
-template <bool EmitLse>
-int dispatch(int dtype, const void* q, const void* k, const void* v, void* o,
-             float* lse, int B, int S, int Sk, int H, const long long* st,
-             int causal, int block_q, cudaStream_t stream) {
+template <int D, bool EmitLse>
+int dispatch_d(int dtype, const void* q, const void* k, const void* v,
+               void* o, float* lse, int B, int S, int Sk, int H,
+               const long long* st, int causal, int block_q,
+               cudaStream_t stream) {
   if (dtype == acx::kBF16 && block_q == 128)
-    return launch_bf16<2, EmitLse>(q, k, v, o, lse, B, S, Sk, H, st, causal,
-                                   stream);
+    return launch_bf16<2, D, EmitLse>(q, k, v, o, lse, B, S, Sk, H, st,
+                                      causal, stream);
   if (dtype == acx::kBF16 && block_q == 64)
-    return launch_bf16<1, EmitLse>(q, k, v, o, lse, B, S, Sk, H, st, causal,
-                                   stream);
+    return launch_bf16<1, D, EmitLse>(q, k, v, o, lse, B, S, Sk, H, st,
+                                      causal, stream);
   if (dtype == acx::kF32 && block_q == kBlockQ)
-    return launch_f32<EmitLse>(q, k, v, o, lse, B, S, Sk, H, st, causal,
-                               stream);
+    return launch_f32<D, EmitLse>(q, k, v, o, lse, B, S, Sk, H, st, causal,
+                                  stream);
   return cudaErrorInvalidValue;
 }
 
-cudaError_t check_args(int B, int S, int Sk, int H, int D, int causal) {
+// Head dims: 64 (GPT-2, MoE) for every entry point, 128 (Llama-3-8B) for
+// B6 alone; B7 and B10 at D = 128 wait for Llama training, and their
+// wrappers refuse it before this point.
+template <bool EmitLse>
+int dispatch(int dtype, const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int S, int Sk, int H, int D,
+             const long long* st, int causal, int block_q,
+             cudaStream_t stream) {
+  if (D == 64)
+    return dispatch_d<64, EmitLse>(dtype, q, k, v, o, lse, B, S, Sk, H, st,
+                                   causal, block_q, stream);
+  if constexpr (!EmitLse) {
+    if (D == 128)
+      return dispatch_d<128, false>(dtype, q, k, v, o, lse, B, S, Sk, H, st,
+                                    causal, block_q, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t check_args(int B, int S, int Sk, int H, int causal) {
   if (B <= 0 || S <= 0 || Sk <= 0 || H <= 0 || (causal && S != Sk))
     return cudaErrorInvalidValue;
-  // Built for GPT-2's head dim alone; another D gets its own instantiation
-  // when a configuration that needs it arrives.
-  if (D != kHeadDim) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
 }  // namespace
 
-// q [B,S,H,D], k/v [B,Sk,H,D], o [B,S,H,D]; the head stride must be D and
-// the element stride 1. strides = {q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, o_sb,
-// o_ss} in elements; for bf16 every q/k/v stride and base address must be
-// a multiple of 16 bytes (TMA). block_q: query rows per CTA (bf16: 64 or
-// 128; f32: 64). Returns 0 when launched, else a cudaError_t, or minus the
-// CUresult of a failed tensor-map encode.
+// q [B,S,H,D], k/v [B,Sk,H,D], o [B,S,H,D] with D of 64 or 128 (lse: 64);
+// the head stride must be D and the element stride 1. strides = {q_sb,
+// q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss} in elements; for bf16 every
+// q/k/v stride and base address must be a multiple of 16 bytes (TMA).
+// block_q: query rows per CTA (bf16: 64 or 128; f32: 64). Returns 0 when
+// launched, else a cudaError_t, or minus the CUresult of a failed
+// tensor-map encode.
 extern "C" int acx_flash_attention(const void* q, const void* k, const void* v,
                                    void* o, int dtype, int B, int S, int Sk,
                                    int H, int D, const long long* strides,
                                    int causal, int block_q, void* stream) {
   cudaGetLastError();  // launch status below is this launch's alone
-  const cudaError_t bad = check_args(B, S, Sk, H, D, causal);
+  const cudaError_t bad = check_args(B, S, Sk, H, causal);
   if (bad != cudaSuccess) return bad;
-  return dispatch<false>(dtype, q, k, v, o, nullptr, B, S, Sk, H, strides,
+  return dispatch<false>(dtype, q, k, v, o, nullptr, B, S, Sk, H, D, strides,
                          causal, block_q, static_cast<cudaStream_t>(stream));
 }
 
@@ -755,8 +910,8 @@ extern "C" int acx_flash_attention_lse(const void* q, const void* k,
                                        int causal, int block_q, void* stream) {
   cudaGetLastError();  // launch status below is this launch's alone
   if (lse == nullptr) return cudaErrorInvalidValue;
-  const cudaError_t bad = check_args(B, S, Sk, H, D, causal);
+  const cudaError_t bad = check_args(B, S, Sk, H, causal);
   if (bad != cudaSuccess) return bad;
-  return dispatch<true>(dtype, q, k, v, o, lse, B, S, Sk, H, strides, causal,
-                        block_q, static_cast<cudaStream_t>(stream));
+  return dispatch<true>(dtype, q, k, v, o, lse, B, S, Sk, H, D, strides,
+                        causal, block_q, static_cast<cudaStream_t>(stream));
 }

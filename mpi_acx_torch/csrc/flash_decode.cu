@@ -69,6 +69,18 @@
 //    once, into shared memory, before its copies: no whole table row, no
 //    per-key table read.
 // The int8 form halves the row bytes again.
+//
+// Head dims 64 (GPT-2) and 128 (Llama-3-8B: 32 query heads over 8 KV groups,
+// n_rep = 4, W * n_rep = 4 a served step, one row block). At D = 128 a
+// quad's lane takes a quarter of a key's row (32 elements: 4 bf16, 8 f32
+// or 2 int8 pieces of 16 bytes) and P.V four columns a lane; the xor
+// swizzle of the odd keys' pieces keeps a quad pair's 16-byte reads on
+// disjoint banks at every D (the piece index mod 8 alternates between the
+// two keys). A bf16 stage of 128 keys is 64 KB there, so the ring is two
+// stages (128 KB, one CTA an SM; the host's split rule gives the SMs half
+// as many CTAs as at D = 64) and an f32 one, 128 KB a stage, is one stage
+// (copies then wait for the products of the tile before). The paged form
+// (B9) is built for D = 64 alone: no path pages a D = 128 cache.
 #include <type_traits>
 
 #include "common.cuh"
@@ -81,6 +93,7 @@ constexpr int kKeysPerLane = 2;    // keys a lane quad takes per tile
 constexpr int kSpan = kWarps * 8;  // keys of one pass over the 8 warps
 constexpr int kTile = kSpan * kKeysPerLane;  // keys a CTA stages at a time
 constexpr int kMaxStages = 2;      // tiles in flight (cp_async_wait_ring)
+constexpr int kRingBytes = 128 * 1024;  // the ring's shared memory at most
 constexpr int kMaxCluster = 8;     // chunks per slot: the portable cluster
 constexpr int kMaxDevices = 64;    // devices whose smem opt-in is remembered
 
@@ -248,10 +261,20 @@ __host__ __device__ constexpr int stage_bytes() {
          (std::is_same<KT, int8_t>::value ? 2 * kTile * 4 : 0);
 }
 
-// Registers: the served R = 1 forms keep six CTAs an SM (40 a thread),
-// the wider row blocks trade CTAs for registers; none spills.
-template <int R>
+// Stages of the ring: two, or one where a stage takes the whole budget
+// (f32 at D = 128).
+template <typename KT, int D>
+constexpr int ring_stages() {
+  return stage_bytes<KT, D>() * kMaxStages <= kRingBytes ? kMaxStages : 1;
+}
+
+// Registers: at D = 64 the served R = 1 forms keep six CTAs an SM (40 a
+// thread), the wider row blocks trade CTAs for registers; at D = 128,
+// where shared memory holds an SM to one to three CTAs, up to 80
+// registers at R = 1 and 128 above (R = 2 spilled at 80). None spills.
+template <int R, int D>
 constexpr int min_blocks() {
+  if (D > 64) return R == 1 ? 3 : 2;
   return R == 1 ? 6 : R == 2 ? 3 : 2;
 }
 
@@ -259,7 +282,7 @@ constexpr int min_blocks() {
 // `chunk` positions). T is q's and the output's type, KT the cache's (T,
 // or int8_t for the int8 form).
 template <typename T, typename KT, int D, int R, bool PAGED>
-__global__ void __launch_bounds__(kThreads, min_blocks<R>())
+__global__ void __launch_bounds__(kThreads, min_blocks<R, D>())
     decode_kernel(const Args a) {
   constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   constexpr int PER = 16 / sizeof(KT);     // elements per 16-byte piece
@@ -586,9 +609,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks<R>())
   }
 }
 
-template <typename T, typename KT, int R, bool PAGED>
+template <typename T, typename KT, int D, int R, bool PAGED>
 cudaError_t launch(Args a, int B, int Hkv, cudaStream_t stream) {
-  constexpr int D = 64;
+  a.stages = min(a.stages, ring_stages<KT, D>());
   a.n_rb = (a.W * a.n_rep + R - 1) / R;
   if (static_cast<long long>(B) * a.n_rb > 65535) return cudaErrorInvalidValue;
   // Dynamic shared memory: the ring, chunk 0's inbox of the other chunks'
@@ -634,17 +657,31 @@ cudaError_t launch(Args a, int B, int Hkv, cudaStream_t stream) {
   return cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
-template <typename T, typename KT, bool PAGED>
+template <typename T, typename KT, int D, bool PAGED>
 cudaError_t dispatch_r(const Args& a, int B, int Hkv, cudaStream_t stream) {
   const int Wn = a.W * a.n_rep;
-  if (Wn <= 1) return launch<T, KT, 1, PAGED>(a, B, Hkv, stream);
-  if (Wn <= 2) return launch<T, KT, 2, PAGED>(a, B, Hkv, stream);
-  if (Wn <= 4) return launch<T, KT, 4, PAGED>(a, B, Hkv, stream);
-  return launch<T, KT, 8, PAGED>(a, B, Hkv, stream);
+  if (Wn <= 1) return launch<T, KT, D, 1, PAGED>(a, B, Hkv, stream);
+  if (Wn <= 2) return launch<T, KT, D, 2, PAGED>(a, B, Hkv, stream);
+  if (Wn <= 4) return launch<T, KT, D, 4, PAGED>(a, B, Hkv, stream);
+  return launch<T, KT, D, 8, PAGED>(a, B, Hkv, stream);
 }
 
+template <int D, bool PAGED>
+int run_d(const Args& a, int dtype, int quant, int B, int Hkv,
+          cudaStream_t st) {
+  if (dtype == acx::kF32)
+    return quant ? dispatch_r<float, int8_t, D, PAGED>(a, B, Hkv, st)
+                 : dispatch_r<float, float, D, PAGED>(a, B, Hkv, st);
+  if (dtype == acx::kBF16)
+    return quant ? dispatch_r<uint16_t, int8_t, D, PAGED>(a, B, Hkv, st)
+                 : dispatch_r<uint16_t, uint16_t, D, PAGED>(a, B, Hkv, st);
+  return cudaErrorInvalidValue;
+}
+
+// D = 64 in both forms, D = 128 contiguous only (the paged form is not
+// instantiated there).
 template <bool PAGED>
-int run(Args a, int dtype, int quant, int B, int Hkv, void* stream) {
+int run(Args a, int dtype, int quant, int B, int Hkv, int D, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (quant && (a.ks == nullptr || a.vs == nullptr))
     return cudaErrorInvalidValue;
@@ -655,25 +692,23 @@ int run(Args a, int dtype, int quant, int B, int Hkv, void* stream) {
   if (n_chunks > kMaxCluster) return cudaErrorInvalidValue;
   a.n_chunks = static_cast<int>(n_chunks);
   a.stages = min(kMaxStages, a.chunk / kTile);
-  if (dtype == acx::kF32)
-    return quant ? dispatch_r<float, int8_t, PAGED>(a, B, Hkv, st)
-                 : dispatch_r<float, float, PAGED>(a, B, Hkv, st);
-  if (dtype == acx::kBF16)
-    return quant ? dispatch_r<uint16_t, int8_t, PAGED>(a, B, Hkv, st)
-                 : dispatch_r<uint16_t, uint16_t, PAGED>(a, B, Hkv, st);
+  if (D == 64) return run_d<64, PAGED>(a, dtype, quant, B, Hkv, st);
+  if constexpr (!PAGED) {
+    if (D == 128) return run_d<128, false>(a, dtype, quant, B, Hkv, st);
+  }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Contiguous cache (K2). q [B,W,Hkv*n_rep,D] (head stride D, element stride
-// 1); kc/vc [B,max_len,Hkv,D] of q's type, or int8 codes with f32 scales
-// ks/vs [B,max_len,Hkv,1] when quant != 0 (ks/vs ignored otherwise); rows
-// contiguous [Hkv, D] blocks on 16-byte bounds; pos int32 [B]; o contiguous
-// [B,W,Hkv*n_rep*D] of q's type. chunk: positions per CTA, a multiple of
-// 128 with max_len / chunk at most 8 (one cluster). strides = {q_sb, q_sw,
-// k_sb, k_ss, v_sb, v_ss, ks_sb, ks_ss, vs_sb, vs_ss} in elements. Returns
-// the cudaError_t of the launch.
+// Contiguous cache (K2). q [B,W,Hkv*n_rep,D] with D of 64 or 128 (head
+// stride D, element stride 1); kc/vc [B,max_len,Hkv,D] of q's type, or
+// int8 codes with f32 scales ks/vs [B,max_len,Hkv,1] when quant != 0
+// (ks/vs ignored otherwise); rows contiguous [Hkv, D] blocks on 16-byte
+// bounds; pos int32 [B]; o contiguous [B,W,Hkv*n_rep*D] of q's type.
+// chunk: positions per CTA, a multiple of 128 with max_len / chunk at most
+// 8 (one cluster). strides = {q_sb, q_sw, k_sb, k_ss, v_sb, v_ss, ks_sb,
+// ks_ss, vs_sb, vs_ss} in elements. Returns the cudaError_t of the launch.
 extern "C" int acx_flash_decode(const void* q, const void* kc, const void* vc,
                                 const void* ks, const void* vs,
                                 const void* pos, void* o, int dtype,
@@ -681,8 +716,8 @@ extern "C" int acx_flash_decode(const void* q, const void* kc, const void* vc,
                                 int D, int max_len, int chunk,
                                 const long long* strides, void* stream) {
   cudaGetLastError();  // launch status below is this launch's alone
-  // Built for GPT-2's head dim alone (see flash_attention.cu).
-  if (B <= 0 || W <= 0 || Hkv <= 0 || n_rep <= 0 || max_len <= 0 || D != 64)
+  if (B <= 0 || W <= 0 || Hkv <= 0 || n_rep <= 0 || max_len <= 0 ||
+      (D != 64 && D != 128))
     return cudaErrorInvalidValue;
   const long long* s = strides;
   const Args a{q, kc, vc, static_cast<const float*>(ks),
@@ -690,15 +725,15 @@ extern "C" int acx_flash_decode(const void* q, const void* kc, const void* vc,
                nullptr, o, W, n_rep, max_len, 1, B, chunk, 0, 0, 0,
                s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], 0,
                static_cast<float>(1.0 / sqrt(static_cast<double>(D)))};
-  return run<false>(a, dtype, quant, B, Hkv, stream);
+  return run<false>(a, dtype, quant, B, Hkv, D, stream);
 }
 
 // Paged pools (B9). kp/vp [n_pages,page_tokens,Hkv,D] (with scale pools
 // ksp/vsp [n_pages,page_tokens,Hkv,1] when quant != 0), table int32
 // [B,max_pages] (row stride tab_sb) naming slot b's page for positions
 // [j*page_tokens, (j+1)*page_tokens); max_len is max_pages * page_tokens
-// and everything else as acx_flash_decode. strides = {q_sb, q_sw, k_sp,
-// k_ss, v_sp, v_ss, ks_sp, ks_ss, vs_sp, vs_ss, tab_sb}.
+// and everything else as acx_flash_decode, with D = 64 only. strides =
+// {q_sb, q_sw, k_sp, k_ss, v_sp, v_ss, ks_sp, ks_ss, vs_sp, vs_ss, tab_sb}.
 extern "C" int acx_paged_decode(const void* q, const void* kp, const void* vp,
                                 const void* ksp, const void* vsp,
                                 const void* pos, const void* table, void* o,
@@ -720,5 +755,5 @@ extern "C" int acx_paged_decode(const void* q, const void* kp, const void* vp,
                s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9],
                s[10],
                static_cast<float>(1.0 / sqrt(static_cast<double>(D)))};
-  return run<true>(a, dtype, quant, B, Hkv, stream);
+  return run<true>(a, dtype, quant, B, Hkv, D, stream);
 }

@@ -1,5 +1,8 @@
-"""The GPT-2 family (forward, loss, stage slicing) and its
-continuous-batching servers (fixed-slot and paged KV caches), in PyTorch.
+"""The GPT-2 family (forward, loss, stage slicing), the Llama family's
+serving path (``models.llama``) and the continuous-batching servers
+(fixed-slot and paged KV caches), in PyTorch. The package-level names
+``init_params``, ``forward``, ``prefill``... are GPT-2's; the Llama ones
+live in ``models.llama``, which the servers take as ``family``.
 
 Exports resolve lazily, so importing the package loads no model module.
 """
@@ -24,8 +27,11 @@ _EXPORTS = {
     "RadixPrefixCache": "kvpage",
     "PagedKV": "kvpage",
     "init_page_pool": "kvpage",
+    "LlamaConfig": "llama",
+    "llama3_8b": "llama",
+    "tiny_llama": "llama",
 }
-_SUBMODULES = ("decoding", "kvpage", "serving", "transformer")
+_SUBMODULES = ("decoding", "kvpage", "llama", "serving", "transformer")
 
 
 def __getattr__(name):

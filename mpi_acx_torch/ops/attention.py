@@ -39,7 +39,11 @@ import torch
 from mpi_acx_torch.ops import _build
 
 _NEG_INF = -1e30
-HEAD_DIM = 64       # the one head dim the kernels are built for (GPT-2's)
+# Head dims K1 is built for: 64 (GPT-2) at every entry point, 128
+# (Llama-3-8B) for B6 alone; B7 and B10 at 128 wait for Llama training
+# (ROADMAP "Llama and MoE").
+HEAD_DIMS = (64, 128)
+TRAINING_HEAD_DIMS = (64,)      # B7 and B10
 STREAM_MIN_SK = 16384   # streaming=None turns the streaming entry on here
 TMA_ALIGN = 16      # bytes: TMA's granule for base addresses and strides
 
@@ -218,29 +222,45 @@ def tma_strides(x):
 def tma_ready(x):
     """Whether K1's tensor maps can read the bf16 operand ``x`` where it
     lies: a base address and (batch, seq) strides that are positive
-    multiples of TMA_ALIGN bytes (the head stride, D = 64 elements, is
-    128 bytes). An operand that is not gets copied by the wrapper."""
+    multiples of TMA_ALIGN bytes (the head stride, D = 64 or 128
+    elements, is 128 or 256 bytes). An operand that is not gets copied by
+    the wrapper."""
     es = x.element_size()
     return x.data_ptr() % TMA_ALIGN == 0 and all(
         st > 0 and st * es % TMA_ALIGN == 0 for st in tma_strides(x))
 
 
-def _launch(q, k, v, causal, emit_lse):
+def check_head_dim(name, D, dims):
+    """Raise unless K1 is built for head dim ``D`` at the entry point
+    ``name`` (``dims``: :data:`HEAD_DIMS`, or :data:`TRAINING_HEAD_DIMS`
+    for B7 and B10, whose D = 128 waits for Llama training)."""
+    if D in dims:
+        return
+    if D in HEAD_DIMS:
+        raise ValueError(
+            f"{name}: head dim {D} is built for flash_attention (B6) only; "
+            f"{name} at head dim {D} waits for Llama training (ROADMAP "
+            "'Llama and MoE')")
+    raise ValueError(f"{name}: the kernel is built for head dims "
+                     f"{', '.join(map(str, dims))}, got {D}")
+
+
+def _launch(q, k, v, causal, emit_lse, name="flash_attention",
+            dims=HEAD_DIMS):
     """One launch of K1 on CUDA tensors: ``o``, and with ``emit_lse`` the
     row logsumexp (B10) -> ``(o, lse)``. The bf16 kernel reads q, k, v by
     TMA: an operand that :func:`tma_ready` refuses is copied to a fresh
     contiguous tensor first, counted in ``flash_attention.copies`` (over
-    all three entry points). Raises on what the kernel does not take and on
-    a failed launch."""
+    all three entry points). ``name`` and ``dims`` are the entry point and
+    its head dims (:func:`check_head_dim`). Raises on what the kernel does
+    not take and on a failed launch."""
+    B, S, H, D = q.shape
+    Sk = k.shape[1]
+    check_head_dim(name, D, dims)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError("flash_attention: q, k, v dtypes differ")
-    B, S, H, D = q.shape
-    Sk = k.shape[1]
-    if D != HEAD_DIM:
-        raise ValueError(f"flash_attention: the kernel is built for head dim "
-                         f"{HEAD_DIM} only, got {D}")
     code = _build.dtype_code(q.dtype)
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_rows(name, x, D)
@@ -291,10 +311,15 @@ class _Flash(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, block_q, block_k, streaming):
         if q.device.type == "cpu":
             o = attention_reference(q, k, v, causal=causal)
+        elif streaming:
+            o, _ = _launch(q, k, v, causal, False,
+                           "flash_attention(streaming=True)",
+                           TRAINING_HEAD_DIMS)
+            flash_attention.launches_stream += 1
         else:
             o, _ = _launch(q, k, v, causal, emit_lse=False)
-            if streaming:
-                flash_attention.launches_stream += 1
+            if q.shape[-1] == 128:
+                flash_attention.launches_d128 += 1
             else:
                 flash_attention.launches += 1
         ctx.save_for_backward(q, k, v, o)
@@ -318,7 +343,8 @@ class _FlashLse(torch.autograd.Function):
         if q.device.type == "cpu":
             o, lse = _reference_lse(q, k, v, causal=causal)
         else:
-            o, lse = _launch(q, k, v, causal, emit_lse=True)
+            o, lse = _launch(q, k, v, causal, True, "flash_attention_lse",
+                             TRAINING_HEAD_DIMS)
             flash_attention_lse.launches += 1
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.blocks = (causal, block_q, block_k)
@@ -342,7 +368,8 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
 
     On a CUDA tensor K1 runs: B6, or with ``streaming`` the streaming
     entry point B7 (``None`` -> on for Sk >= 16384); both launch the same
-    kernel, counted apart (``launches``, ``launches_stream``). Causal
+    kernel, counted apart (``launches`` and ``launches_d128`` for B6 at
+    head dim 64 and 128, ``launches_stream``; B7 takes head dim 64). Causal
     needs S == Sk; non-causal takes any Sk. Any S works (the kernel masks
     the ragged tails). float32 runs in true f32, bfloat16 with f32 softmax
     state. On a CPU tensor this is :func:`attention_reference`. The
@@ -355,6 +382,7 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
 
 
 flash_attention.launches = 0
+flash_attention.launches_d128 = 0
 flash_attention.launches_stream = 0
 flash_attention.copies = 0
 
@@ -368,8 +396,8 @@ def flash_attention_lse(q, k, v, causal: bool = True, block_q: int = 512,
     ``lse = logaddexp(lse1, lse2); o = o1*exp(lse1-lse) + o2*exp(lse2-lse)``.
     Differentiable in both outputs: the backward reuses the emitted lse
     and folds the lse cotangent into dS. Shape rules as
-    :func:`flash_attention`; Sk may differ from S when non-causal. On a
-    CPU tensor this is :func:`_reference_lse`."""
+    :func:`flash_attention`, head dim 64 on the card; Sk may differ from S
+    when non-causal. On a CPU tensor this is :func:`_reference_lse`."""
     _check_inputs(q, k, v, causal)
     bq, bk = _backward_blocks(q.shape[1], k.shape[1], block_q, block_k)
     return _FlashLse.apply(q, k, v, causal, bq, bk)

@@ -247,27 +247,35 @@ def _done_counter(device) -> torch.Tensor:
 
 
 def produce_and_pready(produce, x, flags, idx):
-    """B5: one kernel computes a partition's payload ``produce(x)`` and
-    marks slot ``idx`` PENDING, so readiness is published with the data.
-    Returns ``(payload, flags)``; ``flags`` is updated in place.
+    """B5: a partition's payload ``produce(x)`` and slot ``idx`` marked
+    PENDING, readiness published behind the data. Returns ``(payload,
+    flags)``; ``flags`` is updated in place.
 
-    On the card ``produce`` must be a producer compiled into the kernel
-    (:data:`identity` or an :class:`Affine`) and ``x`` a contiguous float32
-    tensor; any other callable raises there. On a CPU tensor any
-    shape-preserving callable runs through the plain version. The flag word
-    is stored only after every block's payload stores are visible."""
+    ``produce`` is any shape-preserving callable, as in the JAX kernel. On
+    the card :data:`identity` and :class:`Affine` producers are compiled
+    into the fused B5 kernel (``x`` a contiguous float32 tensor), whose
+    flag word is stored only after every block's payload stores are
+    visible. Any other callable runs as the caller's PyTorch code on the
+    current stream, as JAX traces the caller's ``produce`` into its
+    kernel, and the flag store is B1's kernel launched on the same stream
+    behind it (counted in ``pready.launches``): a reader that sees PENDING
+    sees the payload. On a CPU tensor this is the plain version."""
     if x.device.type == "cpu" and flags.device.type == "cpu":
         return produce_and_pready_reference(produce, x, flags, idx)
     _check_table(flags, "produce_and_pready")
+    if x.device != flags.device:
+        raise ValueError(f"produce_and_pready: x on {x.device}, the flag "
+                         f"table on {flags.device}")
     if not isinstance(produce, (Identity, Affine)):
-        raise NotImplementedError(
-            f"produce_and_pready: no CUDA producer for {produce!r}; the card "
-            "has identity and Affine(a, b)")
-    if x.device != flags.device or x.dtype != torch.float32 \
-            or not x.is_contiguous() or x.numel() == 0:
-        raise ValueError(f"produce_and_pready: x must be a non-empty "
-                         f"contiguous float32 tensor on {flags.device}, got "
-                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        payload = produce(x)
+        if not isinstance(payload, torch.Tensor) or payload.shape != x.shape:
+            raise ValueError(f"produce_and_pready: {produce!r} must keep "
+                             f"x's shape {tuple(x.shape)}")
+        return payload, pready(flags, idx)
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() == 0:
+        raise ValueError(f"produce_and_pready: the fused kernel takes a "
+                         f"non-empty contiguous float32 x, got {x.dtype} "
+                         f"{tuple(x.shape)}")
     ptr, val = _one_index(flags, idx, "produce_and_pready")
     payload = torch.empty_like(x)
     a, b = (produce.a, produce.b) if isinstance(produce, Affine) else (1, 0)

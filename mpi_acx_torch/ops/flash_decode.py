@@ -12,7 +12,8 @@ in ``[P, page_tokens, Hkv, D]`` pools and slot b's row t on pool page
 ``table[b, t // page_tokens]``. Both take a bf16/f32 cache or an int8 one
 as ``(codes, f32 scales [..., 1])`` pairs (ops/kvquant.py). On a CUDA
 tensor each wrapper launches its kernel or raises, and counts the launch
-(``launches`` for the bf16/f32 form, ``launches_int8`` for the int8 form);
+(``launches`` for the bf16/f32 form, ``launches_int8`` for the int8 form,
+each with a ``_d128`` twin for K2 at head dim 128);
 on a CPU tensor it runs the plain version: :func:`dense_decode_attend`, the
 JAX package's ``models/decoding.py:dense_decode_attend``, and
 :func:`paged_gather_attend`, which gathers each slot's pages into that
@@ -31,11 +32,12 @@ from __future__ import annotations
 import torch
 
 from mpi_acx_torch.ops import _build
-from mpi_acx_torch.ops.attention import HEAD_DIM
 
 TILE = 128          # keys a CTA stages at a time (csrc kTile)
 MAX_CLUSTER = 8     # chunks per slot at most: a portable cluster (csrc)
-CTAS_PER_SM = 4     # full-cache CTAs an SM is given (see decode_chunk)
+CTAS_PER_SM = 4     # full-cache CTAs an SM is given at head dim 64
+HEAD_DIMS = (64, 128)       # K2's head dims (the contiguous cache)
+PAGED_HEAD_DIMS = (64,)     # B9's: no path pages a head dim 128 cache
 
 
 def dense_decode_attend(q, kc, vc, pos, max_len, n_rep):
@@ -101,19 +103,31 @@ def paged_gather_attend(q, kp, vp, table, pos, page_tokens, n_rep):
     return dense_decode_attend(q, kin, vin, pos, max_len, n_rep)
 
 
-def _check_q(name, q, n_rep):
+def check_head_dim(name, D, dims):
+    """Raise unless the decode kernel ``name`` is built for head dim
+    ``D`` (``dims``: :data:`HEAD_DIMS` for K2, :data:`PAGED_HEAD_DIMS` for
+    B9)."""
+    if D in dims:
+        return
+    if D in HEAD_DIMS:
+        raise ValueError(
+            f"{name}: head dim {D} is built for the contiguous cache "
+            f"(flash_decode_attend) only: the paged server serves GPT-2, "
+            f"no path pages a head dim {D} cache")
+    raise ValueError(f"{name}: the kernel is built for head dims "
+                     f"{', '.join(map(str, dims))}, got {D}")
+
+
+def _check_q(name, q, n_rep, dims=HEAD_DIMS):
     """q's shape [B, W, Hq, D] and the kernel's layout rules."""
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {dev}")
     if q.ndim != 4:
         raise ValueError(f"{name} takes q [B, W, Hq, D]")
     B, W, Hq, D = q.shape
     if n_rep <= 0 or Hq % n_rep:
         raise ValueError(f"{name}: {Hq} query heads, n_rep {n_rep}")
-    if D != HEAD_DIM:
-        raise ValueError(f"{name}: the kernel is built for head dim "
-                         f"{HEAD_DIM} only, got {D}")
+    check_head_dim(name, D, dims)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {q.device}")
     if q.stride(-1) != 1 or q.stride(-2) != D:
         raise ValueError(f"{name}: q needs head stride D and element "
                          "stride 1")
@@ -175,20 +189,23 @@ def row_block(rows):
     return 1 if rows <= 1 else 2 if rows <= 2 else 4 if rows <= 4 else 8
 
 
-def decode_chunk(B, Hkv, rows, max_len, sm_count):
+def decode_chunk(B, Hkv, rows, max_len, sm_count, head_dim=64):
     """Positions per CTA of the decode kernels, a rule of what the host
     knows: the slots ``B``, KV groups ``Hkv``, window rows ``rows`` (``W *
-    n_rep``), the cache length ``max_len`` and the card's SMs. Never the
-    positions: they live on the card. A multiple of :data:`TILE`: the
-    smallest one for which a full cache (every slot at ``max_len``) needs
-    no more than ``CTAS_PER_SM`` CTAs on each SM and a slot no more chunks
-    than one cluster holds (:data:`MAX_CLUSTER`). Below that a shorter live
-    length spreads over the most SMs; past it more, smaller chunks queue
-    for the SMs and add partials to merge. ``CTAS_PER_SM`` was set on an
-    H100 from the A/B that ``chip_smoke.py`` runs every time (128 to 1024
-    positions a CTA, at the served positions and the full cache)."""
+    n_rep``), the cache length ``max_len``, the card's SMs and the head
+    dim. Never the positions: they live on the card. A multiple of
+    :data:`TILE`: the smallest one for which a full cache (every slot at
+    ``max_len``) needs no more than ``CTAS_PER_SM * 64 / head_dim`` CTAs on
+    each SM (a CTA's tile and shared memory grow with the head dim) and a
+    slot no more chunks than one cluster holds (:data:`MAX_CLUSTER`).
+    Below that a shorter live length spreads over the most SMs; past it
+    more, smaller chunks queue for the SMs and add partials to merge.
+    ``CTAS_PER_SM`` was set on an H100 from the A/B that ``chip_smoke.py``
+    runs every time (128 to 1024 positions a CTA, at the served positions
+    and the full cache, at GPT-2's and Llama-3-8B's decode shapes)."""
     units = B * Hkv * -(-rows // row_block(rows))
-    chunks = min(MAX_CLUSTER, max(1, CTAS_PER_SM * sm_count // units))
+    per_sm = max(1, CTAS_PER_SM * 64 // head_dim)
+    chunks = min(MAX_CLUSTER, max(1, per_sm * sm_count // units))
     return TILE * -(-max_len // (TILE * chunks))
 
 
@@ -206,11 +223,10 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _count(fn, quant):
-    if quant:
-        fn.launches_int8 += 1
-    else:
-        fn.launches += 1
+def _count(fn, quant, D):
+    attr = ("launches_int8" if quant else "launches") + (
+        "_d128" if D == 128 else "")
+    setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def flash_decode_attend(q, kc, vc, pos, max_len, n_rep):
@@ -225,7 +241,8 @@ def flash_decode_attend(q, kc, vc, pos, max_len, n_rep):
     Hkv = Hq // n_rep
     k, v, ks, vs, quant = _cache_operands(name, q, kc, vc, B, max_len, Hkv)
     pos = _pos_vector(name, pos, B, q.device)
-    chunk = decode_chunk(B, Hkv, W * n_rep, max_len, _sm_count(q.device))
+    chunk = decode_chunk(B, Hkv, W * n_rep, max_len, _sm_count(q.device),
+                         D)
     out = torch.empty((B, W, Hq * D), dtype=q.dtype, device=q.device)
     st = _build.strides(q.stride(0), q.stride(1), k.stride(0), k.stride(1),
                         v.stride(0), v.stride(1),
@@ -237,12 +254,14 @@ def flash_decode_attend(q, kc, vc, pos, max_len, n_rep):
         _build.stream_handle(q.device))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    _count(flash_decode_attend, quant)
+    _count(flash_decode_attend, quant, D)
     return out
 
 
 flash_decode_attend.launches = 0
 flash_decode_attend.launches_int8 = 0
+flash_decode_attend.launches_d128 = 0
+flash_decode_attend.launches_int8_d128 = 0
 
 
 def paged_flash_decode_attend(q, kp, vp, table, pos, page_tokens, n_rep):
@@ -254,7 +273,7 @@ def paged_flash_decode_attend(q, kp, vp, table, pos, page_tokens, n_rep):
     if q.device.type == "cpu":
         return paged_gather_attend(q, kp, vp, table, pos, page_tokens, n_rep)
     name = "paged_flash_decode_attend"
-    B, W, Hq, D = _check_q(name, q, n_rep)
+    B, W, Hq, D = _check_q(name, q, n_rep, PAGED_HEAD_DIMS)
     Hkv = Hq // n_rep
     table = torch.as_tensor(table, device=q.device)
     if table.ndim != 2 or table.shape[0] != B:
@@ -280,7 +299,7 @@ def paged_flash_decode_attend(q, kp, vp, table, pos, page_tokens, n_rep):
         page_tokens, max_pages, P, chunk, st, _build.stream_handle(q.device))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    _count(paged_flash_decode_attend, quant)
+    _count(paged_flash_decode_attend, quant, D)
     return out
 
 

@@ -43,10 +43,11 @@ RULE_CASES = [
 
 
 def test_split_rule_reads_no_positions():
-    """The grid is sized on the host: the rule sees the shape and the
-    card, never the positions (they live on the card)."""
+    """The grid is sized on the host: the rule sees the shape (head dim
+    included) and the card, never the positions (they live on the
+    card)."""
     params = list(inspect.signature(tfd.decode_chunk).parameters)
-    assert params == ["B", "Hkv", "rows", "max_len", "sm_count"]
+    assert params == ["B", "Hkv", "rows", "max_len", "sm_count", "head_dim"]
     assert not any("pos" in p for p in params)
 
 

@@ -184,6 +184,31 @@ def test_produce_and_pready_any_callable_on_cpu():
     assert tf.identity(x) is not x and torch.equal(tf.identity(x), x)
 
 
+@pytest.mark.parametrize("idx", [3, 16, -1])
+def test_produce_any_callable_matches_jax(idx):
+    """A producer that is not identity or Affine (the caller's own code,
+    here tanh(t) * 3) against JAX's ``produce_and_pready`` tracing the
+    same function into its kernel: the flag table exactly, the payload
+    within 4 ulps (tanh is not correctly rounded in either library: the
+    two differ by up to 2 ulps of tanh before the product by 3)."""
+    rng = np.random.default_rng(15)
+    x = rng.standard_normal((8, 128)).astype(np.float32) * 2
+    table = _table(16, 15)
+    t_flags = torch.from_numpy(table.copy())
+    payload, got = tf.produce_and_pready(lambda t: torch.tanh(t) * 3.0,
+                                         torch.from_numpy(x), t_flags, idx)
+    want_p, want_f = jf.produce_and_pready(lambda t: jnp.tanh(t) * 3.0,
+                                           jnp.asarray(x),
+                                           jnp.asarray(table), idx)
+    assert got is t_flags
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want_f))
+    want_p = np.asarray(want_p)
+    assert payload.shape == want_p.shape
+    assert (np.abs(payload.numpy() - want_p)
+            <= 4 * np.spacing(np.abs(want_p).astype(np.float32))).all()
+    assert tf.produce_and_pready.launches == 0 and tf.pready.launches == 0
+
+
 def test_state_machine_roundtrip_matches_native_protocol():
     # AVAILABLE->RESERVED->PENDING->...->COMPLETED (include/acx/state.h).
     assert (tf.AVAILABLE, tf.RESERVED, tf.PENDING, tf.ISSUED, tf.COMPLETED,

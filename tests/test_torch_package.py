@@ -19,6 +19,7 @@ import torch
 
 from mpi_acx_torch import train as ttrain
 from mpi_acx_torch.models import kvpage as tkp
+from mpi_acx_torch.models import llama as tl
 from mpi_acx_torch.models import serving as ts
 from mpi_acx_torch.models import transformer as tt
 from mpi_acx_torch.ops import _build
@@ -40,7 +41,8 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax():
-    assert len(PORT_FILES) >= 26
+    assert len(PORT_FILES) >= 27
+    assert ROOT / "mpi_acx_torch" / "models" / "llama.py" in PORT_FILES
     bad = [(p.relative_to(ROOT), m) for p in PORT_FILES
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "mpi_acx_tpu")]
@@ -52,14 +54,15 @@ def test_import_loads_neither_jax_nor_cuda():
         "import sys, torch, mpi_acx_torch\n"
         "from mpi_acx_torch import checkpoint, data, device, reqlog, "
         "runtime, train, triggers\n"
-        "from mpi_acx_torch.models import decoding, kvpage, serving, "
-        "transformer\n"
+        "from mpi_acx_torch.models import decoding, kvpage, llama, "
+        "serving, transformer\n"
         "from mpi_acx_torch.ops import _build, attention, flags, "
         "flash_decode, kvquant, xent\n"
         "from mpi_acx_torch.parallel import collective, mesh, pipeline, "
         "ring_attention\n"
         "import mpi_acx_torch.models as m; m.serve_greedy; m.gpt2_small\n"
         "m.serve_paged_greedy; m.PagedKV; m.kvpage\n"
+        "m.llama3_8b; m.LlamaConfig; m.llama\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'mpi_acx_tpu')]\n"
         "assert not bad, bad\n"
@@ -97,7 +100,26 @@ ENTRY_POINTS = {
                                                              1),
     "make_train_step_optim": lambda cfg, p: ttrain.make_train_step_optim(
         cfg, _mesh(), 1, torch.optim.SGD([torch.zeros(1)], lr=0.1)),
+    "llama.init_params": lambda cfg, p: tl.init_params(_tiny_llama(), 0),
+    "llama.params_from_jax": lambda cfg, p: tl.params_from_jax(
+        {"embed": np.zeros((2, 2), np.float32)}),
+    "llama.init_kv_cache": lambda cfg, p: tl.init_kv_cache(_tiny_llama(),
+                                                           1, 8),
+    "llama.generate": lambda cfg, p: tl.generate(
+        _llama_params(), _tiny_llama(), np.zeros((1, 3), np.int32), 2),
+    "llama.serve_greedy": lambda cfg, p: ts.serve_greedy(
+        _llama_params(), _tiny_llama(), [np.arange(3, dtype=np.int32)], 2,
+        n_slots=1, max_len=8, family=tl),
 }
+
+
+def _tiny_llama():
+    return tl.tiny_llama(vocab=31, d_model=32, n_heads=4, n_kv_heads=2,
+                         n_layers=1, d_ff=64, max_seq=32)
+
+
+def _llama_params():
+    return tl.init_params(_tiny_llama(), seed=0, device="cpu")
 
 
 def _mesh():
@@ -139,6 +161,28 @@ def test_cpu_tensors_leave_launch_counts_at_zero():
             out = serve(params, cfg, prompts, 4, n_slots=2, max_len=16,
                         kv_int8=kv_int8, device="cpu")
             assert len(out) == 3
+    for fn, attr in counters:
+        assert getattr(fn, attr) == 0, (fn.__name__, attr)
+
+
+def test_llama_on_cpu_tensors_leaves_launch_counts_at_zero():
+    """The Llama family's serving path on the CPU: prefill and decode
+    through the plain versions, no launch of any form counted."""
+    counters = [(tattn.flash_attention, "launches"),
+                (tattn.flash_attention, "launches_d128"),
+                (tfd.flash_decode_attend, "launches"),
+                (tfd.flash_decode_attend, "launches_int8"),
+                (tfd.flash_decode_attend, "launches_d128"),
+                (tfd.flash_decode_attend, "launches_int8_d128")]
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    cfg, params = _tiny_llama(), _llama_params()
+    prompts = [np.arange(5, dtype=np.int32)] * 3
+    for kv_int8 in (False, True):
+        out = ts.serve_greedy(params, cfg, prompts, 4, n_slots=2,
+                              max_len=16, kv_int8=kv_int8, family=tl,
+                              device="cpu")
+        assert len(out) == 3
     for fn, attr in counters:
         assert getattr(fn, attr) == 0, (fn.__name__, attr)
 
