@@ -78,6 +78,25 @@ in the repository. Phases, each of which exits non-zero on failure:
              tokens/s, TTFT, ITL, the D = 128 kernels timed at the path's
              shapes (with the split rule's A/B and K1's CTA sizes there),
              and a decode step issued against its device time.
+4d. moe    — (after 4c, Llama's weights freed) the MoE family
+             (moe_transformer's default configuration: GPT-2 small's
+             attention, 8 experts of d_ff 3072, top-1, 12 layers, 520.7 M
+             parameters; served at capacity factor 8.0, the drop-free
+             rule): at full width cut to 2 layers in f32, 8 requests
+             through the kernels and the plain versions (tokens and logits
+             as phase 3, routing decisions apart only at ties); then at
+             full width and depth (seed-0 weights drawn on the card, cast
+             to bf16) phase 4's 16 requests with bf16 and then int8 KV
+             caches, each held to the same requests through the plain
+             versions (ties within TIE_MOE; with bf16 KV the routing
+             decisions apart counted and the kernel path's logits no
+             farther from an f32 forward of the same weights than the
+             plain path's), K1's launches exactly the prefills x 12
+             layers, K2 launched in the cache's form alone; tokens/s,
+             TTFT, ITL, and a decode step
+             issued against its device time and profiled into router with
+             dispatch and combine, the experts' upcasts, their products,
+             K2 and the rest.
 5. timing  — each kernel, its plain version, the equivalent PyTorch
              library call (where one call computes the same function) and
              the roofline bound at the phase-4 and 4b shapes
@@ -101,6 +120,10 @@ in the repository. Phases, each of which exits non-zero on failure:
              at S = 16384, forward and backward, through the streaming
              entry. Then B10 and B7 timed like phase 5, and one blockwise
              attention backward per layer.
+5c. moe train — the MoE configuration at full width and depth (capacity
+             factor 2.0, so tokens past capacity drop) trained as in 5b:
+             the same checks and figures, B10 launched exactly 12 x 2 x 5
+             times, and each step's load-balance term.
 6. flags   — the flag kernels B1-B5 (csrc/flags.cu) against their plain
              versions with exact equality over tables of 1 to 4096 slots,
              indices in and out of range, repeated, as ints and as tensors
@@ -108,7 +131,9 @@ in the repository. Phases, each of which exits non-zero on failure:
              4 MiB partition, with its compiled producers and a general
              one (tanh(t) * 3, computed on the stream with B1's flag store
              behind it); then each timed by CUDA-graph replay beside
-             its plain version and its one-call PyTorch equivalent.
+             its plain version and its one-call PyTorch equivalent (B1
+             and its one-store equivalent in B1_REPEATS turns each, with
+             their spread).
 7. exchange — `make lib tools`, then two ranks on the card under
              build/acxrun: 64 MiB of f32 in 16 partitions produced and
              flagged by the kernels, published through stream triggers,
@@ -123,6 +148,7 @@ in the repository. Phases, each of which exits non-zero on failure:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -182,17 +208,31 @@ TOL_ROW_F32 = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 TIE = {torch.float32: 1e-4, torch.bfloat16: 8e-2}
 # The same rule for Llama-3-8B in bf16 at full depth (phase 4c), whose plain
 # path differs from itself by more than TIE: over its 16 served sequences
-# (probes/llama_paths.py on an H100) its forward pass and its own decode,
-# replayed, differ by up to 0.60 in a logit (a max over 128256 logits at
-# each of up to 640 positions, bf16 through 32 layers); 171 of the 960
-# tokens its server emitted are not its own forward's argmax, at forward
-# margins up to 0.44; the kernel path's forward differs from the plain
-# path's by 0.43-0.57. The f32 run at full width (4 layers) holds the same
-# path to TIE[f32], and against an f32 forward of the same weights the
-# kernel path's logits read RMS 7.70e-2 (max 0.46), the plain path's
+# (probes/bf16_paths.py llama, on an H100) its forward pass and its own
+# decode, replayed, differ by up to 0.60 in a logit (a max over 128256
+# logits at each of up to 640 positions, bf16 through 32 layers); 171 of
+# the 960 tokens its server emitted are not its own forward's argmax, at
+# forward margins up to 0.44; the kernel path's forward differs from the
+# plain path's by 0.43-0.57. The f32 run at full width (4 layers) holds the
+# same path to TIE[f32], and against an f32 forward of the same weights
+# the kernel path's logits read RMS 7.70e-2 (max 0.46), the plain path's
 # 8.80e-2 (0.61): phase 4c requires the kernel path to be no farther.
 # Limit: about twice the plain path's own largest disagreement.
 TIE_LLAMA = 1.2
+# The same rule for the MoE configuration in bf16 at full depth (phase
+# 4d), whose plain path also differs from itself by more than TIE: over
+# phase 4's 16 requests (probes/bf16_paths.py moe, on an H100) its
+# forward pass and its own decode, replayed, differ by up to 0.64 in a
+# logit, because 71 of their 11520 routing decisions (a token's expert in
+# one layer) differ, at plain gate margins up to 0.35 (a token routed to
+# another expert moves by a whole expert's output); 3 of its 960 served
+# tokens are not its own forward's argmax (margins up to 0.027). The kernel
+# path's forward differs from the plain path's by up to 0.79 (813 of
+# 55872 routing decisions apart), and against an f32 forward of the same
+# weights it reads RMS 3.25e-2, the plain path 3.45e-2: phase 4d requires
+# the kernel path to be no farther. Limit: about twice the plain path's
+# own largest disagreement.
+TIE_MOE = 1.3
 # B10's lse (f32 in both dtypes), max abs error against the plain version
 # in the same dtype and against an f32 plain run on the same inputs.
 # Readings on an H100 over the phase-2b cases: bf16 1.4e-2 against the
@@ -1037,6 +1077,57 @@ def read_counts(names=None):
             if names is None or name in names}
 
 
+def forward_logits(fam, params, cfg, toks):
+    """The family's forward logits (the MoE family's forward also returns
+    its router losses)."""
+    out = fam.forward(params, cfg, toks)
+    return out[0] if isinstance(out, tuple) else out
+
+
+@contextlib.contextmanager
+def recorded_routes(log=None):
+    """Every router call's f32 gate logits and top-k, in call order, into
+    ``log`` (a new list by default) while the block runs (``moe._route``
+    wrapped; nothing is copied)."""
+    from mpi_acx_torch.models import moe
+    route = moe._route
+    log = [] if log is None else log
+
+    def rec(params, x, cfg, E):
+        out = route(params, x, cfg, E)
+        log.append((out[0].detach(), cfg.top_k))
+        return out
+
+    moe._route = rec
+    try:
+        yield log
+    finally:
+        moe._route = route
+
+
+def route_flips(kernel_log, plain_log):
+    """The routing decisions (a token's top-k experts in one router call)
+    that differ between two runs over the same tokens: (differing, all,
+    the plain run's largest gate margin at a differing one, its smallest
+    margin over all), the margin being the gap between the k-th and the
+    (k+1)-th largest gate."""
+    from mpi_acx_torch.models import moe
+    if len(kernel_log) != len(plain_log):
+        fail(f"router calls differ: {len(kernel_log)} against "
+             f"{len(plain_log)}")
+    apart, total, at_flip, least = 0, 0, 0.0, math.inf
+    for (gk, k), (gp, _) in zip(kernel_log, plain_log):
+        differ = (moe._top_k(gk, k) != moe._top_k(gp, k)).any(-1)
+        top = gp.topk(k + 1, dim=-1).values
+        margin = top[:, k - 1] - top[:, k]
+        apart += int(differ.sum())
+        total += differ.numel()
+        least = min(least, margin.min().item())
+        if differ.any():
+            at_flip = max(at_flip, margin[differ].max().item())
+    return apart, total, at_flip, least
+
+
 def plain_logits(params, plain, ctx, S, int8, fam=None):
     """The plain path's next-token logits after ``ctx`` (a served sequence
     cut where two paths diverge): a forward pass, or with ``int8`` the
@@ -1047,7 +1138,7 @@ def plain_logits(params, plain, ctx, S, int8, fam=None):
     tfm = fam or transformer
     toks = torch.as_tensor(ctx, device="cuda")[None]
     if not int8:
-        return tfm.forward(params, plain, toks)[0, -1]
+        return forward_logits(tfm, params, plain, toks)[0, -1]
     logits, cache = tfm.prefill(params, plain, toks[:, :S], len(ctx),
                                 last_only=True, kv_int8=True)
     logits = logits[0, -1]
@@ -1058,7 +1149,8 @@ def plain_logits(params, plain, ctx, S, int8, fam=None):
 
 
 def compare_paths(label, params, cfg, got, want, prompts,
-                  int8=False, fam=None, tie=None, ref=None) -> None:
+                  int8=False, fam=None, tie=None, ref=None,
+                  routes=False) -> None:
     """Hold the kernel path's served tokens (``got``) to the plain path's
     (``want``). A divergence passes only at a tie: the plain path's logits
     of the two tokens at that step, recomputed over the common prefix
@@ -1069,7 +1161,10 @@ def compare_paths(label, params, cfg, got, want, prompts,
     ``tie`` the limit (TIE of the config's dtype by default). With ``ref``,
     ``(params, config)`` of the same model in f32, both paths' forwards are
     also held to its forward: the kernel path's logits must lie no farther
-    from it (RMS over the served positions) than the plain path's."""
+    from it (RMS over the served positions) than the plain path's. With
+    ``routes`` (the MoE family) the two forwards' routing decisions are
+    compared (:func:`route_flips`) and printed; in f32 a decision may
+    differ only where the plain path's gate margin is below the tie."""
     from mpi_acx_torch.models import serving, transformer
     tfm = fam or transformer
     plain = dataclasses.replace(cfg, use_flash=False, decode_flash=False)
@@ -1077,6 +1172,9 @@ def compare_paths(label, params, cfg, got, want, prompts,
     ties, spread, sq, n = [], 0.0, 0.0, 0
     forced = [0, 0, 0.0]    # argmax apart, positions, largest plain margin
     to_ref = {"kernel": 0.0, "plain": 0.0}     # squared error against ref
+    flips = [0, 0, 0.0, math.inf]
+    record = recorded_routes if routes else (
+        lambda: contextlib.nullcontext([]))
     for rid, (g, w) in enumerate(zip(got, want)):
         for o in (g, w):
             if isinstance(o, serving.RequestRejected):
@@ -1096,8 +1194,16 @@ def compare_paths(label, params, cfg, got, want, prompts,
         if int8:
             continue
         seq = torch.as_tensor(w[:-1], device="cuda")[None]
-        lk = tfm.forward(params, cfg, seq)[0, len(prompts[rid]) - 1:]
-        lp = tfm.forward(params, plain, seq)[0, len(prompts[rid]) - 1:]
+        with record() as rk:
+            lk = forward_logits(tfm, params, cfg, seq)[
+                0, len(prompts[rid]) - 1:]
+        with record() as rp:
+            lp = forward_logits(tfm, params, plain, seq)[
+                0, len(prompts[rid]) - 1:]
+        if routes:
+            f = route_flips(rk, rp)
+            flips = [flips[0] + f[0], flips[1] + f[1], max(flips[2], f[2]),
+                     min(flips[3], f[3])]
         spread = max(spread, (lk - lp).abs().max().item())
         sq += (lk - lp).double().square().sum().item()
         n += lk.numel()
@@ -1112,7 +1218,7 @@ def compare_paths(label, params, cfg, got, want, prompts,
             gap = (lp.gather(-1, ap[:, None]) - lp.gather(-1, ak[:, None]))
             forced[2] = max(forced[2], gap[apart].max().item())
         if ref is not None:
-            l32 = tfm.forward(*ref, seq)[0, len(prompts[rid]) - 1:]
+            l32 = forward_logits(tfm, *ref, seq)[0, len(prompts[rid]) - 1:]
             for key, lx in (("kernel", lk), ("plain", lp)):
                 to_ref[key] += (lx - l32).double().square().sum().item()
     print(f"{label}: kernel path vs plain path: tokens equal in "
@@ -1122,6 +1228,14 @@ def compare_paths(label, params, cfg, got, want, prompts,
              f"{math.sqrt(sq / n):.4e}; teacher-forced argmax apart at "
              f"{forced[0]} of {forced[1]} positions, plain margins there up "
              f"to {forced[2]:.4e}"), flush=True)
+    if routes and not int8:
+        print(f"{label}: routing decisions apart between the two paths' "
+              f"forwards: {flips[0]} of {flips[1]} (router calls x tokens), "
+              f"the plain path's gate margin there up to {flips[2]:.4e}; "
+              f"smallest plain margin anywhere {flips[3]:.4e}", flush=True)
+        if cfg.dtype == torch.float32 and flips[0] and not flips[2] < tie:
+            fail(f"{label}: a routing decision differs at a gate margin "
+                 f"{flips[2]:.4e}, not a tie")
     if not spread < tie:
         fail(f"{label}: kernel-path logits differ from the plain path's by "
              f"{spread:.4e}")
@@ -1629,6 +1743,32 @@ def phase_decode_split(card_str, run, q, kc, vc, pos, full, max_len,
                  f"{shape} are not faster than one chunk per slot")
 
 
+def device_kernels(prof):
+    """The device events of a profile that are kernels, copies or memsets:
+    a record_function range (ours, or the optimizer's ``Optimizer.step``)
+    also appears as a device event spanning its kernels, which a sum of
+    device time must not count again."""
+    return [ev for ev in prof.events() if ev.device_type.name == "CUDA"
+            and not ev.is_user_annotation]
+
+
+def attributed_kernels(prof):
+    """(the CPU op chain from the launching op up, kernel) for every
+    kernel the profiler ties to a CPU op, user-annotation spans left
+    out."""
+    spans = {ev.name for ev in prof.events() if ev.is_user_annotation}
+    for ev in prof.events():
+        if not ev.kernels:
+            continue
+        names, up = [], ev
+        while up is not None:
+            names.append(up.name)
+            up = up.cpu_parent
+        for k in ev.kernels:
+            if k.name not in spans:
+                yield names, k
+
+
 def step_profile(step) -> str:
     """One more call of ``step`` under torch.profiler: the device time of
     its kernels by class (the products: cuBLAS GEMMs; the decode
@@ -1642,10 +1782,9 @@ def step_profile(step) -> str:
         step()
         torch.cuda.synchronize()
     by_name, n = {}, 0
-    for ev in prof.events():
-        if ev.device_type.name == "CUDA":
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time_total
-            n += 1
+    for ev in device_kernels(prof):
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time_total
+        n += 1
     cls = dict.fromkeys(("products", "decode attention", "other"), 0.0)
     for name, us in by_name.items():
         key = ("decode attention" if "decode_kernel" in name else "products"
@@ -1660,14 +1799,15 @@ def step_profile(step) -> str:
 
 
 def phase_step(params, cfg, fam, k2_ms, k2_host_us, card_str,
-               label="GPT-2 124M", profile=False) -> None:
+               label="GPT-2 124M", profile=None) -> None:
     """One batched decode step at the phase-4 shape (8 slots at mid-request
     positions): as the server issues it (eager, host clock around steps
     that end in a synchronize) against its device time (the same step
     replayed from a CUDA graph). Their ratio is the device's busy share of
     a served decode step; one K2 call a layer is its attention. ``fam``
-    is the model family's module, ``label`` its name; with ``profile`` one
-    more step's kernels are split by class (:func:`step_profile`)."""
+    is the model family's module, ``label`` its name; ``profile``
+    (:func:`step_profile` or :func:`moe_step_profile`) splits one more
+    step's kernels by class."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     cache = fam.init_kv_cache(cfg, 8, 1024)
     for key in ("k", "v"):
@@ -1700,7 +1840,7 @@ def phase_step(params, cfg, fam, k2_ms, k2_host_us, card_str,
           f"attention {L} x {k2_ms:.4f} ms = {100 * L * k2_ms / dev_ms:.1f}% "
           f"of device time{host} [{card_str}]", flush=True)
     if profile:
-        print(f"decode step bf16 {label} profiled: {step_profile(step)} "
+        print(f"decode step bf16 {label} profiled: {profile(step)} "
               f"[{card_str}]", flush=True)
 
 
@@ -1887,10 +2027,183 @@ def phase_llama(card_str):
     times.update(llama_decode_timing(card_str))
     phase_cta_sizes(card_str, LLAMA_CTA_SHAPES)
     phase_step(params, cfg, llama, times["flash_decode_attend_d128"]["ms"],
-               None, card_str, label="Llama-3-8B", profile=True)
+               None, card_str, label="Llama-3-8B", profile=step_profile)
     del params
     torch.cuda.empty_cache()
     return counts, times
+
+
+# --- phase 4d: the MoE family -----------------------------------------------
+
+MOE_F32_LAYERS = 2      # the f32 check's depth (full width)
+
+
+def moe_serving_config(**kw):
+    """MoeTransformerConfig's defaults (GPT-2 small's attention, 8 experts
+    each 3072 wide, top-1, 12 layers) with ``capacity_factor = n_experts``:
+    the drop-free rule moe_transformer.decode_step prescribes for serving,
+    under which a served request's tokens are its solo run's."""
+    from mpi_acx_torch.models import moe_transformer as mtf
+    cfg = mtf.MoeTransformerConfig(**kw)
+    return dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+
+
+def moe_step_profile(step) -> str:
+    """One more decode step under torch.profiler with the MoE layer and its
+    experts marked (``moe._moe_forward`` and ``moe._expert_ffn`` wrapped in
+    record_function): device time of the router with dispatch and combine
+    (the layer less its experts), the experts' upcasts (the f32 copies of
+    the bf16 expert weights that JAX's promotion computes with), their
+    products and GELU, K2, and the rest (attention's projections, norms,
+    the cache writes, the unembedding)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from mpi_acx_torch.models import moe
+    fwd, ffn = moe._moe_forward, moe._expert_ffn
+
+    def marked(name, fn):
+        def call(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    moe._moe_forward = marked("moe_layer", fwd)
+    moe._expert_ffn = marked("moe_experts", ffn)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        moe._moe_forward, moe._expert_ffn = fwd, ffn
+    kernels = device_kernels(prof)
+    total = sum(ev.device_time_total for ev in kernels)
+    k2 = sum(ev.device_time_total for ev in kernels
+             if "decode_kernel" in ev.name)
+    split = dict.fromkeys(("router, dispatch and combine", "expert upcasts",
+                           "expert products and GELU"), 0.0)
+    for names, k in attributed_kernels(prof):
+        if "decode_kernel" in k.name:
+            continue
+        if "moe_experts" in names:
+            key = ("expert upcasts" if "copy" in k.name
+                   else "expert products and GELU")
+        elif "moe_layer" in names:
+            key = "router, dispatch and combine"
+        else:
+            continue
+        split[key] += k.duration
+    split["K2"] = k2
+    split["rest"] = max(total - sum(split.values()), 0.0)
+    return (f"{len(kernels)} kernels, device {total / 1e3:.3f} ms: "
+            + ", ".join(f"{k} {v / 1e3:.3f} ms ({100 * v / total:.1f}%)"
+                        for k, v in split.items()))
+
+
+def moe_f32(card_str) -> None:
+    """The MoE configuration at full width, depth cut to MOE_F32_LAYERS, in
+    f32: served through the kernels and through the plain versions (tokens
+    and logits as phase 3, routing decisions compared)."""
+    from mpi_acx_torch.models import moe_transformer as mtf, serving
+    cfg = moe_serving_config(n_layers=MOE_F32_LAYERS, dtype=torch.float32)
+    plain = dataclasses.replace(cfg, use_flash=False, decode_flash=False)
+    params = mtf.init_params(cfg, seed=0)
+    rng = np.random.default_rng(1)
+    lens = [16, 40, 64, 100, 23, 77, 50, 128]
+    n_new = [8, 16, 12, 20, 8, 16, 12, 20]
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    kw = dict(n_slots=3, max_len=256, chunk=4, family=mtf)
+    reset_counts()
+    got = serving.serve_greedy(params, cfg, prompts, n_new, **kw)
+    counts = read_counts(("flash_attention", "flash_decode_attend"))
+    check_no_copies("MoE f32 serve")
+    want = serving.serve_greedy(params, plain, prompts, n_new, **kw)
+    if min(counts.values()) == 0:
+        fail(f"MoE f32 kernel serve did not launch every kernel: {counts}")
+    if got.metrics.requeues or want.metrics.requeues:
+        fail("MoE f32 serve requeued a request after a failed step")
+    compare_paths(f"MoE f32 serve (8 requests, 3 slots, full width, "
+                  f"{MOE_F32_LAYERS} layers)", params, cfg, got, want,
+                  prompts, fam=mtf, routes=True)
+    print(f"MoE f32 serve launches {counts}", flush=True)
+
+
+def phase_moe(card_str, k2_ms) -> dict:
+    """Phase 4d: the MoE family (moe_transformer's default configuration,
+    served drop-free) on the card through K1 and K2 at head dim 64: the
+    f32 check, then the full model (12 layers, seed-0 f32 weights drawn on
+    the card and cast to bf16) serving phase 4's requests with bf16 and
+    then int8 KV caches, each held to the same requests through the plain
+    versions (ties within TIE_MOE; with bf16 KV the kernel path's logits
+    no farther from an f32 forward of the same weights than the plain
+    path's);
+    K1's launches exactly the prefills x 12 layers, K2 in each cache's
+    form; tokens/s, TTFT, ITL, and a decode step issued against its device
+    time and profiled by part. Returns the launch counts."""
+    from mpi_acx_torch.models import moe_transformer as mtf, serving
+    from mpi_acx_torch.models import transformer as tfm
+    moe_f32(card_str)
+    torch.cuda.empty_cache()
+    cfg = moe_serving_config()
+    t0 = time.perf_counter()
+    params32 = mtf.init_params(cfg, seed=0)
+    params = tfm.cast_params(params32, torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in [params["embed"], params["pos"],
+                                       params["lnf_g"], params["lnf_b"],
+                                       *params["layers"].values()])
+    print(f"params: MoE transformer, {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads (D {cfg.head_dim}), {cfg.n_experts} experts "
+          f"x d_ff {cfg.d_ff}, top-{cfg.top_k}, capacity factor "
+          f"{cfg.capacity_factor}, vocab {cfg.vocab}: {n_params / 1e6:.1f} M "
+          f"parameters, {2 * n_params / 1e9:.2f} GB in bf16, drawn on the "
+          f"card from seed 0 in {time.perf_counter() - t0:.1f} s", flush=True)
+    prompts, n_new = serve_requests(cfg.vocab)
+    kw = dict(n_slots=8, max_len=1024, chunk=8, family=mtf)
+    plain = dataclasses.replace(cfg, use_flash=False, decode_flash=False)
+    serving.serve_greedy(params, cfg, prompts[:2], 4, **kw)     # warm-up
+    counts = {}
+    for int8 in (False, True):
+        label = f"MoE serve {'int8' if int8 else 'bf16'} KV"
+        forms = ("flash_decode_attend", "flash_decode_attend_int8")
+        k2, other = forms[::-1] if int8 else forms
+        torch.cuda.synchronize()
+        reset_counts()
+        res = serving.serve_greedy(params, cfg, prompts, n_new,
+                                   kv_int8=int8, **kw)
+        torch.cuda.synchronize()
+        got = read_counts(("flash_attention", k2, other))
+        check_no_copies(label)
+        check_served(label, res, prompts, n_new, cfg.vocab)
+        print(f"serve {label}: 16 requests, 8 slots, max_len 1024, chunk 8: "
+              f"{served_figures(res.metrics)} [{card_str}]", flush=True)
+        print(f"launches during {label}: {json.dumps(got)}", flush=True)
+        want_k1 = res.metrics.prefills * cfg.n_layers
+        if (got["flash_attention"] != want_k1 or got[k2] == 0
+                or got[other]):
+            fail(f"{label}: K1 launched {got['flash_attention']} times (the "
+                 f"{res.metrics.prefills} prefills x {cfg.n_layers} layers "
+                 f"are {want_k1}), {k2} {got[k2]} times, {other} "
+                 f"{got[other]}")
+        for name, n in got.items():
+            counts[name] = counts.get(name, 0) + n
+        want = serving.serve_greedy(params, plain, prompts, n_new,
+                                    kv_int8=int8, **kw)
+        ref = None if int8 else (
+            params32, dataclasses.replace(plain, dtype=torch.float32))
+        compare_paths(f"{label} (16 requests, 8 slots)", params, cfg, res,
+                      want, prompts, int8=int8, fam=mtf, tie=TIE_MOE,
+                      ref=ref, routes=True)
+    del params32
+    torch.cuda.empty_cache()
+    phase_step(params, cfg, mtf, k2_ms, None, card_str,
+               label=f"MoE {cfg.n_experts}x{cfg.d_ff}",
+               profile=moe_step_profile)
+    del params
+    torch.cuda.empty_cache()
+    print(f"MoE serving launches (phase 4d): {json.dumps(counts)}",
+          flush=True)
+    return counts
 
 
 # --- phase 5b --------------------------------------------------------------
@@ -1961,14 +2274,8 @@ def profile_step(step, params, batch) -> dict:
     split = dict.fromkeys(("forward", "backward", "attention_backward",
                            "optimizer", "unattributed"), 0.0)
     attributed = 0.0
-    for ev in prof.events():
-        if not ev.kernels:
-            continue
-        names, up = [], ev
-        while up is not None:
-            names.append(up.name)
-            up = up.cpu_parent
-        us = sum(k.duration for k in ev.kernels)
+    for names, k in attributed_kernels(prof):
+        us = k.duration
         attributed += us
         if any(n.startswith("Optimizer.step") for n in names):
             split["optimizer"] += us
@@ -1980,9 +2287,8 @@ def profile_step(step, params, batch) -> dict:
         else:
             split["forward"] += us
     by_name = {}
-    for ev in prof.events():
-        if ev.device_type.name == "CUDA":
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time_total
+    for ev in device_kernels(prof):
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.device_time_total
     device = sum(by_name.values())
     split["unattributed"] = max(device - attributed, 0.0)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -1991,63 +2297,66 @@ def profile_step(step, params, batch) -> dict:
                 top_ms=[(name[:60], us / 1e3) for name, us in top])
 
 
-def phase_train(card_str) -> dict:
-    """Phase 5b: GPT-2 124M at full width and depth (seed-0 f32 params,
-    bf16 compute) trained through the port's train step on a 1x1x1 mesh:
-    TRAIN_STEPS AdamW steps of M=2 microbatches of 4 x 1024 tokens
-    through B10's kernel, then the same steps from the same init through
-    the dense ring blocks. Returns B10's launch count in the kernel run."""
-    from mpi_acx_torch.models import transformer as tfm
-    cfg = tfm.gpt2_small()
+def train_phase(card_str, label, cfg, init, around_kernel_run=None):
+    """TRAIN_STEPS AdamW steps of M=2 microbatches of 4 x 1024 tokens of
+    the ramp task from ``init`` (stage-sliced f32 params) through B10's
+    kernel, then the same steps from the same init through the dense ring
+    blocks: per-step losses held to each other, the loss to fall, B10's
+    launches to be exactly layers x microbatches x steps in the kernel run
+    and none in the dense one; step time, tokens/s, peak memory and a
+    profiled step printed. ``around_kernel_run`` is a context manager
+    entered around the kernel run. Returns the kernel run
+    (:func:`train_run`)."""
     plain = dataclasses.replace(cfg, use_flash=False)
-    init = tfm.stage_slice(tfm.init_params(
-        dataclasses.replace(cfg, dtype=torch.float32), seed=0), 1)
     batch = ramp_batch(cfg.vocab)
     n_tok = TRAIN_M * TRAIN_B * TRAIN_S
-    kern = train_run(cfg, init, batch)
+    with around_kernel_run or contextlib.nullcontext():
+        kern = train_run(cfg, init, batch)
     dense = train_run(plain, init, batch)
     want = cfg.n_layers * TRAIN_M * TRAIN_STEPS
     got = kern["counts"]["flash_attention_lse"]
-    print(f"train launches, kernel run: {json.dumps(kern['counts'])}; dense "
-          f"run: {json.dumps(dense['counts'])}", flush=True)
-    check_no_copies("train, kernel run", kern["copies"])
+    print(f"{label} train launches, kernel run: {json.dumps(kern['counts'])}"
+          f"; dense run: {json.dumps(dense['counts'])}", flush=True)
+    check_no_copies(f"{label} train, kernel run", kern["copies"])
     if got != want or dense["counts"]["flash_attention_lse"] != 0:
-        fail(f"B10 launched {got} times in the kernel run (want 12 layers x "
-             f"{TRAIN_M} microbatches x {TRAIN_STEPS} steps = {want}) and "
+        fail(f"{label}: B10 launched {got} times in the kernel run (want "
+             f"{cfg.n_layers} layers x {TRAIN_M} microbatches x "
+             f"{TRAIN_STEPS} steps = {want}) and "
              f"{dense['counts']['flash_attention_lse']} in the dense run")
     tols = [TOL_TRAIN_LOSS0] + [TOL_TRAIN_LOSS] * (TRAIN_STEPS - 1)
     ok = True
     for i, (a, b) in enumerate(zip(kern["losses"], dense["losses"])):
-        print(f"train step {i}: loss {a:.6f} through B10, {b:.6f} through "
-              f"the dense blocks, |diff| {abs(a - b):.3e} (tol {tols[i]}); "
-              f"{kern['secs'][i] * 1e3:.1f} ms and "
+        print(f"{label} train step {i}: loss {a:.6f} through B10, {b:.6f} "
+              f"through the dense blocks, |diff| {abs(a - b):.3e} (tol "
+              f"{tols[i]}); {kern['secs'][i] * 1e3:.1f} ms and "
               f"{dense['secs'][i] * 1e3:.1f} ms", flush=True)
         ok = ok and abs(a - b) <= tols[i]
-    print(f"train loss after {TRAIN_STEPS} steps: {kern['final']:.6f} "
-          f"through B10, {dense['final']:.6f} dense (step 0: "
-          f"{kern['losses'][0]:.6f})", flush=True)
+    print(f"{label} train loss after {TRAIN_STEPS} steps: "
+          f"{kern['final']:.6f} through B10, {dense['final']:.6f} dense "
+          f"(step 0: {kern['losses'][0]:.6f})", flush=True)
     if not all(math.isfinite(x) for x in kern["losses"] + dense["losses"]
                + [kern["final"], dense["final"]]):
-        fail("a training loss is not finite")
+        fail(f"{label}: a training loss is not finite")
     if not ok or abs(kern["final"] - dense["final"]) > TOL_TRAIN_LOSS:
-        fail("the kernel run's losses differ from the dense run's")
+        fail(f"{label}: the kernel run's losses differ from the dense run's")
     if not kern["final"] < kern["losses"][0]:
-        fail(f"training did not lower the loss: {kern['losses'][0]:.6f} -> "
-             f"{kern['final']:.6f}")
+        fail(f"{label}: training did not lower the loss: "
+             f"{kern['losses'][0]:.6f} -> {kern['final']:.6f}")
     # Steady steps: all but the first (which also warms up cuBLAS and the
     # allocator).
-    for label, r in (("B10", kern), ("dense", dense)):
+    for run, r in (("B10", kern), ("dense", dense)):
         ms = 1e3 * float(np.mean(r["secs"][1:]))
-        print(f"train step GPT-2 124M bf16 (f32 params, AdamW), M={TRAIN_M} "
-              f"x {TRAIN_B} x {TRAIN_S} tokens, {label}: {ms:.1f} ms per "
-              f"step (mean of steps 1-{TRAIN_STEPS - 1}), "
+        print(f"train step {label} bf16 (f32 params, AdamW), M={TRAIN_M} x "
+              f"{TRAIN_B} x {TRAIN_S} tokens, {run}: {ms:.1f} ms per step "
+              f"(mean of steps 1-{TRAIN_STEPS - 1}), "
               f"{n_tok / ms * 1e3:.0f} tokens/s, peak memory "
               f"{r['peak'] / 2 ** 30:.2f} GiB [{card_str}]", flush=True)
+    del dense
     prof = profile_step(kern["step"], kern["params"], batch)
     sp = prof["split_ms"]
     step_ms = 1e3 * float(np.mean(kern["secs"][1:]))
     if prof["device_ms"] > 0:
-        print(f"train step profile (one more step, B10): wall "
+        print(f"{label} train step profile (one more step, B10): wall "
               f"{prof['wall_ms']:.1f} ms under the profiler, device "
               f"{prof['device_ms']:.1f} ms: busy "
               f"{100 * prof['device_ms'] / prof['wall_ms']:.1f}% of the "
@@ -2057,13 +2366,50 @@ def phase_train(card_str) -> dict:
               f"(attention's {sp['attention_backward']:.1f} ms), optimizer "
               f"{sp['optimizer']:.1f} ms, unattributed "
               f"{sp['unattributed']:.1f} ms [{card_str}]", flush=True)
-        print("train step profile, device time by kernel: " + "; ".join(
-            f"{name} {ms:.1f} ms" for name, ms in prof["top_ms"]),
-            flush=True)
+        print(f"{label} train step profile, device time by kernel: "
+              + "; ".join(f"{name} {ms:.1f} ms"
+                          for name, ms in prof["top_ms"]), flush=True)
     else:
-        print(f"train step profile: not measured (the profiler saw no "
-              f"device time; wall {prof['wall_ms']:.1f} ms)", flush=True)
-    return {"flash_attention_lse": got}
+        print(f"{label} train step profile: not measured (the profiler saw "
+              f"no device time; wall {prof['wall_ms']:.1f} ms)", flush=True)
+    return kern
+
+
+def phase_train(card_str) -> dict:
+    """Phase 5b: GPT-2 124M at full width and depth (seed-0 f32 params,
+    bf16 compute) trained through the port's train step on a 1x1x1 mesh
+    (:func:`train_phase`). Returns B10's launch count in the kernel run."""
+    from mpi_acx_torch.models import transformer as tfm
+    cfg = tfm.gpt2_small()
+    init = tfm.stage_slice(tfm.init_params(
+        dataclasses.replace(cfg, dtype=torch.float32), seed=0), 1)
+    kern = train_phase(card_str, "GPT-2 124M", cfg, init)
+    return {"flash_attention_lse": kern["counts"]["flash_attention_lse"]}
+
+
+def phase_moe_train(card_str) -> dict:
+    """Phase 5c: the MoE configuration at full width and depth, at its
+    training capacity factor (2.0: tokens past capacity drop), trained as
+    phase 5b trains GPT-2 (:func:`train_phase`; router loss weights at the
+    train step's defaults), with each step's load-balance term printed
+    (the mean over its router calls, read from the gates the kernel run
+    routed with). Returns B10's launch count in the kernel run."""
+    from mpi_acx_torch.models import moe, moe_transformer as mtf
+    from mpi_acx_torch.models import transformer as tfm
+    cfg = mtf.MoeTransformerConfig()
+    init = tfm.stage_slice(mtf.init_params(
+        dataclasses.replace(cfg, dtype=torch.float32), seed=0), 1)
+    log = []
+    kern = train_phase(card_str, "MoE", cfg, init,
+                       around_kernel_run=recorded_routes(log))
+    calls = cfg.n_layers * TRAIN_M      # router calls a step
+    for i in range((len(log)) // calls):
+        lb = torch.stack([moe.load_balance_loss(g, k) for g, k in
+                          log[i * calls:(i + 1) * calls]]).mean().item()
+        when = f"step {i}" if i < TRAIN_STEPS else f"after {TRAIN_STEPS} steps"
+        print(f"MoE train {when}: load-balance term {lb:.6f} (mean over "
+              f"{calls} router calls; 1.0 is uniform routing)", flush=True)
+    return {"flash_attention_lse": kern["counts"]["flash_attention_lse"]}
 
 
 def phase_long_context() -> int:
@@ -2258,6 +2604,33 @@ def phase_flags() -> dict:
     return res
 
 
+B1_REPEATS = 8          # B1 and its one-store library call, in turns
+
+
+def b1_spread(k_fn, l_fn, card_str):
+    """B1 and ``flags[idx] = PENDING`` (a one-store launch: the card's
+    launch floor) timed in turns, kernel, library, library, kernel, ...,
+    B1_REPEATS times each: the min, median and max of each and of the
+    kernel-over-library ratio of each adjacent pair, so a gap can be told
+    from the run's noise. Returns the two medians."""
+    ks, ls = [], []
+    for i in range(B1_REPEATS):
+        pair = ((ks, k_fn), (ls, l_fn))
+        for out, fn in (pair if i % 2 == 0 else pair[::-1]):
+            out.append(time_ms(fn))
+    ratio = sorted(k / lib for k, lib in zip(ks, ls))
+
+    def spread(xs, fmt):
+        xs = sorted(xs)
+        return (f"min {xs[0]:{fmt}}, median {float(np.median(xs)):{fmt}}, "
+                f"max {xs[-1]:{fmt}}")
+
+    print(f"time pready over {B1_REPEATS} turns with flags[idx] = PENDING: "
+          f"kernel {spread(ks, '.5f')} ms; library {spread(ls, '.5f')} ms; "
+          f"kernel/library {spread(ratio, '.3f')} [{card_str}]", flush=True)
+    return float(np.median(ks)), float(np.median(ls))
+
+
 def phase_flag_timing(card_str) -> dict:
     """B1-B5, their plain versions and the one-call PyTorch equivalents at
     the exchange path's shapes (a 16-slot table, 16 indices, a 4 MiB f32
@@ -2293,9 +2666,12 @@ def phase_flag_timing(card_str) -> dict:
     }
     out = {}
     for name, (k_fn, p_fn, l_fn, nbytes) in cases.items():
-        t_k = time_ms(k_fn)
+        if name == "pready":
+            t_k, t_l = b1_spread(k_fn, l_fn, card_str)
+        else:
+            t_k = time_ms(k_fn)
+            t_l = time_ms(l_fn) if l_fn is not None else None
         t_p = time_ms(p_fn)
-        t_l = time_ms(l_fn) if l_fn is not None else None
         b_ms, b_by = bound_ms(0, nbytes, torch.float32)
         print(f"time {name}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
               f"library {'-' if t_l is None else f'{t_l:.4f} ms'}, bound "
@@ -2487,6 +2863,12 @@ KERNELS = {
 }
 
 
+def add_counts(counts, more) -> None:
+    """Add a path's launch counts to the kernels line's."""
+    for name, n in more.items():
+        counts[name] = counts.get(name, 0) + n
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false: this smoke run "
@@ -2526,8 +2908,11 @@ def main() -> int:
     llama_counts, llama_times = phase_llama(card_str)
     counts.update(llama_counts)
     times.update(llama_times)
+    add_counts(counts, phase_moe(card_str, k2["ms"]))
 
     counts.update(phase_train(card_str))
+    torch.cuda.empty_cache()
+    add_counts(counts, phase_moe_train(card_str))
     torch.cuda.empty_cache()
     counts["flash_attention_stream"] = phase_long_context()
     times.update(phase_train_timing(card_str))

@@ -1,8 +1,10 @@
 """The GPT-2 family (forward, loss, stage slicing), the Llama family's
-serving path (``models.llama``) and the continuous-batching servers
-(fixed-slot and paged KV caches), in PyTorch. The package-level names
-``init_params``, ``forward``, ``prefill``... are GPT-2's; the Llama ones
-live in ``models.llama``, which the servers take as ``family``.
+serving path (``models.llama``), the MoE family (``models.moe``, the
+layer; ``models.moe_transformer``, the model) and the continuous-batching
+servers (fixed-slot and paged KV caches), in PyTorch. The package-level
+names ``init_params``, ``forward``, ``prefill``... are GPT-2's; the Llama
+and MoE ones live in their modules, which the servers take as
+``family``.
 
 Exports resolve lazily, so importing the package loads no model module.
 """
@@ -30,8 +32,12 @@ _EXPORTS = {
     "LlamaConfig": "llama",
     "llama3_8b": "llama",
     "tiny_llama": "llama",
+    "MoeConfig": "moe",
+    "MoeTransformerConfig": "moe_transformer",
+    "tiny_moe_config": "moe_transformer",
 }
-_SUBMODULES = ("decoding", "kvpage", "llama", "serving", "transformer")
+_SUBMODULES = ("decoding", "kvpage", "llama", "moe", "moe_transformer",
+               "serving", "transformer")
 
 
 def __getattr__(name):

@@ -239,9 +239,10 @@ def make_server_fns(params, cfg, family, chunk: int = 1,
     """The serve loop's closures: returns (prefill_fn, step_fn, scatter_fn,
     chunk, kv_int8); the trailing values let the serve call refuse a tuple
     built for another chunk or cache type. ``family`` is the model module
-    (models.transformer or models.llama, or any module exposing
-    prefill/decode_step/init_kv_cache with the shared cache layout: [L, B,
-    max_len, heads, Dh] per key, where Llama's heads are its KV groups).
+    (models.transformer, models.llama or models.moe_transformer, or any
+    module exposing prefill/decode_step/init_kv_cache with the shared cache
+    layout: [L, B, max_len, heads, Dh] per key, where Llama's heads are its
+    KV groups).
 
     ``chunk`` > 1 runs that many decode steps per host round trip,
     returning the [chunk, B] token block; the scheduler then reacts every
@@ -546,7 +547,9 @@ def serve_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
     the parameters must already be there). Each request decodes greedily
     for ``n_new`` tokens (an int, or one per request) or until ``eos``.
     ``family`` is the model module (``None`` means models.transformer;
-    models.llama serves the Llama family). Returns, per request, ``prompt +
+    models.llama and models.moe_transformer serve their families; keep an
+    MoE config's ``capacity_factor >= n_experts``, or a decode step may
+    drop a token its solo run seats). Returns, per request, ``prompt +
     generated`` as a numpy array — equal to that request's solo
     ``family.generate`` run — or a
     :class:`RequestRejected` for a request that cannot fit. ``chunk``

@@ -252,16 +252,20 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 
 def prefill(params: Params, cfg: TransformerConfig, tokens, max_len: int,
-            last_only: bool = False, kv_int8: bool = False,
+            last_only: bool = False, ffn=None, kv_int8: bool = False,
             last_index: Optional[int] = None):
     """Run the prompt through the model, filling a fresh KV cache.
 
     tokens [B, S] -> (logits [B, S, vocab] f32, cache with pos=S). With
     ``last_only`` the unembedding runs on the final position alone (logits
     [B, 1, vocab]); ``last_index`` picks that position instead (for
-    right-padded prompts, models/serving.py). ``kv_int8`` selects the int8
-    cache: attention runs on the exact K/V and only the cache entries are
+    right-padded prompts, models/serving.py). ``ffn(cfg, lp, x) -> x``
+    replaces the block's feed-forward half (default :func:`_mlp`): the MoE
+    family runs this scaffold with its routed FFN
+    (models/moe_transformer.py). ``kv_int8`` selects the int8 cache:
+    attention runs on the exact K/V and only the cache entries are
     quantized."""
+    ffn = ffn or _mlp
     B, S = tokens.shape
     if S > max_len or S > cfg.max_seq:
         raise ValueError(f"prompt length {S} exceeds max_len {max_len} or "
@@ -272,7 +276,7 @@ def prefill(params: Params, cfg: TransformerConfig, tokens, max_len: int,
         lp = _layer(params, i)
         q, k, v = _qkv(cfg, lp, x)
         x = x + _attend(cfg, q, k, v) @ wread(lp, "wo", x.dtype)
-        x = _mlp(cfg, lp, x)
+        x = ffn(cfg, lp, x)
         ks.append(k)
         vs.append(v)
     x = layernorm(x, params["lnf_g"], params["lnf_b"])
@@ -287,11 +291,14 @@ def prefill(params: Params, cfg: TransformerConfig, tokens, max_len: int,
     return logits, cache
 
 
-def decode_step(params: Params, cfg: TransformerConfig, cache, token):
+def decode_step(params: Params, cfg: TransformerConfig, cache, token,
+                ffn=None):
     """One autoregressive step: token [B] -> (logits [B, vocab] f32, cache
     with pos + 1). The cache's k/v tensors are updated in place (see
     models/decoding.py); ``cache['pos']`` is a scalar, or [B] with one
-    position per slot (continuous-batching serving)."""
+    position per slot (continuous-batching serving). ``ffn`` replaces the
+    feed-forward half as in :func:`prefill`."""
+    ffn = ffn or _mlp
     pos = cache["pos"]
     max_len = cache["k"].shape[2]
     # Like JAX's gather, a position past the table reads its last row.
@@ -305,7 +312,7 @@ def decode_step(params: Params, cfg: TransformerConfig, cache, token):
     def attend_fn(lp, x, q, kc, vc, pos):
         o = grouped_decode_attend(q, kc, vc, pos, max_len, n_rep=1,
                                   flash=cfg.decode_flash)
-        return _mlp(cfg, lp, x + o @ wread(lp, "wo", x.dtype))
+        return ffn(cfg, lp, x + o @ wread(lp, "wo", x.dtype))
 
     x, out_cache = run_decode_layers(params["layers"], x, cache, qkv_fn,
                                      attend_fn)

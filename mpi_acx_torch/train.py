@@ -1,19 +1,22 @@
 """The train step of the framework (the JAX package's ``train.py``) in
-PyTorch: GPT-2 through the dp x pp x tp/sp composition, on one device.
+PyTorch: GPT-2 and the MoE family through the dp x pp x tp/sp
+composition, on one device.
 
 The step is built as the JAX package builds it — embed, the GPipe
 pipeline over 'pp' (:func:`parallel.pipeline.pipeline_forward`), in each
 stage every layer's attention sequence-parallel over 'tp' by ring
 attention (:func:`parallel.ring_attention.ring_attention_batched`, whose
 blocks run B10's kernel on the card) and the MLP tensor-parallel with one
-psum, the exclusive-path loss, and the gradient reduction rule — over a
-mesh whose axes all have size 1 (:func:`parallel.mesh.mesh_from_devices`),
-where every collective is the identity. The backward is autograd through
+psum (MoE: the routed FFN with its experts sharded over 'tp', its router
+losses carried through the pipeline), the exclusive-path loss, and the
+gradient reduction rule — over a mesh whose axes all have size 1
+(:func:`parallel.mesh.mesh_from_devices`), where every collective is the
+identity. The backward is autograd through
 that program; attention's is the blockwise flash backward.
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md §A):
 mesh axes larger than 1, ``n_virtual > 1``, ``schedule="1f1b"``,
-``remat=True``, ``dp_quant_bits``, and the Llama and MoE families.
+``remat=True``, ``dp_quant_bits``, and the Llama family.
 
 Parameters are a dict of tensors, stage-sliced (:func:`models.transformer.
 stage_slice`), and the steps update them **in place**.
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from mpi_acx_torch.device import resolve_device
+from mpi_acx_torch.models import moe_transformer as mtf
 from mpi_acx_torch.models import transformer as tfm
 from mpi_acx_torch.ops.xent import chunked_xent_ll
 from mpi_acx_torch.parallel import collective as col
@@ -71,31 +75,48 @@ def _block_sp_tp(cfg: tfm.TransformerConfig, lp: Dict[str, Any], h,
     return h + col.psum(part, tp_axis) + lp["b2"].to(h.dtype)
 
 
+def _moe_block_sp_tp(cfg, lp: Dict[str, Any], h, tp_axis: str):
+    """MoE block: the GPT-2 attention half (sequence-parallel), then the
+    routed FFN with its experts sharded over tp. Tokens are replicated
+    over tp, so each rank routes all of them, runs its local experts, and
+    one psum assembles the output (routing equals the single-device
+    layer's). Returns ``(h, (load_balance, router_z))``."""
+    h = _gpt2_attn_sp(cfg, lp, h, tp_axis)
+    return mtf._moe_ffn(cfg, lp, h, ep_axis=tp_axis, replicated=True,
+                        with_aux=True)
+
+
 class _Family:
     """Model-family adapter: what make_loss_and_grads needs to run a
     family through the composition."""
 
-    def __init__(self, block, embed, final, head, tp_sharded):
-        self.block = block            # (cfg, lp, h, tp_axis) -> h
+    def __init__(self, block, embed, final, head, tp_sharded,
+                 has_aux=False):
+        self.block = block            # (cfg, lp, h, tp_axis) -> h | (h, aux)
         self.embed = embed            # (params, cfg, tokens) -> x [...,S,d]
         self.final = final            # (params, ys) -> ys
         self.head = head              # (params) -> [vocab, d] logits matrix
         self.tp_sharded = tp_sharded  # layer-leaf name -> bool
+        self.has_aux = has_aux        # block returns (h, (balance, z))
 
 
 def _family(cfg) -> _Family:
-    if not isinstance(cfg, tfm.TransformerConfig):
+    """GPT-2's adapter; the MoE family shares its embedding, final norm,
+    tied head and tp-sharded leaf names (w1, w2: the experts)."""
+    moe = isinstance(cfg, mtf.MoeTransformerConfig)
+    if not moe and not isinstance(cfg, tfm.TransformerConfig):
         raise NotImplementedError(
-            f"{type(cfg).__name__}: only the GPT-2 family trains in this "
-            f"port; Llama and MoE are not ported yet (ROADMAP.md §A, "
-            f"'Llama and MoE')")
+            f"{type(cfg).__name__}: the GPT-2 and MoE families train in "
+            f"this port; Llama is not ported yet (ROADMAP.md §A, 'Llama and "
+            f"MoE')")
     return _Family(
-        block=_block_sp_tp,
+        block=_moe_block_sp_tp if moe else _block_sp_tp,
         embed=lambda p, c, t: (p["embed"][t] +
                                p["pos"][:t.shape[-1]]).to(c.dtype),
         final=lambda p, ys: tfm.layernorm(ys, p["lnf_g"], p["lnf_b"]),
         head=lambda p: p["embed"],
         tp_sharded=lambda k: k in ("w1", "b1", "w2"),
+        has_aux=moe,
     )
 
 
@@ -128,8 +149,15 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
     (``None`` means the GPU); tokens/targets are ``[n_micro, micro_batch,
     S]`` integers. ``grads`` has the structure of ``params``; the loss is
     a detached f32 scalar. ``xent_chunk`` selects the chunked-vocab CE
-    (ops/xent.py). ``aux_weight``/``z_weight`` weigh the MoE router losses
-    and are ignored by the GPT-2 family."""
+    (ops/xent.py).
+
+    ``cfg`` selects the family (``transformer.TransformerConfig`` or
+    ``moe_transformer.MoeTransformerConfig``). For MoE the loss is CE +
+    ``aux_weight`` * load-balance + ``z_weight`` * router-z, the router
+    losses carried through the pipeline (``pipeline_forward(with_aux=
+    True)``) and normalized per router call, one per (layer, microbatch):
+    at n_micro = 1 the loss equals ``moe_transformer.loss_fn``'s. GPT-2
+    ignores the weights."""
     dev = resolve_device(device)
     if n_virtual != 1:
         raise NotImplementedError(f"n_virtual={n_virtual} {_ROADMAP}")
@@ -167,10 +195,14 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
 
     def stage_fn(stage_layers, h):
         n = next(iter(stage_layers.values())).shape[0]
+        lb = rz = h.new_zeros((), dtype=torch.float32)   # MoE router losses
         for i in range(n):
             h = fam.block(cfg, {k: a[i] for k, a in stage_layers.items()}, h,
                           "tp")
-        return h
+            if fam.has_aux:
+                h, (b_lb, b_rz) = h
+                lb, rz = lb + b_lb, rz + b_rz
+        return (h, (lb, rz)) if fam.has_aux else h
 
     def loss_fn(params, tokens, targets):
         # Every rank scores only its exclusive slice — its tp sequence
@@ -178,8 +210,11 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
         # so every parameter's cotangent path is unique.
         S = tokens.shape[-1]
         x = fam.embed(params, cfg, tokens)             # [M, mbl, S, d]
-        ys = fam.final(params, pipeline_forward(stage_fn, params["layers"],
-                                                x, "pp"))
+        ys = pipeline_forward(stage_fn, params["layers"], x, "pp",
+                              with_aux=fam.has_aux)
+        if fam.has_aux:
+            ys, aux = ys
+        ys = fam.final(params, ys)
         tpn = col.axis_size("tp")
         ti = col.axis_index("tp")
         si = col.axis_index("pp")
@@ -189,7 +224,16 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
         contrib = (ll_sum(fam.head(params), ys_blk, tg_blk)
                    if si == n_stages - 1 else ys.new_zeros((), torch.float32))
         total = col.psum(contrib, ("pp", "tp"))
-        return -total / tokens.numel()
+        if not fam.has_aux:
+            return -total / tokens.numel()
+        # The router losses are replicated over tp: only tp rank 0 adds
+        # them, and the psum sums every stage's once. One router call per
+        # (layer, microbatch).
+        lb, rz = (col.psum(a if ti == 0 else torch.zeros_like(a),
+                           ("pp", "tp")) for a in aux)
+        calls = cfg.n_layers * tokens.shape[0]
+        return (-total / tokens.numel()
+                + (aux_weight * lb + z_weight * rz) / calls)
 
     def grad_fn(params, tokens, targets):
         tfm.check_device(params, dev)
@@ -216,7 +260,7 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
     return grad_fn, n_stages
 
 
-def make_train_step(cfg: tfm.TransformerConfig, mesh, n_micro: int,
+def make_train_step(cfg, mesh, n_micro: int,
                     lr: float = 1e-2, n_virtual: int = 1, remat: bool = False,
                     dp_quant_bits: int | None = None,
                     aux_weight: float = 1e-2, z_weight: float = 1e-3,
@@ -241,7 +285,7 @@ def make_train_step(cfg: tfm.TransformerConfig, mesh, n_micro: int,
     return step, n_stages
 
 
-def make_train_step_optim(cfg: tfm.TransformerConfig, mesh, n_micro: int,
+def make_train_step_optim(cfg, mesh, n_micro: int,
                           optimizer: torch.optim.Optimizer,
                           n_virtual: int = 1, remat: bool = False,
                           dp_quant_bits: int | None = None,

@@ -20,6 +20,8 @@ import torch
 from mpi_acx_torch import train as ttrain
 from mpi_acx_torch.models import kvpage as tkp
 from mpi_acx_torch.models import llama as tl
+from mpi_acx_torch.models import moe as tmoe
+from mpi_acx_torch.models import moe_transformer as tmt
 from mpi_acx_torch.models import serving as ts
 from mpi_acx_torch.models import transformer as tt
 from mpi_acx_torch.ops import _build
@@ -41,8 +43,9 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax():
-    assert len(PORT_FILES) >= 27
-    assert ROOT / "mpi_acx_torch" / "models" / "llama.py" in PORT_FILES
+    assert len(PORT_FILES) >= 29
+    for name in ("llama.py", "moe.py", "moe_transformer.py"):
+        assert ROOT / "mpi_acx_torch" / "models" / name in PORT_FILES
     bad = [(p.relative_to(ROOT), m) for p in PORT_FILES
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "mpi_acx_tpu")]
@@ -54,8 +57,8 @@ def test_import_loads_neither_jax_nor_cuda():
         "import sys, torch, mpi_acx_torch\n"
         "from mpi_acx_torch import checkpoint, data, device, reqlog, "
         "runtime, train, triggers\n"
-        "from mpi_acx_torch.models import decoding, kvpage, llama, "
-        "serving, transformer\n"
+        "from mpi_acx_torch.models import decoding, kvpage, llama, moe, "
+        "moe_transformer, serving, transformer\n"
         "from mpi_acx_torch.ops import _build, attention, flags, "
         "flash_decode, kvquant, xent\n"
         "from mpi_acx_torch.parallel import collective, mesh, pipeline, "
@@ -63,6 +66,8 @@ def test_import_loads_neither_jax_nor_cuda():
         "import mpi_acx_torch.models as m; m.serve_greedy; m.gpt2_small\n"
         "m.serve_paged_greedy; m.PagedKV; m.kvpage\n"
         "m.llama3_8b; m.LlamaConfig; m.llama\n"
+        "m.MoeConfig; m.MoeTransformerConfig; m.tiny_moe_config; "
+        "m.moe_transformer\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
         "('jax', 'jaxlib', 'mpi_acx_tpu')]\n"
         "assert not bad, bad\n"
@@ -110,7 +115,29 @@ ENTRY_POINTS = {
     "llama.serve_greedy": lambda cfg, p: ts.serve_greedy(
         _llama_params(), _tiny_llama(), [np.arange(3, dtype=np.int32)], 2,
         n_slots=1, max_len=8, family=tl),
+    "moe.init_moe_params": lambda cfg, p: tmoe.init_moe_params(
+        tmoe.MoeConfig(d_model=8, d_ff=8, n_experts=2)),
+    "moe_transformer.init_params": lambda cfg, p: tmt.init_params(
+        _tiny_moe(), 0),
+    "moe_transformer.init_kv_cache": lambda cfg, p: tmt.init_kv_cache(
+        _tiny_moe(), 1, 8),
+    "moe_transformer.generate": lambda cfg, p: tmt.generate(
+        _moe_params(), _tiny_moe(), np.zeros((1, 3), np.int32), 2),
+    "moe_transformer.serve_greedy": lambda cfg, p: ts.serve_greedy(
+        _moe_params(), _tiny_moe(), [np.arange(3, dtype=np.int32)], 2,
+        n_slots=1, max_len=8, family=tmt),
+    "moe_transformer.make_train_step": lambda cfg, p:
+        ttrain.make_train_step(_tiny_moe(), _mesh(), 1),
 }
+
+
+def _tiny_moe():
+    return tmt.tiny_moe_config(vocab=31, d_model=32, n_heads=2, n_layers=1,
+                               d_ff=32, n_experts=4, max_seq=32)
+
+
+def _moe_params():
+    return tmt.init_params(_tiny_moe(), seed=0, device="cpu")
 
 
 def _tiny_llama():
@@ -183,6 +210,29 @@ def test_llama_on_cpu_tensors_leaves_launch_counts_at_zero():
                               max_len=16, kv_int8=kv_int8, family=tl,
                               device="cpu")
         assert len(out) == 3
+    for fn, attr in counters:
+        assert getattr(fn, attr) == 0, (fn.__name__, attr)
+
+
+def test_moe_on_cpu_tensors_leaves_launch_counts_at_zero():
+    """The MoE family's serving and training paths on the CPU: the plain
+    versions run, no launch of any form is counted."""
+    counters = [(tattn.flash_attention, "launches"),
+                (tattn.flash_attention_lse, "launches"),
+                (tfd.flash_decode_attend, "launches"),
+                (tfd.flash_decode_attend, "launches_int8")]
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    cfg, params = _tiny_moe(), _moe_params()
+    prompts = [np.arange(5, dtype=np.int32)] * 3
+    for kv_int8 in (False, True):
+        out = ts.serve_greedy(params, cfg, prompts, 4, n_slots=2,
+                              max_len=16, kv_int8=kv_int8, family=tmt,
+                              device="cpu")
+        assert len(out) == 3
+    step, _ = ttrain.make_train_step(cfg, _mesh(), 1, device="cpu")
+    tokens = np.arange(16, dtype=np.int32).reshape(1, 2, 8)
+    step(tt.stage_slice(params, 1), tokens, tokens)
     for fn, attr in counters:
         assert getattr(fn, attr) == 0, (fn.__name__, attr)
 
