@@ -61,7 +61,8 @@
 //    tile once, in shared memory after the TMA lands (q * (1/sqrt(D)) in
 //    f32, rounded to bf16; a proxy fence orders those stores before wgmma
 //    reads the tile), and the logits are then used as they are: p =
-//    exp2f((s - m) * log2(e)).
+//    exp2f((s - m) * log2(e)), and m is the scaled row max, so lse = m +
+//    logf(l) (the TPU kernel's own form).
 //  * Key tiles are visited from the last (diagonal or tail) to the first,
 //    so only the first one or two iterations evaluate the mask; tiles
 //    above the diagonal are never loaded. q tiles are scheduled heaviest
@@ -82,20 +83,24 @@
 //    variant doubles the SMs at work, each with half the tensor work.
 //  * B10, training (B=4, S=1024, causal): the bytes (25.4 MB, 7.6 us)
 //    just above the operations (6.4 GFLOP, 6.5 us); 384 CTAs of 128 rows.
+//    At Llama-3-8B's width (H=32, D=128) the bytes (134.7 MB, 40.2 us)
+//    above the operations (34.4 GFLOP, 34.8 us); 1024 CTAs of 128 rows.
 //  * B7, long context (B=1, S=16384, causal): the operations (412 GFLOP,
 //    0.417 ms); 1536 CTAs of 128 rows, up to 128 key tiles each, where the
 //    producer's ring keeps the next tiles in flight behind the products.
 //  * B6 at Llama-3-8B's prefill (B=1, H=32, D=128, S = 32..512, causal):
 //    the bytes below a microsecond and the operations at most 8.6 GFLOP
 //    (8.7 us at S=512); 32-128 CTAs of 64 rows, or 128 of 128.
-// Resources (nvcc -Xptxas -v, sm_90a): flash_fwd_bf16<2, 64, *> is
+// Resources (cuobjdump -res-usage, sm_90a): flash_fwd_bf16<2, D, *> is
 // allocated 168 registers a thread at launch (384 threads), which
 // setmaxnreg turns into 232 for the consumers and 40 for the producer;
-// flash_fwd_bf16<1, 64, *> uses 131; no instantiation spills. Shared
+// flash_fwd_bf16<1, 64, *> uses 131, <1, 128, *> 166; no instantiation
+// spills (chip_smoke.py's phase_sass fails on local memory). Shared
 // memory is dynamic (ptxas reports none): bf16_smem_bytes, at D = 64
 // 115,792 bytes a CTA of 128 rows and 107,600 of 64, at D = 128 230,480
 // and 214,096 (the three-stage ring of 64 KB K/V stages fits the 227 KB a
-// block may take), so one CTA per SM, which the registers require anyway.
+// block may take; the lse is stored from registers and takes none), so
+// one CTA per SM, which the registers require anyway.
 #include <cuda.h>
 
 #include "common.cuh"
@@ -379,10 +384,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
                int Sk, long long o_sb, long long o_ss, int causal,
                float qscale) {
   static_assert(D == 64 || D == 128, "head dim");
-  // D = 64 folds the scale into the exponent (see the note above); the
-  // lse output is built on that form alone.
+  // D = 64 folds the scale into the exponent, D = 128 scales Q (see the
+  // note above): m is in raw-logit units in the first, scaled in the second.
   constexpr bool kFold = D == 64;
-  static_assert(kFold || !EmitLse, "lse at D = 64 only");
   constexpr int kRowsPerCta = NC * kWgRows;
   constexpr int kTB = tile_bytes<D>(), kQB = q_bytes<D>();
   extern __shared__ uint8_t smem_raw[];
@@ -590,12 +594,14 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tm_q,
       *reinterpret_cast<uint32_t*>(obase + row_hi * o_ss + d) =
           pack_bf16(acc[ob * 4 + 2] / l_hi, acc[ob * 4 + 3] / l_hi);
   }
-  // A row's m and l are the same in the four threads of its quad; m is in
-  // raw-logit units, so m / 8 is the scaled max exactly (D = 64).
+  // A row's m and l are the same in the four threads of its quad. D = 64:
+  // m is in raw-logit units, and m / 8 is the scaled max exactly; D = 128:
+  // m is the max of the scaled logits already.
   if (EmitLse && qd == 0) {
+    constexpr float mscale = kFold ? 0.125f : 1.f;
     float* lrow = lse + (static_cast<long long>(b) * gridDim.y + h) * S;
-    if (row_lo < S) lrow[row_lo] = m_lo * 0.125f + logf(l_lo);
-    if (row_hi < S) lrow[row_hi] = m_hi * 0.125f + logf(l_hi);
+    if (row_lo < S) lrow[row_lo] = m_lo * mscale + logf(l_lo);
+    if (row_hi < S) lrow[row_hi] = m_hi * mscale + logf(l_hi);
   }
 }
 
@@ -856,9 +862,7 @@ int dispatch_d(int dtype, const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-// Head dims: 64 (GPT-2, MoE) for every entry point, 128 (Llama-3-8B) for
-// B6 alone; B7 and B10 at D = 128 wait for Llama training, and their
-// wrappers refuse it before this point.
+// Head dims: 64 (GPT-2, MoE) and 128 (Llama-3-8B), for every entry point.
 template <bool EmitLse>
 int dispatch(int dtype, const void* q, const void* k, const void* v, void* o,
              float* lse, int B, int S, int Sk, int H, int D,
@@ -867,11 +871,9 @@ int dispatch(int dtype, const void* q, const void* k, const void* v, void* o,
   if (D == 64)
     return dispatch_d<64, EmitLse>(dtype, q, k, v, o, lse, B, S, Sk, H, st,
                                    causal, block_q, stream);
-  if constexpr (!EmitLse) {
-    if (D == 128)
-      return dispatch_d<128, false>(dtype, q, k, v, o, lse, B, S, Sk, H, st,
+  if (D == 128)
+    return dispatch_d<128, EmitLse>(dtype, q, k, v, o, lse, B, S, Sk, H, st,
                                     causal, block_q, stream);
-  }
   return cudaErrorInvalidValue;
 }
 
@@ -883,7 +885,7 @@ cudaError_t check_args(int B, int S, int Sk, int H, int causal) {
 
 }  // namespace
 
-// q [B,S,H,D], k/v [B,Sk,H,D], o [B,S,H,D] with D of 64 or 128 (lse: 64);
+// q [B,S,H,D], k/v [B,Sk,H,D], o [B,S,H,D] with D of 64 or 128;
 // the head stride must be D and the element stride 1. strides = {q_sb,
 // q_ss, k_sb, k_ss, v_sb, v_ss, o_sb, o_ss} in elements; for bf16 every
 // q/k/v stride and base address must be a multiple of 16 bytes (TMA).

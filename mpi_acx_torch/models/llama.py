@@ -14,9 +14,12 @@ kernel (K1, ``ops/attention.py``); decode reads the un-repeated cache
 through the grouped decode kernel (K2, ``ops/flash_decode.py``). On the
 CPU both run their plain versions. Llama-3-8B (:func:`llama3_8b`) has head
 dim 128, for which both kernels have their own instantiations.
+:func:`loss_fn` trains through K1's forward and its blockwise backward;
+the framework's train step (``mpi_acx_torch/train.py``) runs the same
+blocks sequence-parallel, with B10 on every layer.
 
-Not ported yet: ``loss_fn``, ``generate_sample`` and the training specs
-(ROADMAP "Llama and MoE").
+Not ported yet: ``generate_sample`` and the training specs (ROADMAP.md
+§A).
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from mpi_acx_torch.models.transformer import (  # noqa: F401
     _unembed, check_device, params_from_jax)
 from mpi_acx_torch.ops.attention import select_attention
 from mpi_acx_torch.ops.wquant import wread
+from mpi_acx_torch.ops.xent import chunked_xent_ll
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,6 +240,23 @@ def _hidden(params: Params, cfg: LlamaConfig, tokens):
 def forward(params: Params, cfg: LlamaConfig, tokens):
     """tokens [B, S] -> logits [B, S, vocab] (f32)."""
     return _unembed(_hidden(params, cfg, tokens), params["unembed"])
+
+
+def loss_fn(params: Params, cfg: LlamaConfig, tokens, targets,
+            xent_chunk: Optional[int] = None):
+    """Mean next-token cross-entropy; differentiable in the parameters.
+    ``xent_chunk`` selects the memory-bounded chunked-vocab CE
+    (ops/xent.py): the [B, S, vocab] logits never exist; same values and
+    gradients up to f32 summation order."""
+    targets = targets.long()
+    if xent_chunk is not None:
+        B, S = tokens.shape
+        x = _hidden(params, cfg, tokens)
+        ll = chunked_xent_ll(x.reshape(B * S, -1), params["unembed"],
+                             targets.reshape(-1), xent_chunk)
+        return -ll.mean()
+    logp = torch.log_softmax(forward(params, cfg, tokens), dim=-1)
+    return -logp.gather(-1, targets[..., None])[..., 0].mean()
 
 
 # -- KV-cache decode (GQA: the cache stores only n_kv_heads) ---------------

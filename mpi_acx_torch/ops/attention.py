@@ -9,9 +9,13 @@ behind the JAX package's entry point and signature:
   Sk >= 16384 when ``streaming=None``) it is the streaming entry point
   (B7, ``_flash_stream_kernel``): the TPU needs a second kernel to hold
   one K/V tile at a time, K1 already does for any Sk, so B7 launches K1
-  and counts in its own counter, ``flash_attention.launches_stream``.
+  and counts in its own counters, ``flash_attention.launches_stream`` and
+  ``launches_stream_d128``.
 * :func:`flash_attention_lse` (B10, ``_flash_kernel(emit_lse=True)``):
-  K1 with the row logsumexp as a second output.
+  K1 with the row logsumexp as a second output, counted in
+  ``flash_attention_lse.launches`` and ``launches_d128``.
+
+Every entry point takes head dims 64 (GPT-2, MoE) and 128 (Llama-3-8B).
 
 On a CUDA tensor a wrapper launches the kernel or raises; on a CPU tensor
 it runs the plain version (:func:`attention_reference`,
@@ -39,11 +43,9 @@ import torch
 from mpi_acx_torch.ops import _build
 
 _NEG_INF = -1e30
-# Head dims K1 is built for: 64 (GPT-2) at every entry point, 128
-# (Llama-3-8B) for B6 alone; B7 and B10 at 128 wait for Llama training
-# (ROADMAP "Llama and MoE").
+# Head dims K1 is built for, at B6, B7 and B10 alike: 64 (GPT-2, MoE) and
+# 128 (Llama-3-8B).
 HEAD_DIMS = (64, 128)
-TRAINING_HEAD_DIMS = (64,)      # B7 and B10
 STREAM_MIN_SK = 16384   # streaming=None turns the streaming entry on here
 TMA_ALIGN = 16      # bytes: TMA's granule for base addresses and strides
 
@@ -230,33 +232,25 @@ def tma_ready(x):
         st > 0 and st * es % TMA_ALIGN == 0 for st in tma_strides(x))
 
 
-def check_head_dim(name, D, dims):
-    """Raise unless K1 is built for head dim ``D`` at the entry point
-    ``name`` (``dims``: :data:`HEAD_DIMS`, or :data:`TRAINING_HEAD_DIMS`
-    for B7 and B10, whose D = 128 waits for Llama training)."""
-    if D in dims:
-        return
-    if D in HEAD_DIMS:
-        raise ValueError(
-            f"{name}: head dim {D} is built for flash_attention (B6) only; "
-            f"{name} at head dim {D} waits for Llama training (ROADMAP "
-            "'Llama and MoE')")
-    raise ValueError(f"{name}: the kernel is built for head dims "
-                     f"{', '.join(map(str, dims))}, got {D}")
+def check_head_dim(name, D):
+    """Raise, naming the entry point ``name``, unless K1 is built for
+    head dim ``D`` (:data:`HEAD_DIMS`)."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: the kernel is built for head dims "
+                         f"{', '.join(map(str, HEAD_DIMS))}, got {D}")
 
 
-def _launch(q, k, v, causal, emit_lse, name="flash_attention",
-            dims=HEAD_DIMS):
+def _launch(q, k, v, causal, emit_lse, name="flash_attention"):
     """One launch of K1 on CUDA tensors: ``o``, and with ``emit_lse`` the
     row logsumexp (B10) -> ``(o, lse)``. The bf16 kernel reads q, k, v by
     TMA: an operand that :func:`tma_ready` refuses is copied to a fresh
     contiguous tensor first, counted in ``flash_attention.copies`` (over
-    all three entry points). ``name`` and ``dims`` are the entry point and
-    its head dims (:func:`check_head_dim`). Raises on what the kernel does
-    not take and on a failed launch."""
+    all three entry points). ``name`` is the entry point, named in what
+    :func:`check_head_dim` raises. Raises on what the kernel does not take
+    and on a failed launch."""
     B, S, H, D = q.shape
     Sk = k.shape[1]
-    check_head_dim(name, D, dims)
+    check_head_dim(name, D)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
     if not (q.dtype == k.dtype == v.dtype):
@@ -313,9 +307,11 @@ class _Flash(torch.autograd.Function):
             o = attention_reference(q, k, v, causal=causal)
         elif streaming:
             o, _ = _launch(q, k, v, causal, False,
-                           "flash_attention(streaming=True)",
-                           TRAINING_HEAD_DIMS)
-            flash_attention.launches_stream += 1
+                           "flash_attention(streaming=True)")
+            if q.shape[-1] == 128:
+                flash_attention.launches_stream_d128 += 1
+            else:
+                flash_attention.launches_stream += 1
         else:
             o, _ = _launch(q, k, v, causal, emit_lse=False)
             if q.shape[-1] == 128:
@@ -343,9 +339,11 @@ class _FlashLse(torch.autograd.Function):
         if q.device.type == "cpu":
             o, lse = _reference_lse(q, k, v, causal=causal)
         else:
-            o, lse = _launch(q, k, v, causal, True, "flash_attention_lse",
-                             TRAINING_HEAD_DIMS)
-            flash_attention_lse.launches += 1
+            o, lse = _launch(q, k, v, causal, True, "flash_attention_lse")
+            if q.shape[-1] == 128:
+                flash_attention_lse.launches_d128 += 1
+            else:
+                flash_attention_lse.launches += 1
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.blocks = (causal, block_q, block_k)
         ctx.set_materialize_grads(False)
@@ -368,12 +366,13 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
 
     On a CUDA tensor K1 runs: B6, or with ``streaming`` the streaming
     entry point B7 (``None`` -> on for Sk >= 16384); both launch the same
-    kernel, counted apart (``launches`` and ``launches_d128`` for B6 at
-    head dim 64 and 128, ``launches_stream``; B7 takes head dim 64). Causal
-    needs S == Sk; non-causal takes any Sk. Any S works (the kernel masks
-    the ragged tails). float32 runs in true f32, bfloat16 with f32 softmax
-    state. On a CPU tensor this is :func:`attention_reference`. The
-    gradient is the blockwise backward over ``block_q``/``block_k``."""
+    kernel, counted apart by entry and head dim (``launches`` and
+    ``launches_d128`` for B6 at 64 and 128, ``launches_stream`` and
+    ``launches_stream_d128`` for B7). Causal needs S == Sk; non-causal
+    takes any Sk. Any S works (the kernel masks the ragged tails).
+    float32 runs in true f32, bfloat16 with f32 softmax state. On a CPU
+    tensor this is :func:`attention_reference`. The gradient is the
+    blockwise backward over ``block_q``/``block_k``."""
     _check_inputs(q, k, v, causal)
     if streaming is None:
         streaming = k.shape[1] >= STREAM_MIN_SK
@@ -384,6 +383,7 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
 flash_attention.launches = 0
 flash_attention.launches_d128 = 0
 flash_attention.launches_stream = 0
+flash_attention.launches_stream_d128 = 0
 flash_attention.copies = 0
 
 
@@ -396,14 +396,16 @@ def flash_attention_lse(q, k, v, causal: bool = True, block_q: int = 512,
     ``lse = logaddexp(lse1, lse2); o = o1*exp(lse1-lse) + o2*exp(lse2-lse)``.
     Differentiable in both outputs: the backward reuses the emitted lse
     and folds the lse cotangent into dS. Shape rules as
-    :func:`flash_attention`, head dim 64 on the card; Sk may differ from S
-    when non-causal. On a CPU tensor this is :func:`_reference_lse`."""
+    :func:`flash_attention`; Sk may differ from S when non-causal. On a
+    CUDA tensor K1 runs, counted in ``launches`` (head dim 64) and
+    ``launches_d128``; on a CPU tensor this is :func:`_reference_lse`."""
     _check_inputs(q, k, v, causal)
     bq, bk = _backward_blocks(q.shape[1], k.shape[1], block_q, block_k)
     return _FlashLse.apply(q, k, v, causal, bq, bk)
 
 
 flash_attention_lse.launches = 0
+flash_attention_lse.launches_d128 = 0
 
 
 def select_attention(use_flash):

@@ -1,13 +1,14 @@
 """The train step of the framework (the JAX package's ``train.py``) in
-PyTorch: GPT-2 and the MoE family through the dp x pp x tp/sp
-composition, on one device.
+PyTorch: GPT-2, the Llama family and the MoE family through the dp x pp x
+tp/sp composition, on one device.
 
 The step is built as the JAX package builds it — embed, the GPipe
 pipeline over 'pp' (:func:`parallel.pipeline.pipeline_forward`), in each
 stage every layer's attention sequence-parallel over 'tp' by ring
 attention (:func:`parallel.ring_attention.ring_attention_batched`, whose
-blocks run B10's kernel on the card) and the MLP tensor-parallel with one
-psum (MoE: the routed FFN with its experts sharded over 'tp', its router
+blocks run B10's kernel on the card; Llama's K/V stay at their KV groups
+and are broadcast per block) and the MLP tensor-parallel with one psum
+(MoE: the routed FFN with its experts sharded over 'tp', its router
 losses carried through the pipeline), the exclusive-path loss, and the
 gradient reduction rule — over a mesh whose axes all have size 1
 (:func:`parallel.mesh.mesh_from_devices`), where every collective is the
@@ -16,7 +17,7 @@ that program; attention's is the blockwise flash backward.
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md §A):
 mesh axes larger than 1, ``n_virtual > 1``, ``schedule="1f1b"``,
-``remat=True``, ``dp_quant_bits``, and the Llama family.
+``remat=True`` and ``dp_quant_bits``.
 
 Parameters are a dict of tensors, stage-sliced (:func:`models.transformer.
 stage_slice`), and the steps update them **in place**.
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from mpi_acx_torch.device import resolve_device
+from mpi_acx_torch.models import llama as lm
 from mpi_acx_torch.models import moe_transformer as mtf
 from mpi_acx_torch.models import transformer as tfm
 from mpi_acx_torch.ops.xent import chunked_xent_ll
@@ -86,6 +88,40 @@ def _moe_block_sp_tp(cfg, lp: Dict[str, Any], h, tp_axis: str):
                         with_aux=True)
 
 
+def _llama_block_sp_tp(cfg, lp: Dict[str, Any], h, tp_axis: str):
+    """Llama block (RMSNorm, RoPE, GQA, SwiGLU): sequence-parallel
+    attention, then the SwiGLU MLP with its FFN dim sharded over tp (lp's
+    w_gate/w_up/w_down are the local slices) and one psum. RoPE rotates
+    each rank's block at its global positions ``ti * blk + arange(blk)``,
+    so the sharded rotation equals the single-device one; K/V stay at
+    ``n_kv_heads`` and the ring broadcasts them to the query heads per
+    block."""
+    tpn = col.axis_size(tp_axis)
+    ti = col.axis_index(tp_axis)
+    mb, S, d = h.shape
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    blk = S // tpn
+
+    hn = lm.rmsnorm(h, lp["attn_norm"])
+    loc = hn[:, ti * blk:(ti + 1) * blk]                       # [mb,blk,d]
+    q = (loc @ lp["wq"].to(h.dtype)).reshape(mb, blk, Hq, Dh)
+    k = (loc @ lp["wk"].to(h.dtype)).reshape(mb, blk, Hkv, Dh)
+    v = (loc @ lp["wv"].to(h.dtype)).reshape(mb, blk, Hkv, Dh)
+    positions = ti * blk + torch.arange(blk, device=h.device)
+    q = lm.rope(q, positions, cfg.rope_theta)
+    k = lm.rope(k, positions, cfg.rope_theta)
+    o = ring_attention_batched(q, k, v, tp_axis, causal=True,
+                               use_flash=cfg.use_flash, kv_repeat=Hq // Hkv)
+    o = o.reshape(mb, blk, Hq * Dh) @ lp["wo"].to(h.dtype)
+    h = h + col.all_gather(o, tp_axis, axis=1, tiled=True)     # [mb,S,d]
+
+    hn = lm.rmsnorm(h, lp["mlp_norm"])
+    gate = F.silu(hn @ lp["w_gate"].to(h.dtype))              # [mb,S,ff/tp]
+    up = hn @ lp["w_up"].to(h.dtype)
+    part = (gate * up) @ lp["w_down"].to(h.dtype)
+    return h + col.psum(part, tp_axis)
+
+
 class _Family:
     """Model-family adapter: what make_loss_and_grads needs to run a
     family through the composition."""
@@ -101,14 +137,22 @@ class _Family:
 
 
 def _family(cfg) -> _Family:
-    """GPT-2's adapter; the MoE family shares its embedding, final norm,
-    tied head and tp-sharded leaf names (w1, w2: the experts)."""
+    """The family's adapter. Llama: its own embedding (no positions),
+    final RMSNorm, untied head and tp-sharded SwiGLU leaves. GPT-2's; the
+    MoE family shares its embedding, final norm, tied head and tp-sharded
+    leaf names (w1, w2: the experts)."""
+    if isinstance(cfg, lm.LlamaConfig):
+        return _Family(
+            block=_llama_block_sp_tp,
+            embed=lambda p, c, t: p["embed"][t].to(c.dtype),
+            final=lambda p, ys: lm.rmsnorm(ys, p["final_norm"]),
+            head=lambda p: p["unembed"],
+            tp_sharded=lambda k: k in ("w_gate", "w_up", "w_down"),
+        )
     moe = isinstance(cfg, mtf.MoeTransformerConfig)
     if not moe and not isinstance(cfg, tfm.TransformerConfig):
-        raise NotImplementedError(
-            f"{type(cfg).__name__}: the GPT-2 and MoE families train in "
-            f"this port; Llama is not ported yet (ROADMAP.md §A, 'Llama and "
-            f"MoE')")
+        raise TypeError(f"{type(cfg).__name__}: no model family trains "
+                        f"with this config")
     return _Family(
         block=_moe_block_sp_tp if moe else _block_sp_tp,
         embed=lambda p, c, t: (p["embed"][t] +
@@ -151,13 +195,13 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
     a detached f32 scalar. ``xent_chunk`` selects the chunked-vocab CE
     (ops/xent.py).
 
-    ``cfg`` selects the family (``transformer.TransformerConfig`` or
-    ``moe_transformer.MoeTransformerConfig``). For MoE the loss is CE +
-    ``aux_weight`` * load-balance + ``z_weight`` * router-z, the router
-    losses carried through the pipeline (``pipeline_forward(with_aux=
-    True)``) and normalized per router call, one per (layer, microbatch):
-    at n_micro = 1 the loss equals ``moe_transformer.loss_fn``'s. GPT-2
-    ignores the weights."""
+    ``cfg`` selects the family (``transformer.TransformerConfig``,
+    ``llama.LlamaConfig`` or ``moe_transformer.MoeTransformerConfig``);
+    at n_micro = 1 the loss equals the family's ``loss_fn``. For MoE the
+    loss is CE + ``aux_weight`` * load-balance + ``z_weight`` * router-z,
+    the router losses carried through the pipeline
+    (``pipeline_forward(with_aux=True)``) and normalized per router call,
+    one per (layer, microbatch). GPT-2 and Llama ignore the weights."""
     dev = resolve_device(device)
     if n_virtual != 1:
         raise NotImplementedError(f"n_virtual={n_virtual} {_ROADMAP}")

@@ -52,6 +52,22 @@ def test_flash_attention_lse_matches_jax_kernel(S, Sk, causal):
     _close(lse_t, lse_j)
 
 
+@pytest.mark.parametrize("S,Sk,causal", [(32, 32, True), (24, 40, False)])
+def test_flash_attention_lse_at_head_dim_128_matches_jax_kernel(S, Sk,
+                                                                causal):
+    """Llama-3-8B's head dim: o and lse of B10's plain version against the
+    JAX kernel (whose q is scaled by 1/sqrt(128) and rounded before the
+    product, not folded into the exponent as at 64)."""
+    q, k, v = _qkv(S * Sk, S, Sk, B=1, H=2, D=128)
+    o_j, lse_j = jattn.flash_attention_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal)
+    o_t, lse_t = tattn.flash_attention_lse(
+        *map(torch.from_numpy, (q, k, v)), causal=causal)
+    assert o_t.shape == (1, S, 2, 128) and lse_t.shape == (1, 2, S)
+    _close(o_t, o_j)
+    _close(lse_t, lse_j)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_reference_lse_matches_jax_reference(dtype):
     """The plain version is the JAX package's ``_reference_lse``, rounding

@@ -92,20 +92,33 @@ def test_k1_takes_64_and_128(D):
 
 
 def test_b10_refuses_head_dim_128():
-    q = _meta(1, 8, 2, 128)
-    with pytest.raises(ValueError, match=r"flash_attention_lse: head dim "
-                       r"128 .* Llama training .*'Llama and MoE'"):
-        tattn.flash_attention_lse(q, q, q)
-    q = _meta(1, 8, 2, 64)
-    with pytest.raises(ValueError, match="no kernel for meta"):
-        tattn.flash_attention_lse(q, q, q)
+    """B10 takes head dims 64 and 128 (past the head-dim check a meta
+    tensor stops at the device check) and refuses any other by name."""
+    for D in (64, 128):
+        q = _meta(1, 8, 2, D)
+        with pytest.raises(ValueError, match="no kernel for meta"):
+            tattn.flash_attention_lse(q, q, q)
+    for D in (32, 96, 256):
+        q = _meta(1, 8, 2, D)
+        with pytest.raises(ValueError, match=r"flash_attention_lse: the "
+                           r"kernel is built for head dims 64, 128, got "
+                           r"%d" % D):
+            tattn.flash_attention_lse(q, q, q)
 
 
 def test_b7_refuses_head_dim_128():
-    q = _meta(1, 8, 2, 128)
-    with pytest.raises(ValueError, match=r"streaming=True\): head dim 128 "
-                       r".*'Llama and MoE'"):
-        tattn.flash_attention(q, q, q, streaming=True)
+    """The streaming entry (B7) takes head dims 64 and 128 and refuses any
+    other by name."""
+    for D in (64, 128):
+        q = _meta(1, 8, 2, D)
+        with pytest.raises(ValueError, match="no kernel for meta"):
+            tattn.flash_attention(q, q, q, streaming=True)
+    for D in (32, 96, 256):
+        q = _meta(1, 8, 2, D)
+        with pytest.raises(ValueError, match=r"streaming=True\): the "
+                           r"kernel is built for head dims 64, 128, got "
+                           r"%d" % D):
+            tattn.flash_attention(q, q, q, streaming=True)
 
 
 @pytest.mark.parametrize("D", [32, 96, 256])
@@ -140,10 +153,13 @@ def test_b9_refuses_head_dim_128():
 def test_cpu_tensors_run_the_plain_versions_at_128():
     """Every head dim runs on the CPU, through the plain versions, and no
     launch is counted."""
-    names = ("launches", "launches_d128", "launches_stream")
+    names = ("launches", "launches_d128", "launches_stream",
+             "launches_stream_d128")
+    lse_names = ("launches", "launches_d128")
     for n in names:
         setattr(tattn.flash_attention, n, 0)
-    tattn.flash_attention_lse.launches = 0
+    for n in lse_names:
+        setattr(tattn.flash_attention_lse, n, 0)
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(1, 9, 2, 128, generator=g) for _ in range(3))
     torch.testing.assert_close(tattn.flash_attention(q, k, v),
@@ -158,6 +174,7 @@ def test_cpu_tensors_run_the_plain_versions_at_128():
     torch.testing.assert_close(out, tfd.dense_decode_attend(qd, kc, kc, 5,
                                                             16, 4))
     assert all(getattr(tattn.flash_attention, n) == 0 for n in names)
-    assert tattn.flash_attention_lse.launches == 0
+    assert all(getattr(tattn.flash_attention_lse, n) == 0
+               for n in lse_names)
     assert tfd.flash_decode_attend.launches_d128 == 0
     assert tfd.flash_decode_attend.launches_int8_d128 == 0

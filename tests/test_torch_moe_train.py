@@ -183,7 +183,20 @@ def test_cpu_training_launches_no_kernel():
 
 
 def test_llama_still_refuses_to_train():
+    """The three families each get their own adapter: Llama's block and
+    untied head beside the MoE family's routed block (tests of Llama's
+    training itself: tests/test_torch_llama_train.py); a config of no
+    family is refused."""
     from mpi_acx_torch.models import llama
-    with pytest.raises(NotImplementedError, match="'Llama and MoE'"):
-        ttrain.make_loss_and_grads(llama.tiny_llama(), tmesh(MESH), M,
-                                   device="cpu")
+    fam = ttrain._family(llama.tiny_llama())
+    assert fam.block is ttrain._llama_block_sp_tp and not fam.has_aux
+    assert fam.tp_sharded("w_gate") and not fam.tp_sharded("w1")
+    _, tcfg = _configs()
+    moe = ttrain._family(tcfg)
+    assert moe.block is ttrain._moe_block_sp_tp and moe.has_aux
+    assert moe.tp_sharded("w1") and not moe.tp_sharded("w_gate")
+    _, n_stages = ttrain.make_loss_and_grads(llama.tiny_llama(), tmesh(MESH),
+                                             M, device="cpu")
+    assert n_stages == 1
+    with pytest.raises(TypeError, match="no model family"):
+        ttrain.make_loss_and_grads(object(), tmesh(MESH), M, device="cpu")

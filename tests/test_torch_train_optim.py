@@ -73,7 +73,9 @@ def test_options_left_out_raise(option, builder):
 
 
 def test_other_families_raise():
-    with pytest.raises(NotImplementedError, match="Llama and MoE"):
+    """A config of none of the three families (GPT-2, Llama, MoE) is
+    refused by name."""
+    with pytest.raises(TypeError, match="_OtherConfig: no model family"):
         ttrain.make_loss_and_grads(_OtherConfig(), tmesh(MESH), M,
                                    device="cpu")
 
