@@ -34,15 +34,17 @@ def grouped_decode_attend(q, kc, vc, pos, max_len, n_rep, flash=None):
 def decode_layer_scan(layers, x, kc_all, vc_all, pos, qkv_fn, attend_fn,
                       ksc_all=None, vsc_all=None):
     """The decode layer loop: for each layer i, ``qkv_fn(lp, x, pos) ->
-    (q, k, v)`` with k/v [B, 1, H, D], the fresh k/v written into
-    ``kc_all[i]``/``vc_all[i]`` ([L, B, max_len, H, D]) at each slot's
-    position, then ``attend_fn(lp, x, q, kc_l, vc_l, pos) -> x`` against
-    the updated layer cache. Returns (x, kc_all, vc_all).
+    (q, k, v)`` with k/v [B, W, H, D] (a window of W tokens at positions
+    pos..pos+W-1; W = 1 is the one-token step), the fresh k/v rows written
+    into ``kc_all[i]``/``vc_all[i]`` ([L, B, max_len, H, D]) at each
+    slot's position, then ``attend_fn(lp, x, q, kc_l, vc_l, pos) -> x``
+    against the updated layer cache. Returns (x, kc_all, vc_all).
 
     ``pos`` is a scalar (every row at one position) or [B] (one position
-    per slot, continuous-batching serving). The writes go in place; as in
-    JAX's ``dynamic_update_slice``, a write position past the cache is
-    clamped to its last row rather than indexing out of bounds.
+    per slot, continuous-batching serving and the batched speculative
+    loop). The writes go in place; as in JAX's ``dynamic_update_slice``,
+    a write that would run past the cache starts at ``max_len - W``
+    instead (``attend_fn`` still gets the unclamped ``pos``).
 
     With ``ksc_all``/``vsc_all`` ([L, B, max_len, H, 1] f32) the cache is
     int8 (ops/kvquant.py): the fresh K/V rows are quantized as they are
@@ -52,18 +54,20 @@ def decode_layer_scan(layers, x, kc_all, vc_all, pos, qkv_fn, attend_fn,
     B, max_len = kc_all.shape[1], kc_all.shape[2]
     quant = ksc_all is not None
     pos = torch.as_tensor(pos, device=x.device)
-    slots = torch.arange(B, device=x.device)
-    wpos = pos.clamp(0, max_len - 1).expand(B)
+    slots = torch.arange(B, device=x.device)[:, None]
     for i in range(n_layers):
         lp = {name: a[i] for name, a in layers.items()}
         q, k, v = qkv_fn(lp, x, pos)
+        W = k.shape[1]
+        rows = (pos.clamp(0, max_len - W).reshape(-1, 1).expand(B, 1)
+                + torch.arange(W, device=x.device))            # [B, W]
         if quant:
             k, ks = kv_quant(k)
             v, vs = kv_quant(v)
-            ksc_all[i][slots, wpos] = ks[:, 0]
-            vsc_all[i][slots, wpos] = vs[:, 0]
-        kc_all[i][slots, wpos] = k[:, 0]
-        vc_all[i][slots, wpos] = v[:, 0]
+            ksc_all[i][slots, rows] = ks
+            vsc_all[i][slots, rows] = vs
+        kc_all[i][slots, rows] = k
+        vc_all[i][slots, rows] = v
         kc_l, vc_l = kc_all[i], vc_all[i]
         if quant:
             kc_l, vc_l = (kc_l, ksc_all[i]), (vc_l, vsc_all[i])
