@@ -35,8 +35,10 @@ in the repository. Phases, each of which exits non-zero on failure:
              groups): K1 over the same ragged edges at H=32 on both CTA
              sizes, and K2 in both operand forms at n_rep 4, W * n_rep of
              4, 8 and 12, max_len 1024 and 1000 and each candidate chunk,
-             each equal to itself over two calls; all under the same
-             limits.
+             and at W * n_rep of 16 (speculative decoding's window pass:
+             W = 4, one position per slot, two 8-row blocks) at max_len
+             1024 and at the window pass's cache length, each equal to
+             itself over two calls; all under the same limits.
 2b. train kernels — B10 (flash_attention_lse, bf16 and f32, B=4) over
              causal S = Sk of 64, 1000, 1024, 1025 and 1088 and four
              non-causal Sk != S: o within the phase-2 limits, the lse
@@ -67,6 +69,15 @@ in the repository. Phases, each of which exits non-zero on failure:
              cache on: 15 hits, pages reused, a lower page high-water mark
              than the same requests cold, tokens held to the cold run.
              Every decode kernel form must have launched.
+4e (GPT-2) — after 4b, on GPT-2's bf16 weights: serve_sample over phase 4's
+             requests at temperature 0 (tokens exactly phase 4's), then at
+             temperature 0.8, top_k 40, top_p 0.95 with chunk 8 and chunk
+             1 (each request's tokens bit-equal between the two, every
+             drawn token inside its step's top-k set); int8 weights
+             (quantize_weights_int8) under speculative decoding (a 1-layer
+             int8 draft from seed 7, k = 4, 4 rows of 128 tokens, 64 new)
+             held to the int8-weight greedy tokens up to the first tie
+             within TIE.
 4c. llama  — (runs after phase 5's GPT-2 timings, with GPT-2's parameters
              freed) Llama-3-8B (seed-0 weights drawn on the card): at full
              width cut to 4 layers in f32, 8 requests through the kernels
@@ -79,7 +90,31 @@ in the repository. Phases, each of which exits non-zero on failure:
              path's), K1's launches exactly the prefills x 32 layers;
              tokens/s, TTFT, ITL, the D = 128 kernels timed at the path's
              shapes (with the split rule's A/B and K1's CTA sizes there),
-             and a decode step issued against its device time.
+             and a decode step issued against its device time. In the f32
+             run also speculative decoding (k = 4, 4 rows of 128 tokens, 64
+             new) with a 1-layer draft and with draft = target: tokens
+             equal to greedy up to ties within TIE, and with draft =
+             target rounds <= ceil(64 / 4) + 1 and accepted >= 3 x
+             (rounds - 1) in every row.
+4e (Llama) — sampling, int8 weights and speculative decoding on
+             phase 4c's bf16 weights, before they are freed: (a)
+             serve_sample as in GPT-2's 4e, with bf16 and int8 KV,
+             tokens/s, TTFT and ITL beside serve_greedy's and the
+             host cost of a slot's draw; (b) quantize_weights_int8 on the
+             card (weight_bytes printed against bf16's), phase 4's
+             requests served through the kernels and the plain versions
+             (ties within TIE_LLAMA), the tokens agreeing with the
+             bf16-weight serve counted, a decode step timed; (c)
+             speculative decoding with a 1-layer draft at full width (seed
+             7), k = 4, 4 rows of 128 tokens, 64 new: tokens equal to
+             llama.generate up to the first near tie (TIE_LLAMA), K1
+             launched exactly 32 + 1 times and K2 rounds x (32 + 4) times,
+             rounds, acceptance and ms per emitted token beside plain
+             greedy's; draft = target (the same tensors) likewise, its
+             rounds and acceptance printed; speculative_sample twice with
+             one seed, bit-equal; then K2 timed at the window pass's shape
+             (W = 4, 16 rows a KV group) beside its plain version, SDPA
+             with the window's mask and its bound.
 4d. moe    — (after 4c, Llama's weights freed) the MoE family
              (moe_transformer's default configuration: GPT-2 small's
              attention, 8 experts of d_ff 3072, top-1, 12 layers, 520.7 M
@@ -774,6 +809,8 @@ def d128_cases(dtype, gen, keep, rows_seen) -> int:
     case(1, 1000)
     case(2, 1024)                   # W * n_rep = 8
     case(3, 1024)                   # 12: two row blocks of 8
+    case(4, 1024)                   # 16: the window pass, two full blocks
+    case(4, SPEC_S + SPEC_NEW + SPEC_K)     # and at its cache's length
     for chunk in CHUNKS:
         case(1, 1024, chunk)
     return n
@@ -1371,6 +1408,15 @@ def check_served(label, res, prompts, n_new, vocab) -> None:
              f"{res.metrics.rejections}")
 
 
+def exactly_equal(label, got, want) -> None:
+    """Two serve calls' outputs equal token for token."""
+    for rid, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g, w):
+            t = int(np.argmax(g != w))
+            fail(f"{label}: request {rid} differs at position {t} ({g[t]} "
+                 f"vs {w[t]})")
+
+
 def served_figures(m) -> str:
     return (f"{m.new_tokens} tokens in {m.wall_s:.3f} s = "
             f"{m.tokens_per_s:.1f} tokens/s, TTFT p50 "
@@ -1424,13 +1470,6 @@ def phase_paged(params16, fixed, card_str) -> dict:
     kw = dict(n_slots=8, max_len=1024, chunk=8)
     pkw = dict(kw, page_tokens=PAGE_TOKENS)
 
-    def exactly(label, got, want):
-        for rid, (g, w) in enumerate(zip(got, want)):
-            if not np.array_equal(g, w):
-                t = int(np.argmax(g != w))
-                fail(f"{label}: request {rid} differs at position {t} "
-                     f"({g[t]} vs {w[t]})")
-
     # (d)'s requests: a 256-token system prompt and suffixes of 16-40.
     rng = np.random.default_rng(5)
     system = rng.integers(0, cfg.vocab, 2 * PAGE_TOKENS).astype(np.int32)
@@ -1463,19 +1502,19 @@ def phase_paged(params16, fixed, card_str) -> dict:
     # (a) bf16 pages through B9: phase 4's tokens exactly.
     paged = run("(a) paged bf16, 128-token pages, 64 pages",
                 serving.serve_paged_greedy, **pkw)
-    exactly("(a) paged bf16 vs fixed-slot (phase 4)", paged, fixed)
+    exactly_equal("(a) paged bf16 vs fixed-slot (phase 4)", paged, fixed)
     # (b) int8 caches: K2's int8 form (fixed slots) and B9's (pages).
     fixed8 = run("(b) fixed-slot int8", serving.serve_greedy, kv_int8=True,
                  **kw)
     paged8 = run("(b) paged int8", serving.serve_paged_greedy, kv_int8=True,
                  **pkw)
-    exactly("(b) paged int8 vs fixed-slot int8", paged8, fixed8)
+    exactly_equal("(b) paged int8 vs fixed-slot int8", paged8, fixed8)
     # (c) page pressure: preempted requests replay the same tokens.
     pressed = run(f"(c) paged bf16, {PRESSURE_PAGES} pages",
                   serving.serve_paged_greedy, n_pages=PRESSURE_PAGES, **pkw)
     if pressed.metrics.preemptions == 0:
         fail(f"(c) a {PRESSURE_PAGES}-page pool preempted nothing")
-    exactly("(c) paged under page pressure vs (a)", pressed, paged)
+    exactly_equal("(c) paged under page pressure vs (a)", pressed, paged)
     # (d) a shared 256-token system prompt, prefix cache on and off.
     prompts_run, n_new_run = shared, [32] * 16
     hit = run("(d) shared system prompt, prefix cache on",
@@ -2003,7 +2042,9 @@ def llama_decode_timing(card_str) -> dict:
 def llama_f32(card_str) -> dict:
     """Llama-3-8B at full width, depth cut to LLAMA_F32_LAYERS, in f32:
     served through the kernels and through the plain versions (tokens and
-    logits as phase 3). Returns the launch counts of the kernel path."""
+    logits as phase 3); then speculative decoding with draft = target
+    (:func:`llama_f32_speculative`). Returns the launch counts of the
+    kernel path."""
     from mpi_acx_torch.models import llama, serving
     cfg = dataclasses.replace(llama.llama3_8b(), n_layers=LLAMA_F32_LAYERS,
                               dtype=torch.float32)
@@ -2027,6 +2068,7 @@ def llama_f32(card_str) -> dict:
                   f"width, {LLAMA_F32_LAYERS} layers)", params, cfg, got, want,
                   prompts, fam=llama)
     print(f"Llama f32 serve launches {counts}", flush=True)
+    llama_f32_speculative(params, cfg)
     return counts
 
 
@@ -2039,7 +2081,8 @@ def phase_llama(card_str):
     the launch counts of the D = 128 forms (K1's exactly the prefills x 32
     layers); the D = 128 kernels timed at the path's shapes, K1's CTA
     sizes at Llama's prefill buckets, and a decode step issued against its
-    device time. Returns (launch counts, timings)."""
+    device time, with phase 4e on the same weights (:func:`phase_llama_4e`)
+    before the profiled step. Returns (launch counts, timings)."""
     from mpi_acx_torch.models import llama, serving
     names = ("flash_attention_d128", "flash_decode_attend_d128",
              "flash_decode_attend_int8_d128")
@@ -2062,7 +2105,7 @@ def phase_llama(card_str):
     plain = dataclasses.replace(cfg, use_flash=False, decode_flash=False)
     # Warm-up: cuBLAS handles and allocator pools at these shapes.
     serving.serve_greedy(params, cfg, prompts[:2], 4, **kw)
-    counts = {}
+    counts, greedy = {}, {}
     for int8 in (False, True):
         label = f"Llama-3-8B serve {'int8' if int8 else 'bf16'} KV"
         torch.cuda.synchronize()
@@ -2086,6 +2129,7 @@ def phase_llama(card_str):
         counts["flash_attention_d128"] = counts.get(
             "flash_attention_d128", 0) + got["flash_attention_d128"]
         counts[k2] = got[k2]
+        greedy[int8] = res
         want = serving.serve_greedy(params, plain, prompts, n_new,
                                     kv_int8=int8, **kw)
         # The f32 reference of the bf16 run: the same weights widened
@@ -2102,12 +2146,484 @@ def phase_llama(card_str):
     times = {"flash_attention_d128": k1_timing(card_str, LLAMA_H, LLAMA_D,
                                                "Llama-3-8B ")}
     times.update(llama_decode_timing(card_str))
+    k2_ms = times["flash_decode_attend_d128"]["ms"]
+    # Phase 4e runs before the profiled step (torch.profiler), as 4c's
+    # serves do.
+    more, window = phase_llama_4e(params, cfg, prompts, n_new, greedy, k2_ms,
+                                  card_str)
+    add_counts(counts, more)
+    times["flash_decode_attend_d128"].update(window)
     phase_cta_sizes(card_str, LLAMA_CTA_SHAPES)
-    phase_step(params, cfg, llama, times["flash_decode_attend_d128"]["ms"],
-               None, card_str, label="Llama-3-8B", profile=step_profile)
+    phase_step(params, cfg, llama, k2_ms, None, card_str, label="Llama-3-8B",
+               profile=step_profile)
     del params
     torch.cuda.empty_cache()
     return counts, times
+
+
+# --- phase 4e: sampling, int8 weights and speculative decoding --------------
+
+SAMPLE = dict(temperature=0.8, top_k=40, top_p=0.95)   # generate_text.py's
+SAMPLE_KEY = 0
+SPEC_K, SPEC_NEW, SPEC_S, SPEC_B = 4, 64, 128, 4       # k, n_new, prompt
+
+
+def spec_prompts(vocab):
+    """The speculative runs' prompts: SPEC_B rows of SPEC_S tokens, numpy
+    seed 0."""
+    rng = np.random.default_rng(0)
+    return torch.from_numpy(rng.integers(0, vocab, (SPEC_B, SPEC_S)).astype(
+        np.int32)).cuda()
+
+
+def first_near_ties(fam, params, cfg, seqs, S, tie):
+    """Per row of ``seqs`` ([B, S + n] greedy sequences), the first
+    generated position whose next-token logits (a forward pass over the
+    sequence) have their top two within ``tie`` (n where none has)."""
+    logits = forward_logits(fam, params, cfg, seqs[:, :-1])[:, S - 1:]
+    top = logits.topk(2, dim=-1).values
+    near = (top[..., 0] - top[..., 1]) < tie
+    n = near.shape[1]
+    return [int(torch.nonzero(r)[0]) if r.any() else n for r in near]
+
+
+def hold_to_greedy(label, got, want, ties, S) -> list:
+    """Each row of ``got`` equals ``want``'s up to the first near tie of
+    that row (``ties``, from :func:`first_near_ties`); returns the number
+    of leading generated positions that match."""
+    matched = []
+    for b, (g, w) in enumerate(zip(got.tolist(), want.tolist())):
+        if g[:S] != w[:S]:
+            fail(f"{label} row {b}: the prompt was not kept")
+        gen = list(zip(g[S:], w[S:]))
+        t = next((i for i, (x, y) in enumerate(gen) if x != y), len(gen))
+        if t < ties[b]:
+            fail(f"{label} row {b}: differs from greedy at generated "
+                 f"position {t} ({gen[t][0]} vs {gen[t][1]}), before the "
+                 f"first near tie at {ties[b]}")
+        matched.append(t)
+    print(f"{label}: generated positions equal to greedy per row {matched} "
+          f"of {got.shape[1] - S}; first near tie per row {ties}",
+          flush=True)
+    return matched
+
+
+def spec_perfect_bound(label, st, n_new, k) -> bool:
+    """The perfect-draft bound of tests/test_speculative.py: rounds <=
+    ceil(n_new / k) + 1 and accepted >= (k - 1)(rounds - 1), per row."""
+    rounds, acc = st["rounds"].tolist(), st["drafted_accepted"].tolist()
+    ok = all(r <= -(-n_new // k) + 1 and a >= (k - 1) * (r - 1)
+             for r, a in zip(rounds, acc))
+    print(f"{label}: rounds {rounds}, accepted {acc} of {(k - 1)} a round; "
+          f"perfect-draft bound (rounds <= {-(-n_new // k) + 1}, accepted "
+          f">= {k - 1} x (rounds - 1)) {'met' if ok else 'not met'}",
+          flush=True)
+    return ok
+
+
+def llama_f32_speculative(params, cfg) -> None:
+    """Speculative decoding at Llama-3-8B's full width in f32 (phase 4c's
+    cut depth), where the window pass and the one-token step agree to
+    f32 rounding: with a 1-layer draft from seed 7 and with draft =
+    target, every row equal to greedy up to ties within TIE[f32]; with
+    draft = target the perfect-draft bound met in every row."""
+    from mpi_acx_torch.models import llama
+    from mpi_acx_torch.models.speculative import speculative_generate
+    prompt = spec_prompts(cfg.vocab)
+    cap = SPEC_S + SPEC_NEW + SPEC_K
+    want = llama.generate(params, cfg, prompt, SPEC_NEW, max_len=cap)
+    ties = first_near_ties(llama, params, cfg, want, SPEC_S,
+                           TIE[torch.float32])
+    shape = (f"{LLAMA_F32_LAYERS} layers, full width, {SPEC_B} x {SPEC_S} "
+             f"prompt, n_new {SPEC_NEW}, k {SPEC_K}")
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    dparams = llama.init_params(dcfg, seed=7, dtype=torch.float32)
+    got, st = speculative_generate(dparams, dcfg, params, cfg, prompt,
+                                   SPEC_NEW, k=SPEC_K)
+    label = f"Llama f32 speculative, 1-layer draft ({shape})"
+    hold_to_greedy(label, got, want, ties, SPEC_S)
+    print(f"{label}: rounds {st['rounds'].tolist()}, accepted "
+          f"{st['drafted_accepted'].tolist()}", flush=True)
+    del dparams
+    got, st = speculative_generate(params, cfg, params, cfg, prompt,
+                                   SPEC_NEW, k=SPEC_K)
+    label = f"Llama f32 speculative, draft = target ({shape})"
+    hold_to_greedy(label, got, want, ties, SPEC_S)
+    if not spec_perfect_bound(label, st, SPEC_NEW, SPEC_K):
+        fail(f"{label}: the perfect-draft bound does not hold")
+
+
+@contextlib.contextmanager
+def topk_audit(top_k):
+    """Every token a sampled serve draws held to the ``top_k`` set of the
+    logits it was drawn from: the step's filter (``serving.filter_logits``,
+    whose calls record their logits' top-k indices for
+    :func:`audited_step`) and the refill's draw (``serving.sample_logits``)
+    are wrapped. Yields (the recorded sets, a tally of tokens checked and
+    those outside, the latter on the card)."""
+    from mpi_acx_torch.models import serving
+    filt, samp = serving.filter_logits, serving.sample_logits
+    sets = []
+    tally = {"checked": 0, "outside": torch.zeros(
+        (), dtype=torch.int64, device="cuda")}
+
+    def rec_filter(logits, *args):
+        sets.append(logits.topk(top_k, dim=-1).indices)
+        return filt(logits, *args)
+
+    def rec_sample(logits, key, *args):
+        tok = samp(logits, key, *args)
+        idx = logits.topk(top_k, dim=-1).indices
+        tally["outside"] += (idx != tok[:, None]).all(-1).sum()
+        tally["checked"] += tok.numel()
+        return tok
+
+    serving.filter_logits, serving.sample_logits = rec_filter, rec_sample
+    try:
+        yield sets, tally
+    finally:
+        serving.filter_logits, serving.sample_logits = filt, samp
+
+
+def audited_step(step_fn, sets, tally):
+    """``step_fn`` with each of its chunk's tokens (every slot's) checked
+    against the top-k set its pick recorded."""
+    def step(cache, tok, keys=None):
+        n0 = len(sets)
+        cache, toks = step_fn(cache, tok, keys)
+        for c, idx in enumerate(sets[n0:]):
+            tally["outside"] += (idx != toks[c][:, None].long()).all(-1).sum()
+            tally["checked"] += toks.shape[1]
+        del sets[n0:]
+        return cache, toks
+    return step
+
+
+def draw_host_us(vocab, n_slots=8, iters=50) -> float:
+    """Host microseconds to issue one slot's [1, vocab] Gumbel draw from
+    its own generator, as the sampled step issues them (n_slots a step)."""
+    from mpi_acx_torch.models.decoding import gumbel
+    gens = [torch.Generator(device="cuda").manual_seed(i)
+            for i in range(n_slots)]
+    for _ in range(3):
+        [gumbel((1, vocab), g) for g in gens]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        [gumbel((1, vocab), g) for g in gens]
+    us = (time.perf_counter() - t0) / iters / n_slots * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def sampled_serves(label, params, cfg, fam, prompts, n_new, greedy, card_str,
+                   kv_list=(False, True)) -> dict:
+    """Phase 4e (a) for one model: serve_sample over phase 4's requests at
+    temperature 0 (tokens exactly ``greedy[False]``'s, the same phase's
+    bf16-KV serve_greedy), then at SAMPLE with chunk 8 and chunk 1 for each
+    KV form in ``kv_list``: each request's tokens bit-equal between the
+    two, every sampled token inside its step's top-k set (the chunk-1 run
+    audited). Returns the decode launch counts of the chunk-8 runs."""
+    from mpi_acx_torch.models import serving
+    kw = dict(n_slots=8, max_len=1024, family=fam, key=SAMPLE_KEY)
+    t0 = serving.serve_sample(params, cfg, prompts, n_new, chunk=8,
+                              temperature=0.0, **kw)
+    check_served(f"{label} temperature 0", t0, prompts, n_new, cfg.vocab)
+    exactly_equal(f"{label} temperature 0 vs serve_greedy", t0,
+                  greedy[False])
+    print(f"{label} temperature 0: tokens equal serve_greedy's in all "
+          f"{len(t0)} requests; {served_figures(t0.metrics)} [{card_str}]",
+          flush=True)
+    counts = {}
+    for int8 in kv_list:
+        kv = "int8" if int8 else "bf16"
+        torch.cuda.synchronize()
+        reset_counts()
+        a = serving.serve_sample(params, cfg, prompts, n_new, chunk=8,
+                                 kv_int8=int8, **SAMPLE, **kw)
+        torch.cuda.synchronize()
+        add_counts(counts, read_counts())
+        check_served(f"{label} {kv} KV sampled", a, prompts, n_new,
+                     cfg.vocab)
+        fns = serving.make_server_fns(params, cfg, fam, chunk=1,
+                                      kv_int8=int8,
+                                      sample_cfg=tuple(SAMPLE.values()))
+        with topk_audit(SAMPLE["top_k"]) as (sets, tally):
+            fns = (fns[0], audited_step(fns[1], sets, tally)) + fns[2:]
+            b = serving.serve_sample(params, cfg, prompts, n_new, chunk=1,
+                                     kv_int8=int8, server_fns=fns,
+                                     **SAMPLE, **kw)
+            outside = int(tally["outside"])
+        exactly_equal(f"{label} {kv} KV sampled, chunk 8 vs chunk 1", a, b)
+        same_as_greedy = sum(int(np.array_equal(x, y))
+                             for x, y in zip(a, greedy[int8]))
+        print(f"{label} {kv} KV, temperature {SAMPLE['temperature']}, top_k "
+              f"{SAMPLE['top_k']}, top_p {SAMPLE['top_p']}, key "
+              f"{SAMPLE_KEY}: chunk 8 and chunk 1 bit-equal in all "
+              f"{len(a)} requests; {tally['checked']} drawn tokens audited, "
+              f"{outside} outside their top-{SAMPLE['top_k']}; "
+              f"{same_as_greedy} requests equal to greedy", flush=True)
+        if outside:
+            fail(f"{label} {kv} KV: {outside} sampled tokens outside the "
+                 f"top-{SAMPLE['top_k']} set")
+        print(f"serve {label} {kv} KV sampled, chunk 8: "
+              f"{served_figures(a.metrics)}; chunk 1: "
+              f"{served_figures(b.metrics)}; greedy chunk 8: "
+              f"{served_figures(greedy[int8].metrics)} [{card_str}]",
+              flush=True)
+    print(f"{label}: a slot's Gumbel draw [1, {cfg.vocab}] issues in "
+          f"{draw_host_us(cfg.vocab):.2f} us of host time (8 a step) "
+          f"[{card_str}]", flush=True)
+    return counts
+
+
+def llama_int8_weights(params, cfg, prompts, n_new, greedy, k2_ms,
+                       card_str) -> dict:
+    """Phase 4e (b): Llama-3-8B's layer weights quantized on the card,
+    served greedily through the kernels and through the plain versions
+    (held as phase 4c holds bf16), tokens agreeing with the bf16-weight
+    serve counted, and a decode step timed. Returns the launch counts."""
+    from mpi_acx_torch.models import llama, serving
+    from mpi_acx_torch.ops.wquant import (LLAMA_WEIGHTS,
+                                          quantize_weights_int8,
+                                          weight_bytes)
+    t0 = time.perf_counter()
+    qparams = quantize_weights_int8(params, LLAMA_WEIGHTS)
+    torch.cuda.synchronize()
+    t_q = time.perf_counter() - t0
+    layer = sum(weight_bytes(qparams["layers"][n]) for n in LLAMA_WEIGHTS)
+    scales = sum(weight_bytes(qparams["layers"][n + "_scale"])
+                 for n in LLAMA_WEIGHTS)
+    heads = weight_bytes(params["embed"]) + weight_bytes(params["unembed"])
+    print(f"int8 weights: quantize_weights_int8(LLAMA_WEIGHTS) on the card "
+          f"in {t_q:.2f} s; weight_bytes {weight_bytes(qparams) / 1e9:.3f} "
+          f"GB (int8 layer weights {layer / 1e9:.3f}, bf16 embed and unembed "
+          f"{heads / 1e9:.3f}, f32 scales {scales / 1e6:.2f} MB) against "
+          f"{weight_bytes(params) / 1e9:.3f} GB in bf16", flush=True)
+    kw = dict(n_slots=8, max_len=1024, chunk=8, family=llama)
+    label = "Llama-3-8B int8 weights, bf16 KV"
+    serving.serve_greedy(qparams, cfg, prompts[:2], 4, **kw)
+    torch.cuda.synchronize()
+    reset_counts()
+    res = serving.serve_greedy(qparams, cfg, prompts, n_new, **kw)
+    torch.cuda.synchronize()
+    counts = read_counts(("flash_attention_d128", "flash_decode_attend_d128"))
+    check_no_copies(label)
+    check_served(label, res, prompts, n_new, cfg.vocab)
+    print(f"serve {label}: 16 requests, 8 slots, max_len 1024, chunk 8: "
+          f"{served_figures(res.metrics)} [{card_str}]", flush=True)
+    if counts["flash_attention_d128"] != res.metrics.prefills * cfg.n_layers:
+        fail(f"{label}: K1 launched {counts['flash_attention_d128']} times")
+    plain = dataclasses.replace(cfg, use_flash=False, decode_flash=False)
+    want = serving.serve_greedy(qparams, plain, prompts, n_new, **kw)
+    compare_paths(f"{label} (16 requests, 8 slots)", qparams, cfg, res, want,
+                  prompts, fam=llama, tie=TIE_LLAMA)
+    agree = total = 0
+    for g, w, p in zip(res, greedy[False], prompts):
+        agree += int((g[len(p):] == w[len(p):]).sum())
+        total += len(g) - len(p)
+    print(f"{label}: {agree} of {total} generated tokens equal the "
+          f"bf16-weight serve's at the same position (random weights; not "
+          f"held)", flush=True)
+    phase_step(qparams, cfg, llama, k2_ms, None, card_str,
+               label="Llama-3-8B int8 weights")
+    del qparams
+    torch.cuda.empty_cache()
+    return counts
+
+
+def llama_speculative(params, cfg, card_str) -> dict:
+    """Phase 4e (c): Llama-3-8B target, a 1-layer draft at its width (seed
+    7), k = SPEC_K, SPEC_B rows of SPEC_S tokens, n_new SPEC_NEW: greedy
+    speculation held to llama.generate up to the first near tie per row
+    (TIE_LLAMA), with K1's and K2's launches exact; draft = target
+    (rounds and acceptance printed, tokens held the same way); the
+    sampled form reproducible. Returns the launch counts."""
+    from mpi_acx_torch.models import llama
+    from mpi_acx_torch.models.speculative import (speculative_generate,
+                                                  speculative_sample)
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    dparams = llama.init_params(dcfg, seed=7, dtype=torch.bfloat16)
+    prompt = spec_prompts(cfg.vocab)
+    cap = SPEC_S + SPEC_NEW + SPEC_K
+    shape = (f"{SPEC_B} x {SPEC_S} prompt, n_new {SPEC_NEW}, k {SPEC_K}, "
+             f"1-layer draft")
+    # Warm-up at these shapes (the window pass's first K2 launches).
+    speculative_generate(dparams, dcfg, params, cfg, prompt[:, :64], 8,
+                         k=SPEC_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = llama.generate(params, cfg, prompt, SPEC_NEW, max_len=cap)
+    torch.cuda.synchronize()
+    t_greedy = time.perf_counter() - t0
+    ties = first_near_ties(llama, params, cfg, want, SPEC_S, TIE_LLAMA)
+    reset_counts()
+    t0 = time.perf_counter()
+    got, st = speculative_generate(dparams, dcfg, params, cfg, prompt,
+                                   SPEC_NEW, k=SPEC_K)
+    torch.cuda.synchronize()
+    t_spec = time.perf_counter() - t0
+    counts = read_counts(("flash_attention_d128", "flash_decode_attend_d128"))
+    check_no_copies("Llama-3-8B speculative")
+    label = f"Llama-3-8B speculative ({shape})"
+    hold_to_greedy(label, got, want, ties, SPEC_S)
+    R = int(st["rounds"].max())
+    want_k2 = R * (cfg.n_layers + SPEC_K * dcfg.n_layers)
+    want_k1 = cfg.n_layers + dcfg.n_layers
+    print(f"{label}: rounds per row {st['rounds'].tolist()}, accepted "
+          f"{st['drafted_accepted'].tolist()} of {SPEC_K - 1} a round; "
+          f"launches {json.dumps(counts)} (K1 {want_k1} = {cfg.n_layers} + "
+          f"{dcfg.n_layers} prefill layers; K2 {want_k2} = {R} rounds x "
+          f"({cfg.n_layers} + {SPEC_K} x {dcfg.n_layers})); "
+          f"{t_spec * 1e3 / (SPEC_B * SPEC_NEW):.2f} ms per emitted token "
+          f"({t_spec:.3f} s) against plain greedy's "
+          f"{t_greedy * 1e3 / (SPEC_B * SPEC_NEW):.2f} ({t_greedy:.3f} s) "
+          f"[{card_str}]", flush=True)
+    if (counts["flash_attention_d128"] != want_k1
+            or counts["flash_decode_attend_d128"] != want_k2):
+        fail(f"{label}: launches {counts}, expected K1 {want_k1} and K2 "
+             f"{want_k2}")
+    # Draft = target: the same tensors, no second draw.
+    got2, st2 = speculative_generate(params, cfg, params, cfg, prompt,
+                                     SPEC_NEW, k=SPEC_K)
+    label2 = f"Llama-3-8B speculative, draft = target (bf16, {SPEC_B} rows)"
+    hold_to_greedy(label2, got2, want, ties, SPEC_S)
+    spec_perfect_bound(label2, st2, SPEC_NEW, SPEC_K)
+    runs = []
+    for _ in range(2):
+        key = torch.Generator(device="cuda").manual_seed(3)
+        t0 = time.perf_counter()
+        runs.append(speculative_sample(dparams, dcfg, params, cfg, prompt,
+                                       SPEC_NEW, key, k=SPEC_K,
+                                       temperature=SAMPLE["temperature"]))
+        torch.cuda.synchronize()
+        t_sample = time.perf_counter() - t0
+    (a, sa), (b, _) = runs
+    if not torch.equal(a, b):
+        fail("Llama-3-8B speculative_sample: two calls with the same "
+             "generator differ")
+    if not (torch.equal(a[:, :SPEC_S], prompt) and a.min() >= 0
+            and a.max() < cfg.vocab):
+        fail("Llama-3-8B speculative_sample: tokens outside the vocabulary")
+    print(f"Llama-3-8B speculative_sample (temperature "
+          f"{SAMPLE['temperature']}, {shape}): two calls with one seed "
+          f"bit-equal; rounds {sa['rounds'].tolist()}, accepted "
+          f"{sa['drafted_accepted'].tolist()}; {t_sample:.3f} s [{card_str}]",
+          flush=True)
+    del dparams
+    torch.cuda.empty_cache()
+    return counts
+
+
+def llama_window_timing(card_str) -> dict:
+    """K2 at the speculative window pass's shape (B = SPEC_B, W = SPEC_K,
+    32 query heads over 8 KV groups, D = 128, max_len the loop's cache,
+    one position per row, 32 layers' caches rotated): W * n_rep = 16
+    rows a KV group, two of the kernel's 8-row blocks. Beside its plain
+    version, its byte bound and SDPA over the same rows with the window's
+    mask (a group's W x 4 query rows as rows of one head)."""
+    import torch.nn.functional as F
+    from mpi_acx_torch.ops.flash_decode import dense_decode_attend, \
+        flash_decode_attend
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf = torch.bfloat16
+    B, W, L = SPEC_B, SPEC_K, 32
+    max_len = SPEC_S + SPEC_NEW + SPEC_K
+    Hq, Hkv, Dh, rep = LLAMA_H, LLAMA_HKV, LLAMA_D, LLAMA_REP
+    pos_l = [150, 160, 170, 180]
+    pos = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+    q = randn((B, W, Hq, Dh), bf, gen)
+    kc = randn((L, B, max_len, Hkv, Dh), bf, gen)
+    vc = randn((L, B, max_len, Hkv, Dh), bf, gen)
+    it = iter(range(10 ** 9))
+
+    def run(fn):
+        return lambda: fn(next(it) % L)
+
+    t_k = time_ms(run(lambda i: flash_decode_attend(
+        q, kc[i], vc[i], pos, max_len, rep)), iters=240)
+    t_p = time_ms(run(lambda i: dense_decode_attend(
+        q, kc[i], vc[i], pos, max_len, rep)), iters=240)
+    # Row w * rep + r of group g is query head g * rep + r at window row w.
+    qg = q.reshape(B, W, Hkv, rep, Dh).permute(0, 2, 1, 3, 4).reshape(
+        B, Hkv, W * rep, Dh).contiguous()
+    kt = kc.transpose(2, 3).contiguous()
+    vt = vc.transpose(2, 3).contiguous()
+    rows = (pos[:, None] + torch.arange(W, device="cuda")).repeat_interleave(
+        rep, dim=1)                                       # [B, W * rep]
+    mask = (torch.arange(max_len, device="cuda")[None, None, :]
+            <= rows[:, :, None])[:, None]
+    t_l = time_ms(run(lambda i: F.scaled_dot_product_attention(
+        qg, kt[i], vt[i], attn_mask=mask)), iters=240)
+    del kt, vt
+    # The same rows as one 8-row block (W = 2): a group's K/V read once,
+    # where W = 4's two blocks each read it.
+    t_1 = time_ms(run(lambda i: flash_decode_attend(
+        q[:, :2].contiguous(), kc[i], vc[i], pos, max_len, rep)), iters=240)
+    live = sum(min(p + W, max_len) for p in pos_l)
+    keys = sum(min(p + w + 1, max_len) for p in pos_l for w in range(W))
+    nbytes = (decode_bytes(live, B, False, False, hkv=Hkv, hq=Hq,
+                           head_dim=Dh) + (W - 1) * 2 * B * Hq * Dh * 2)
+    b_ms, b_by = bound_ms(4 * keys * Hq * Dh, nbytes, bf)
+    print(f"time flash_decode_attend_d128 bf16, the window pass: B={B} W={W} "
+          f"Hq={Hq} Hkv={Hkv} D={Dh} ({W * rep} rows a KV group, two 8-row "
+          f"blocks) max_len={max_len} pos={pos_l}: kernel {t_k:.4f} ms, "
+          f"plain {t_p:.4f} ms, library (sdpa, window mask) {t_l:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by}, {nbytes} bytes), "
+          f"{t_k / b_ms:.2f}x; W=2 (8 rows, one block) {t_1:.4f} ms "
+          f"[{card_str}]", flush=True)
+    return dict(window_ms=t_k, window_plain_ms=t_p, window_library_ms=t_l,
+                window_bound_ms=b_ms)
+
+
+def phase_llama_4e(params, cfg, prompts, n_new, greedy, k2_ms,
+                   card_str) -> tuple:
+    """Phase 4e on the Llama-3-8B weights phase 4c drew: (a) sampled
+    serving, (b) int8 weights, (c) speculative decoding, then K2 timed at
+    the window pass. Returns (launch counts, the window timing)."""
+    from mpi_acx_torch.models import llama
+    counts = sampled_serves("Llama-3-8B", params, cfg, llama, prompts, n_new,
+                            greedy, card_str)
+    add_counts(counts, llama_int8_weights(params, cfg, prompts, n_new, greedy,
+                                          k2_ms, card_str))
+    add_counts(counts, llama_speculative(params, cfg, card_str))
+    return counts, llama_window_timing(card_str)
+
+
+def phase_gpt2_4e(params16, fixed, card_str) -> dict:
+    """Phase 4e's GPT-2 counterparts at full width: serve_sample at
+    temperature 0 equal to phase 4's serve_greedy, sampled serving with
+    bf16 KV as for Llama, and int8 weights under speculative decoding (a
+    1-layer draft from seed 7, both quantized, k = SPEC_K) held to the
+    int8-weight greedy tokens up to ties within TIE. Returns the launch
+    counts."""
+    from mpi_acx_torch.models import transformer as tfm
+    from mpi_acx_torch.models.speculative import speculative_generate
+    from mpi_acx_torch.ops.wquant import GPT2_WEIGHTS, quantize_weights_int8
+    cfg = tfm.gpt2_small()
+    prompts, n_new = serve_requests(cfg.vocab)
+    counts = sampled_serves("GPT-2 124M", params16, cfg, tfm, prompts, n_new,
+                            {False: fixed}, card_str, kv_list=(False,))
+    dcfg = dataclasses.replace(cfg, n_layers=1)
+    qp = quantize_weights_int8(params16, GPT2_WEIGHTS)
+    qd = quantize_weights_int8(tfm.cast_params(tfm.init_params(
+        dcfg, seed=7), torch.bfloat16), GPT2_WEIGHTS)
+    prompt = spec_prompts(cfg.vocab)
+    cap = SPEC_S + SPEC_NEW + SPEC_K
+    want = tfm.generate(qp, cfg, prompt, SPEC_NEW, max_len=cap)
+    reset_counts()
+    got, st = speculative_generate(qd, dcfg, qp, cfg, prompt, SPEC_NEW,
+                                   k=SPEC_K)
+    torch.cuda.synchronize()
+    add_counts(counts, read_counts(("flash_attention",
+                                    "flash_decode_attend")))
+    label = (f"GPT-2 124M int8 weights, speculative ({SPEC_B} x {SPEC_S} "
+             f"prompt, n_new {SPEC_NEW}, k {SPEC_K}, 1-layer int8 draft)")
+    hold_to_greedy(label, got, want, first_near_ties(
+        tfm, qp, cfg, want, SPEC_S, TIE[torch.bfloat16]), SPEC_S)
+    print(f"{label}: rounds {st['rounds'].tolist()}, accepted "
+          f"{st['drafted_accepted'].tolist()}", flush=True)
+    return counts
 
 
 # --- phase 4d: the MoE family -----------------------------------------------
@@ -3047,6 +3563,7 @@ def main() -> int:
     del params32
     counts, fixed = phase_serve(params16, card_str)
     counts.update(phase_paged(params16, fixed, card_str))
+    add_counts(counts, phase_gpt2_4e(params16, fixed, card_str))
     times = phase_timing(card_str)
     phase_cta_sizes(card_str)
     k2 = times["flash_decode_attend"]
@@ -3056,7 +3573,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     llama_counts, llama_times = phase_llama(card_str)
-    counts.update(llama_counts)
+    add_counts(counts, llama_counts)
     times.update(llama_times)
     add_counts(counts, phase_moe(card_str, k2["ms"]))
 
@@ -3090,7 +3607,10 @@ def main() -> int:
                      bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                      library_ms=t["library_ms"])
         entry.update({k: t[k] for k in ("full_cache_ms",
-                                        "full_cache_bound_ms", "host_us")
+                                        "full_cache_bound_ms", "host_us",
+                                        "window_ms", "window_plain_ms",
+                                        "window_library_ms",
+                                        "window_bound_ms")
                       if k in t})
         line.append(entry)
     print(json.dumps({"kernels": line}), flush=True)

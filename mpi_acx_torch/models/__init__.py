@@ -1,7 +1,8 @@
 """The GPT-2 family (forward, loss, stage slicing), the Llama family's
 serving path (``models.llama``), the MoE family (``models.moe``, the
-layer; ``models.moe_transformer``, the model) and the continuous-batching
-servers (fixed-slot and paged KV caches), in PyTorch. The package-level
+layer; ``models.moe_transformer``, the model), the continuous-batching
+servers (fixed-slot and paged KV caches, greedy and sampled) and
+speculative decoding (``models.speculative``), in PyTorch. The package-level
 names ``init_params``, ``forward``, ``prefill``... are GPT-2's; the Llama
 and MoE ones live in their modules, which the servers take as
 ``family``.
@@ -23,7 +24,9 @@ _EXPORTS = {
     "prefill": "transformer",
     "decode_step": "transformer",
     "generate": "transformer",
+    "generate_sample": "transformer",
     "serve_greedy": "serving",
+    "serve_sample": "serving",
     "serve_paged_greedy": "serving",
     "PageAllocator": "kvpage",
     "RadixPrefixCache": "kvpage",
@@ -35,9 +38,11 @@ _EXPORTS = {
     "MoeConfig": "moe",
     "MoeTransformerConfig": "moe_transformer",
     "tiny_moe_config": "moe_transformer",
+    "speculative_generate": "speculative",
+    "speculative_sample": "speculative",
 }
 _SUBMODULES = ("decoding", "kvpage", "llama", "moe", "moe_transformer",
-               "serving", "transformer")
+               "serving", "speculative", "transformer")
 
 
 def __getattr__(name):

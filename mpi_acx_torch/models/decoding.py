@@ -8,6 +8,15 @@ return new cache arrays, these write the fresh K/V rows into the caller's
 cache tensors with indexed copies and return the same tensors. An int8
 cache (``'ks'``/``'vs'`` scale buffers beside int8 ``'k'``/``'v'``) is
 quantized as it is written (ops/kvquant.py).
+
+Sampling (:func:`sample_logits`, :func:`sample_generate`) takes an
+explicit ``torch.Generator`` where the JAX functions take a PRNG key: the
+draws of one generator follow each other as the JAX package's ``split``
+chain does. The two packages' random streams differ, so what is held to
+the JAX package is the deterministic part, :func:`filter_logits`, and the
+draw's formula: the Gumbel-max draw ``argmax(filtered + g)`` with ``g =
+-log(-log(u))``, u uniform in ``[tiny, 1)``, as ``jax.random.gumbel``
+forms it.
 """
 
 from __future__ import annotations
@@ -110,14 +119,11 @@ def run_decode_layers(layers, x, cache, qkv_fn, attend_fn):
     return x, {"k": kc, "v": vc, "pos": pos + 1}
 
 
-def greedy_generate(prefill_fn: Callable, decode_fn: Callable,
-                    prompt, n_new: int, max_seq: int,
-                    max_len: Optional[int] = None):
-    """prompt [B, S] -> [B, S + n_new] by greedy argmax.
-
-    prefill_fn(tokens, max_len, last_only) -> (logits [B, *, vocab], cache)
-    decode_fn(cache, token [B]) -> (logits [B, vocab], cache)
-    """
+def _decode_loop(prefill_fn, decode_fn, prompt, n_new, max_seq, max_len,
+                 pick):
+    """The loop of :func:`greedy_generate` and :func:`sample_generate`:
+    prefill, then ``pick(logits [B, vocab]) -> tokens [B]`` on the prompt's
+    last logits and on each decode step's, n_new tokens in all."""
     B, S = prompt.shape
     if max_len is None:
         max_len = S + n_new
@@ -130,10 +136,135 @@ def greedy_generate(prefill_fn: Callable, decode_fn: Callable,
     logits, cache = prefill_fn(prompt, max_len, True)
     if n_new == 0:
         return prompt
-    tok = logits[:, -1].argmax(dim=-1).to(prompt.dtype)
+    tok = pick(logits[:, -1]).to(prompt.dtype)
     toks = [tok]
     for _ in range(n_new - 1):
         logits, cache = decode_fn(cache, tok)
-        tok = logits.argmax(dim=-1).to(prompt.dtype)
+        tok = pick(logits).to(prompt.dtype)
         toks.append(tok)
     return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+
+
+def greedy_generate(prefill_fn: Callable, decode_fn: Callable,
+                    prompt, n_new: int, max_seq: int,
+                    max_len: Optional[int] = None):
+    """prompt [B, S] -> [B, S + n_new] by greedy argmax.
+
+    prefill_fn(tokens, max_len, last_only) -> (logits [B, *, vocab], cache)
+    decode_fn(cache, token [B]) -> (logits [B, vocab], cache)
+    """
+    return _decode_loop(prefill_fn, decode_fn, prompt, n_new, max_seq,
+                        max_len, lambda lg: lg.argmax(dim=-1))
+
+# -- sampling ----------------------------------------------------------------
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
+def fold_in(key: int, data: int) -> int:
+    """The seed of stream ``data`` under integer key ``key`` (the
+    counterpart of ``jax.random.fold_in``): ``splitmix64(splitmix64(key)
+    ^ data)``, cut to 63 bits. The servers give request ``rid`` the
+    generator :func:`key_generator` ``(fold_in(key, rid))``."""
+    return _splitmix64(_splitmix64(key & _MASK64) ^ (data & _MASK64)) >> 1
+
+
+def key_generator(seed: int, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``."""
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def split_generator(key: torch.Generator, n: int):
+    """``n`` generators on ``key``'s device, seeded from ``n`` draws of
+    ``key`` (the counterpart of ``jax.random.split(key, n)``)."""
+    seeds = torch.randint(0, 1 << 62, (n,), generator=key,
+                          device=key.device).tolist()
+    return [key_generator(s, key.device) for s in seeds]
+
+
+def check_key(key, device) -> None:
+    """Raise unless ``key`` is a ``torch.Generator`` on ``device``'s
+    type."""
+    if not isinstance(key, torch.Generator):
+        raise TypeError(f"key must be a torch.Generator, got {type(key)}")
+    if torch.device(key.device).type != torch.device(device).type:
+        raise ValueError(f"key is a generator on {key.device}, the call "
+                         f"runs on {device}")
+
+
+def gumbel(shape, key: torch.Generator) -> torch.Tensor:
+    """Standard Gumbel noise of ``shape`` in f32 on ``key``'s device:
+    ``-log(-log(u))`` with u uniform in ``[tiny, 1)``, the formula of
+    ``jax.random.gumbel``: ``u = r * (1 - tiny) + tiny`` for r uniform in
+    [0, 1), whose product is by 1.0 in f32, so ``u = r + tiny`` (and JAX's
+    max with tiny changes nothing). Computed in place: the sampled step
+    issues one draw per slot."""
+    u = torch.rand(shape, generator=key, device=key.device)
+    return u.add_(torch.finfo(torch.float32).tiny).log_().neg_().log_().neg_()
+
+
+def filter_logits(logits, temperature: float, top_k: Optional[int] = None,
+                  top_p: Optional[float] = None):
+    """The deterministic half of :func:`sample_logits`: [B, vocab] f32
+    logits divided by ``temperature`` (> 0), then top-k, then top-p
+    (nucleus) over the top-k survivors, each filtered logit set to the
+    f32 minimum. One descending sort serves both filters; top-p keeps the
+    smallest prefix of the sorted tokens with ``cum - probs < top_p``, the
+    top-1 token always. A categorical draw over the result's softmax is
+    the sample."""
+    logits = logits / temperature
+    neg = torch.finfo(logits.dtype).min
+    V = logits.shape[-1]
+    want_k = top_k is not None and top_k < V
+    want_p = top_p is not None and top_p < 1.0
+    if not (want_k or want_p):
+        return logits
+    srt = torch.sort(logits, dim=-1, descending=True).values
+    if want_k:
+        kth = srt[:, top_k - 1:top_k]
+        logits = torch.where(logits < kth, neg, logits)
+        srt = torch.where(torch.arange(V, device=srt.device) >= top_k, neg,
+                          srt)
+    if want_p:
+        probs = torch.softmax(srt, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = cum - probs < top_p
+        keep[:, 0] = True
+        thresh = torch.where(keep, srt, torch.inf).amin(dim=-1,
+                                                        keepdim=True)
+        logits = torch.where(logits < thresh, neg, logits)
+    return logits
+
+
+def sample_logits(logits, key: torch.Generator, temperature: float = 1.0,
+                  top_k: Optional[int] = None, top_p: Optional[float] = None):
+    """Token ids [B] sampled from [B, vocab] f32 logits: :func:`filter_logits`
+    then the Gumbel-max draw ``argmax(filtered + gumbel(key))``, one draw
+    of ``[B, vocab]`` from ``key``. ``temperature == 0`` is argmax and
+    draws nothing."""
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    f = filter_logits(logits, temperature, top_k, top_p)
+    return (f + gumbel(f.shape, key)).argmax(dim=-1)
+
+
+def sample_generate(prefill_fn: Callable, decode_fn: Callable,
+                    prompt, n_new: int, max_seq: int, key: torch.Generator,
+                    temperature: float = 1.0, top_k: Optional[int] = None,
+                    top_p: Optional[float] = None,
+                    max_len: Optional[int] = None):
+    """prompt [B, S] -> [B, S + n_new] by sampling (temperature / top-k /
+    top-p); the contract of :func:`greedy_generate` plus ``key``, from
+    which the first token (after the prefill) and each later one draw in
+    turn."""
+    check_key(key, prompt.device)
+    return _decode_loop(
+        prefill_fn, decode_fn, prompt, n_new, max_seq, max_len,
+        lambda lg: sample_logits(lg.float(), key, temperature, top_k, top_p))

@@ -18,8 +18,8 @@ dim 128, for which both kernels have their own instantiations.
 the framework's train step (``mpi_acx_torch/train.py``) runs the same
 blocks sequence-parallel, with B10 on every layer.
 
-Not ported yet: ``generate_sample`` and the training specs (ROADMAP.md
-§A).
+Not ported yet: the training specs (ROADMAP.md §A, 'multi-rank
+training').
 """
 
 from __future__ import annotations
@@ -34,7 +34,8 @@ import torch.nn.functional as F
 from mpi_acx_torch.device import resolve_device
 from mpi_acx_torch.models.decoding import (fill_kv_cache, greedy_generate,
                                            grouped_decode_attend,
-                                           run_decode_layers)
+                                           run_decode_layers,
+                                           sample_generate)
 # The JAX tree's converter and the device check are GPT-2's, leaf for leaf
 # (re-exported under the JAX package's names).
 from mpi_acx_torch.models.transformer import (  # noqa: F401
@@ -358,3 +359,22 @@ def generate(params: Params, cfg: LlamaConfig, prompt, n_new: int,
                                   kv_int8=kv_int8),
         lambda c, t: decode_step(params, cfg, c, t),
         prompt, n_new, cfg.max_seq, max_len)
+
+
+def generate_sample(params: Params, cfg: LlamaConfig, prompt, n_new: int,
+                    key: torch.Generator, temperature: float = 1.0,
+                    top_k: Optional[int] = None,
+                    top_p: Optional[float] = None,
+                    max_len: Optional[int] = None, kv_int8: bool = False,
+                    device=None):
+    """Stochastic decode (temperature / top-k / top-p nucleus) from
+    ``key``, a ``torch.Generator`` on ``device`` (``None`` means the
+    GPU)."""
+    dev = resolve_device(device)
+    check_device(params, dev)
+    prompt = torch.as_tensor(prompt, device=dev)
+    return sample_generate(
+        lambda t, ml, lo: prefill(params, cfg, t, ml, last_only=lo,
+                                  kv_int8=kv_int8),
+        lambda c, t: decode_step(params, cfg, c, t),
+        prompt, n_new, cfg.max_seq, key, temperature, top_k, top_p, max_len)

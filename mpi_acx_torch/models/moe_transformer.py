@@ -15,11 +15,9 @@ of a decode step (idle slots included). Cached decode reproduces the dense
 computation only where no token is dropped: serve with ``capacity_factor
 >= n_experts``.
 
-Not ported yet: ``generate_sample`` (ROADMAP.md §A, 'Sampling, int8
-weights and speculative decoding'), ``param_specs`` and
-``make_moe_transformer_train_step`` (DP+EP over all_to_all: 'multi-rank
-training'). The framework's train step (``mpi_acx_torch/train.py``) trains
-this family on one device.
+Not ported yet: ``param_specs`` and ``make_moe_transformer_train_step``
+(DP+EP over all_to_all: 'multi-rank training'). The framework's train
+step (``mpi_acx_torch/train.py``) trains this family on one device.
 """
 
 from __future__ import annotations
@@ -31,7 +29,7 @@ import torch
 
 from mpi_acx_torch.device import resolve_device
 from mpi_acx_torch.models import transformer as tfm
-from mpi_acx_torch.models.decoding import greedy_generate
+from mpi_acx_torch.models.decoding import greedy_generate, sample_generate
 from mpi_acx_torch.models.moe import (ALL_TO_ALL, MoeConfig, moe_layer,
                                       moe_layer_and_aux,
                                       moe_layer_replicated_ep,
@@ -267,11 +265,23 @@ def generate(params: Params, cfg: MoeTransformerConfig, prompt, n_new: int,
         prompt, n_new, cfg.max_seq, max_len)
 
 
-def generate_sample(*args, **kwargs):
-    """Stochastic decode: not ported yet."""
-    raise NotImplementedError(
-        "generate_sample is not ported yet (ROADMAP.md §A, 'Sampling, int8 "
-        "weights and speculative decoding')")
+def generate_sample(params: Params, cfg: MoeTransformerConfig, prompt,
+                    n_new: int, key: torch.Generator,
+                    temperature: float = 1.0, top_k: Optional[int] = None,
+                    top_p: Optional[float] = None,
+                    max_len: Optional[int] = None, kv_int8: bool = False,
+                    device=None):
+    """Stochastic decode (temperature / top-k / top-p nucleus) from
+    ``key``, a ``torch.Generator`` on ``device`` (``None`` means the
+    GPU)."""
+    dev = resolve_device(device)
+    check_device(params, dev)
+    prompt = torch.as_tensor(prompt, device=dev)
+    return sample_generate(
+        lambda t, ml, lo: prefill(params, cfg, t, ml, last_only=lo,
+                                  kv_int8=kv_int8),
+        lambda c, t: decode_step(params, cfg, c, t),
+        prompt, n_new, cfg.max_seq, key, temperature, top_k, top_p, max_len)
 
 
 def param_specs(ep_axis: str = "dp"):

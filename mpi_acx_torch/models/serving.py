@@ -1,5 +1,5 @@
-"""Continuous-batching serving loop (single device): the greedy path of the
-JAX package's ``models/serving.py``.
+"""Continuous-batching serving loop (single device): the fixed-slot and
+paged servers of the JAX package's ``models/serving.py``.
 
 B cache slots decode in lockstep as one batched step while a host-side
 scheduler swaps finished requests out and queued prompts in mid-stream,
@@ -12,24 +12,28 @@ rows are never attended (they sit past ``pos[b]`` until decode overwrites
 them).
 
 Slot caches are bf16/f32 or int8 (``kv_int8``, ops/kvquant.py).
+:func:`serve_sample` samples (temperature / top-k / top-p) where
+:func:`serve_greedy` takes the argmax: request ``rid`` draws from its own
+generator, seeded ``decoding.fold_in(key, rid)``, so its tokens equal its
+solo ``generate_sample`` run's whatever the schedule.
 :func:`serve_paged_greedy` serves the same way over a paged KV cache
 (models/kvpage.py): slots share a pool of fixed-size pages through block
 tables, with typed admission against the page budget, lazy page growth and
 preemption, radix prefix sharing, an SLO admission gate and per-token
 streaming.
 
-Not ported yet (each raises ``NotImplementedError`` or is absent, and is
-listed in ROADMAP.md): ``serve_sample``, and the native-runtime hooks
-(flight dumps, fleet membership and slot shedding, telemetry annotation,
-causal spans), which come with the serving-to-runtime hooks. Without them
-a failed step charges every victim's retry budget and no slot is ever
-shed. The paged server does publish its page counters to the native
-metrics registry when the port's runtime binding is already loaded.
+Not ported yet (absent, and listed in ROADMAP.md): the native-runtime
+hooks (flight dumps, fleet membership and slot shedding, telemetry
+annotation, causal spans), which come with the serving-to-runtime hooks.
+Without them a failed step charges every victim's retry budget and no
+slot is ever shed. The paged server does publish its page counters to the
+native metrics registry when the port's runtime binding is already loaded.
 """
 
 from __future__ import annotations
 
 import math
+import operator
 import os
 import time
 from collections import deque
@@ -41,6 +45,8 @@ import torch
 
 from mpi_acx_torch import reqlog
 from mpi_acx_torch.device import resolve_device
+from mpi_acx_torch.models.decoding import (filter_logits, fold_in, gumbel,
+                                           key_generator, sample_logits)
 from mpi_acx_torch.ops.kvquant import kv_quant
 
 
@@ -235,20 +241,27 @@ def _bucket(n: int, lo: int = 8) -> int:
 
 
 def make_server_fns(params, cfg, family, chunk: int = 1,
-                    kv_int8: bool = False):
+                    kv_int8: bool = False, sample_cfg=None):
     """The serve loop's closures: returns (prefill_fn, step_fn, scatter_fn,
-    chunk, kv_int8); the trailing values let the serve call refuse a tuple
-    built for another chunk or cache type. ``family`` is the model module
-    (models.transformer, models.llama or models.moe_transformer, or any
-    module exposing prefill/decode_step/init_kv_cache with the shared cache
-    layout: [L, B, max_len, heads, Dh] per key, where Llama's heads are its
-    KV groups).
+    chunk, kv_int8, sample_cfg); the trailing values let the serve call
+    refuse a tuple built for another chunk, cache type or sampling
+    setting. ``family`` is the model module (models.transformer,
+    models.llama or models.moe_transformer, or any module exposing
+    prefill/decode_step/init_kv_cache with the shared cache layout: [L, B,
+    max_len, heads, Dh] per key, where Llama's heads are its KV groups).
 
     ``chunk`` > 1 runs that many decode steps per host round trip,
     returning the [chunk, B] token block; the scheduler then reacts every
     ``chunk`` tokens. The tokens are identical to stepwise decoding; the
     cost is scheduling granularity (a finished slot idles until the chunk
-    boundary)."""
+    boundary).
+
+    ``sample_cfg`` = (temperature, top_k, top_p) makes the step sample
+    instead of taking the argmax: ``step_fn(cache, tok, keys)`` then takes
+    one ``torch.Generator`` per slot (``None`` for an idle slot) and each
+    slot draws its ``[1, vocab]`` Gumbel noise from its own generator at
+    every step, as a solo ``sample_generate`` run with that generator
+    does."""
 
     def prefill_fn(tokens, last):
         """[1, S_bucket], real last index -> (logits [1, 1, vocab],
@@ -256,11 +269,26 @@ def make_server_fns(params, cfg, family, chunk: int = 1,
         return family.prefill(params, cfg, tokens, tokens.shape[1],
                               kv_int8=kv_int8, last_index=last)
 
-    def step_fn(cache, tok):
+    if sample_cfg is None:
+        def pick(logits, keys):
+            return logits.argmax(dim=-1).to(torch.int32)
+    else:
+        temperature, top_k, top_p = sample_cfg
+
+        def pick(logits, keys):
+            if temperature == 0.0:
+                return logits.argmax(dim=-1).to(torch.int32)
+            f = filter_logits(logits.float(), temperature, top_k, top_p)
+            row = (1, f.shape[-1])
+            g = torch.cat([gumbel(row, k) if k is not None
+                           else f.new_zeros(row) for k in keys])
+            return (f + g).argmax(dim=-1).to(torch.int32)
+
+    def step_fn(cache, tok, keys=None):
         toks = []
         for _ in range(chunk):
             logits, cache = family.decode_step(params, cfg, cache, tok)
-            tok = logits.argmax(dim=-1).to(torch.int32)
+            tok = pick(logits, keys)
             toks.append(tok)
         return cache, torch.stack(toks)                # toks [chunk, B]
 
@@ -276,7 +304,7 @@ def make_server_fns(params, cfg, family, chunk: int = 1,
         slots["pos"][slot_idx] = new_pos
         return slots
 
-    return prefill_fn, step_fn, scatter_fn, chunk, kv_int8
+    return prefill_fn, step_fn, scatter_fn, chunk, kv_int8, sample_cfg
 
 
 def _normalize_requests(prompts, n_new):
@@ -298,12 +326,16 @@ def _normalize_requests(prompts, n_new):
 
 
 def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
-           chunk, server_fns, kv_int8, dev, max_request_retries=2):
-    """The scheduler: queue, slot ownership, chunk-block consumption,
-    retire/refill. A request whose prefill or step raised is re-queued
-    from scratch (emitted tokens discarded, so the restart replays the
-    same greedy path) up to ``max_request_retries`` times before the
-    failure is re-raised with the request id attached."""
+           chunk, server_fns, kv_int8, sample_cfg, key, dev,
+           max_request_retries=2):
+    """The scheduler shared by serve_greedy and serve_sample: queue, slot
+    ownership, chunk-block consumption, retire/refill. Sampling changes
+    only how a token is picked (the step's ``pick``, the refill's first
+    draw) and gives each seated request its generator. A request whose
+    prefill or step raised is re-queued from scratch (emitted tokens
+    discarded and its generator seeded anew, so the restart replays the
+    same path) up to ``max_request_retries`` times before the failure is
+    re-raised with the request id attached."""
     n_new = _normalize_requests(prompts, n_new)
 
     rejected: Dict[int, RequestRejected] = {}
@@ -317,14 +349,18 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
 
     if server_fns is None:
         server_fns = make_server_fns(params, cfg, family, chunk=chunk,
-                                     kv_int8=kv_int8)
-    prefill_fn, step_fn, scatter_fn, fns_chunk, fns_int8 = server_fns
+                                     kv_int8=kv_int8, sample_cfg=sample_cfg)
+    (prefill_fn, step_fn, scatter_fn, fns_chunk, fns_int8,
+     fns_sample) = server_fns
     if fns_chunk != chunk:
         raise ValueError(f"server_fns built for chunk={fns_chunk}, this call "
                          f"uses chunk={chunk}")
     if fns_int8 != kv_int8:
         raise ValueError("server_fns built with a different kv_int8 than "
                          "this call")
+    if fns_sample != sample_cfg:
+        raise ValueError(f"server_fns built for different sampling settings "
+                         f"({fns_sample} vs {sample_cfg})")
 
     def fresh_slots():
         s = family.init_kv_cache(cfg, n_slots, max_len, kv_int8=kv_int8,
@@ -343,6 +379,8 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
     for rid, rej in rejected.items():
         done[rid] = rej
     last_tok = np.zeros((n_slots,), np.int32)
+    # Each seated request's generator (sampling); None for an idle slot.
+    keys: List[Optional[torch.Generator]] = [None] * n_slots
     attempts = [0] * len(prompts)
 
     # All requests arrive at entry, so queue wait counts toward TTFT.
@@ -389,7 +427,12 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
                     bucket=padded.shape[1])
         try:
             logits, one = prefill_fn(torch.from_numpy(padded).to(dev), S - 1)
-            first = int(logits[0, 0].argmax())
+            if sample_cfg is None:
+                first = int(logits[0, 0].argmax())
+            else:
+                keys[b] = key_generator(fold_in(key, rid), dev)
+                first = int(sample_logits(logits[0, 0][None].float(),
+                                          keys[b], *sample_cfg)[0])
             slots = scatter_fn(slots, one, b, S)
         except Exception as exc:  # noqa: BLE001 — any device failure
             _requeue(rid, prompt, exc)
@@ -414,6 +457,7 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
         reqlog.emit("finish", rid, new_tokens=len(emitted[rid]),
                     latency_s=finish[rid])
         owner[b] = -1
+        keys[b] = None
         # Park the freed slot at pos 0: an idle slot keeps stepping in the
         # batch, and a stale pos would walk toward max_len.
         slots["pos"][b] = 0
@@ -446,7 +490,8 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
             continue
         step_t0 = time.perf_counter()
         try:
-            slots, toks = step_fn(slots, torch.from_numpy(last_tok).to(dev))
+            slots, toks = step_fn(slots, torch.from_numpy(last_tok).to(dev),
+                                  keys)
             block = toks.cpu().numpy()               # [chunk, B]; syncs
         except Exception as exc:  # noqa: BLE001 — any device failure
             # The slot cache is updated in place, so after a failed step it
@@ -458,6 +503,7 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
                     owner[b] = -1
                     _requeue(rid, np.asarray(prompts[rid], np.int32), exc)
             slots = fresh_slots()
+            keys = [None] * n_slots
             last_tok = np.zeros((n_slots,), np.int32)
             continue
         # The copy to the host waited for the device, so this dt covers
@@ -570,13 +616,38 @@ def serve_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
         from mpi_acx_torch.models import transformer as fam  # noqa: N813
     fam.check_device(params, dev)
     return _serve(params, cfg, prompts, n_new, n_slots, max_len, fam, eos,
-                  chunk, server_fns, kv_int8, dev,
+                  chunk, server_fns, kv_int8, None, None, dev,
                   max_request_retries=max_request_retries)
 
 
-def serve_sample(*args, **kwargs):
-    """Stochastic continuous batching: not ported yet."""
-    raise NotImplementedError("serve_sample is not ported yet")
+def serve_sample(params, cfg, prompts: Sequence[np.ndarray], n_new,
+                 n_slots: int, max_len: int, key: int, family=None,
+                 temperature: float = 1.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None, eos: Optional[int] = None,
+                 chunk: int = 1, server_fns=None, kv_int8: bool = False,
+                 max_request_retries: int = 2, device=None) -> ServedBatch:
+    """Stochastic continuous batching (temperature / top-k / top-p).
+
+    ``key`` is an integer (the JAX function's PRNG key). Request ``rid``
+    draws from its own generator on ``device``, seeded
+    ``decoding.fold_in(key, rid)``: its first token at refill, one more at
+    each step, in the order of the solo run. So each output equals the solo
+    ``family.generate_sample(params, cfg, prompt[None], n, key=
+    decoding.key_generator(decoding.fold_in(key, rid), device), ...)`` run
+    (up to floating-point ties between its batched and solo logits), and
+    the scheduler (slots, refill order, chunk) cannot perturb any
+    request's sample path. ``temperature=0`` is the argmax. Everything
+    else (parameters, the ``ServedBatch`` and its telemetry) as
+    :func:`serve_greedy`."""
+    dev = resolve_device(device)
+    fam = family
+    if fam is None:
+        from mpi_acx_torch.models import transformer as fam  # noqa: N813
+    fam.check_device(params, dev)
+    return _serve(params, cfg, prompts, n_new, n_slots, max_len, fam, eos,
+                  chunk, server_fns, kv_int8, (temperature, top_k, top_p),
+                  operator.index(key), dev,
+                  max_request_retries=max_request_retries)
 
 
 

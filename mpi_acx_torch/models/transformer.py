@@ -27,7 +27,8 @@ import torch.nn.functional as F
 from mpi_acx_torch.device import on_device, resolve_device
 from mpi_acx_torch.models.decoding import (fill_kv_cache, greedy_generate,
                                            grouped_decode_attend,
-                                           run_decode_layers)
+                                           run_decode_layers,
+                                           sample_generate)
 from mpi_acx_torch.ops.attention import select_attention
 from mpi_acx_torch.ops.wquant import wread
 from mpi_acx_torch.ops.xent import chunked_xent_ll
@@ -360,3 +361,23 @@ def generate(params: Params, cfg: TransformerConfig, prompt, n_new: int,
                                   kv_int8=kv_int8),
         lambda c, t: decode_step(params, cfg, c, t),
         prompt, n_new, cfg.max_seq, max_len)
+
+
+def generate_sample(params: Params, cfg: TransformerConfig, prompt,
+                    n_new: int, key: torch.Generator,
+                    temperature: float = 1.0, top_k: Optional[int] = None,
+                    top_p: Optional[float] = None,
+                    max_len: Optional[int] = None, kv_int8: bool = False,
+                    device=None):
+    """Stochastic decode (temperature / top-k / top-p nucleus): prompt
+    [B, S] -> [B, S + n_new] on ``device`` (``None`` means the GPU),
+    drawing from ``key``, a ``torch.Generator`` there
+    (models/decoding.py:sample_generate)."""
+    dev = resolve_device(device)
+    check_device(params, dev)
+    prompt = torch.as_tensor(prompt, device=dev)
+    return sample_generate(
+        lambda t, ml, lo: prefill(params, cfg, t, ml, last_only=lo,
+                                  kv_int8=kv_int8),
+        lambda c, t: decode_step(params, cfg, c, t),
+        prompt, n_new, cfg.max_seq, key, temperature, top_k, top_p, max_len)

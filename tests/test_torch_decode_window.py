@@ -5,14 +5,15 @@ W = k is speculative decoding's target pass, models/speculative.py).
 Both loops get the same layers, hidden states and caches (numpy seed 0)
 and the same qkv/attend callables written in each framework. q/k/v are
 elementwise products of the first 3 H D hidden values, which no layer
-changes (no matmul), so both sides write the same cache rows bit for bit;
-attention is each package's dense decode reference, whose output each
-layer adds to the last H D values. Checked: every cache tensor bit-equal and the returned x within
-1e-5 (f32) or bf16's 4e-2, at W of 1, 3 and 4, scalar and per-slot
-positions (one slot at ``max_len - W + 1``, where the write starts at
-``max_len - W`` as ``dynamic_update_slice`` clamps it), over f32, bf16 and
-int8 caches. The JAX loop is jitted, as every JAX decode path runs it (its
-``kv_quant`` is then the jitted form the port copies).
+changes (no matmul), so both sides write the same cache rows bit for
+bit; attention is each package's dense decode reference, whose output
+each layer adds to the last H D values. Checked: every cache tensor
+bit-equal and the returned x within 1e-5 (f32) or bf16's 4e-2, at W of 1,
+3 and 4, scalar and per-slot positions (one slot at ``max_len - W + 1``,
+where the write starts at ``max_len - W`` as ``dynamic_update_slice``
+clamps it), over f32, bf16 and int8 caches. The JAX loop is jitted, as
+every JAX decode path runs it (its ``kv_quant`` is then the jitted form
+the port copies).
 """
 
 import jax

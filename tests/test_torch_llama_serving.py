@@ -83,7 +83,7 @@ def test_slot_cache_is_gqa_and_scatter_lands_rows(models):
     """The server's slot cache holds the KV groups ([L, B, max_len, Hkv,
     Dh]) and a prefilled request lands in its slot's rows."""
     _, _, tcfg, tparams = models
-    prefill_fn, _, scatter_fn, _, _ = ts.make_server_fns(
+    prefill_fn, _, scatter_fn, _, _, _ = ts.make_server_fns(
         tparams, tcfg, tl, chunk=1, kv_int8=True)
     slots = tl.init_kv_cache(tcfg, 3, 16, kv_int8=True, device="cpu")
     slots["pos"] = torch.zeros(3, dtype=torch.int32)

@@ -250,8 +250,19 @@ def test_quantized_experts_are_refused():
 
 
 def test_generate_sample_is_not_ported():
-    with pytest.raises(NotImplementedError, match="'Sampling"):
-        tm.generate_sample(None, tm.tiny_moe_config(), None, 1, None)
+    """generate_sample, once a stub that raised, is ported: at temperature
+    0 it is the greedy decode (tests/test_torch_sampling.py holds its
+    draws)."""
+    cfg = tm.tiny_moe_config(vocab=31, d_model=16, n_heads=2, n_layers=1,
+                             d_ff=16, n_experts=4, capacity_factor=4.0,
+                             max_seq=16)
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    params = tm.init_params(cfg, seed=0, device="cpu")
+    prompt = torch.arange(4, dtype=torch.int32)[None]
+    got = tm.generate_sample(params, cfg, prompt, 5, torch.Generator(),
+                             temperature=0.0, device="cpu")
+    np.testing.assert_array_equal(
+        got.numpy(), tm.generate(params, cfg, prompt, 5, device="cpu").numpy())
 
 
 @pytest.fixture(scope="module")

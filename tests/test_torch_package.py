@@ -23,6 +23,7 @@ from mpi_acx_torch.models import llama as tl
 from mpi_acx_torch.models import moe as tmoe
 from mpi_acx_torch.models import moe_transformer as tmt
 from mpi_acx_torch.models import serving as ts
+from mpi_acx_torch.models import speculative as tsp
 from mpi_acx_torch.models import transformer as tt
 from mpi_acx_torch.ops import _build
 from mpi_acx_torch.ops import attention as tattn
@@ -44,7 +45,8 @@ def _imported_modules(path):
 
 def test_port_imports_no_jax():
     assert len(PORT_FILES) >= 29
-    for name in ("llama.py", "moe.py", "moe_transformer.py"):
+    for name in ("llama.py", "moe.py", "moe_transformer.py",
+                 "speculative.py"):
         assert ROOT / "mpi_acx_torch" / "models" / name in PORT_FILES
     bad = [(p.relative_to(ROOT), m) for p in PORT_FILES
            for m in _imported_modules(p)
@@ -58,9 +60,9 @@ def test_import_loads_neither_jax_nor_cuda():
         "from mpi_acx_torch import checkpoint, data, device, reqlog, "
         "runtime, train, triggers\n"
         "from mpi_acx_torch.models import decoding, kvpage, llama, moe, "
-        "moe_transformer, serving, transformer\n"
+        "moe_transformer, serving, speculative, transformer\n"
         "from mpi_acx_torch.ops import _build, attention, flags, "
-        "flash_decode, kvquant, xent\n"
+        "flash_decode, kvquant, wquant, xent\n"
         "from mpi_acx_torch.parallel import collective, mesh, pipeline, "
         "ring_attention\n"
         "import mpi_acx_torch.models as m; m.serve_greedy; m.gpt2_small\n"
@@ -128,6 +130,21 @@ ENTRY_POINTS = {
         n_slots=1, max_len=8, family=tmt),
     "moe_transformer.make_train_step": lambda cfg, p:
         ttrain.make_train_step(_tiny_moe(), _mesh(), 1),
+    "generate_sample": lambda cfg, p: tt.generate_sample(
+        p, cfg, np.zeros((1, 3), np.int32), 2, torch.Generator()),
+    "llama.generate_sample": lambda cfg, p: tl.generate_sample(
+        _llama_params(), _tiny_llama(), np.zeros((1, 3), np.int32), 2,
+        torch.Generator()),
+    "moe_transformer.generate_sample": lambda cfg, p: tmt.generate_sample(
+        _moe_params(), _tiny_moe(), np.zeros((1, 3), np.int32), 2,
+        torch.Generator()),
+    "serve_sample": lambda cfg, p: ts.serve_sample(
+        p, cfg, [np.arange(3, dtype=np.int32)], 2, n_slots=1, max_len=8,
+        key=0),
+    "speculative_generate": lambda cfg, p: tsp.speculative_generate(
+        p, cfg, p, cfg, np.zeros((1, 3), np.int32), 2),
+    "speculative_sample": lambda cfg, p: tsp.speculative_sample(
+        p, cfg, p, cfg, np.zeros((1, 3), np.int32), 2, torch.Generator()),
 }
 
 
@@ -210,6 +227,32 @@ def test_llama_on_cpu_tensors_leaves_launch_counts_at_zero():
                               max_len=16, kv_int8=kv_int8, family=tl,
                               device="cpu")
         assert len(out) == 3
+    for fn, attr in counters:
+        assert getattr(fn, attr) == 0, (fn.__name__, attr)
+
+
+def test_sampling_and_speculation_on_cpu_leave_launch_counts_at_zero():
+    """serve_sample and both speculative loops (Llama's window pass runs
+    the decode attention with W = k) on the CPU: the plain versions run,
+    no launch of any form is counted."""
+    counters = [(tattn.flash_attention, "launches"),
+                (tattn.flash_attention, "launches_d128"),
+                (tfd.flash_decode_attend, "launches"),
+                (tfd.flash_decode_attend, "launches_int8"),
+                (tfd.flash_decode_attend, "launches_d128"),
+                (tfd.flash_decode_attend, "launches_int8_d128")]
+    for fn, attr in counters:
+        setattr(fn, attr, 0)
+    cfg, params = _tiny_llama(), _llama_params()
+    prompts = [np.arange(5, dtype=np.int32)] * 3
+    out = ts.serve_sample(params, cfg, prompts, 4, n_slots=2, max_len=16,
+                          key=1, family=tl, kv_int8=True, device="cpu")
+    assert len(out) == 3
+    prompt = np.zeros((2, 4), np.int32)
+    tsp.speculative_generate(params, cfg, params, cfg, prompt, 6,
+                             device="cpu")
+    tsp.speculative_sample(params, cfg, params, cfg, prompt, 6,
+                           torch.Generator(), device="cpu")
     for fn, attr in counters:
         assert getattr(fn, attr) == 0, (fn.__name__, attr)
 

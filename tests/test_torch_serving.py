@@ -150,14 +150,15 @@ def test_failed_prefill_requeues_then_raises(models):
 
 
 def test_not_yet_ported_paths_raise(models):
-    """serve_sample is still to port; int8 slot caches and the paged
-    server, once on this list, now serve (tests/test_torch_kvquant.py and
-    tests/test_torch_paged_serving.py hold them to the JAX package)."""
+    """Every path once on this list now serves: serve_sample
+    (tests/test_torch_sample_serving.py holds it to the solo runs and to
+    the JAX server), int8 slot caches and the paged server
+    (tests/test_torch_kvquant.py, tests/test_torch_paged_serving.py)."""
     _, _, tcfg, tparams = models
-    with pytest.raises(NotImplementedError):
-        ts.serve_sample(tparams, tcfg, [], 1, 1, 16, None)
     prompts = _prompts(7, 1, [4])
-    for out in (ts.serve_greedy(tparams, tcfg, prompts, 2, n_slots=1,
+    for out in (ts.serve_sample(tparams, tcfg, prompts, 2, n_slots=1,
+                                max_len=16, key=3, device="cpu"),
+                ts.serve_greedy(tparams, tcfg, prompts, 2, n_slots=1,
                                 max_len=16, kv_int8=True, device="cpu"),
                 ts.serve_paged_greedy(tparams, tcfg, prompts, 2, n_slots=1,
                                       max_len=16, device="cpu")):
