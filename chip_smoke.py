@@ -167,6 +167,32 @@ in the repository. Phases, each of which exits non-zero on failure:
              backward, through the streaming entry at both head dims; then
              B10 and B7 at both head dims timed like phase 5, and one
              blockwise attention backward per layer at each.
+5e. train entry — (after 5d; its files under build/, removed after) the
+             training entry point at full width, held to 5b-5d's GPipe
+             kernel runs: (a) GPT-2 124M fed from a uint16 ramp token
+             file through TokenDataset, batches(seed=0) and prefetch onto
+             the card, 5 AdamW steps whose losses must equal those of the
+             same windows handed over as tensors made on the card; two
+             such direct runs set the limit (0 if the step is
+             deterministic: bit-equal); (b) a checkpoint saved after
+             step 2 with wait=False, restored into a fresh model and
+             AdamW, steps 3-4 run: losses and final parameters equal to
+             the uninterrupted run's within that limit, the checkpoint's
+             bytes and save/wait/restore ms printed; (c) StepTimer's
+             summary over (a)'s steps, and a trace of one more step in
+             which the annotation 'train_step' must be found; (d) 5 steps
+             each of GPipe (again, the same-call baseline), remat,
+             n_virtual=2, 1f1b and 1f1b with n_virtual=2 from 5b's init
+             and batch, losses within TOL_TRAIN_LOSS0 / TOL_TRAIN_LOSS
+             of 5b's; (e) GPipe and 1F1B, 2 steps each at
+             M = 2 and 8: 1F1B's peak at M = 8 within FLAT_TOL of its
+             peak at M = 2 and below GPipe's at M = 8; (f) Llama-3-8B (4
+             layers) under remat and 1f1b, held to 5d's, each peak
+             printed beside 5d's; (g) MoE under 1f1b (the router-aux
+             seeds), held to 5c's. In every run B10's launches must be
+             exactly what the port's schedule gives (b10_per_step: 1F1B
+             re-runs each chunk for its backward, remat recomputes each
+             layer), ms per step and peak memory printed.
 6. flags   — the flag kernels B1-B5 (csrc/flags.cu) against their plain
              versions with exact equality over tables of 1 to 4096 slots,
              indices in and out of range, repeated, as ints and as tensors
@@ -2804,37 +2830,51 @@ def phase_moe(card_str, k2_ms) -> dict:
 TRAIN_M, TRAIN_STEPS, TRAIN_LR = 2, 5, 1e-3
 
 
-def ramp_batch(vocab):
+def ramp_batch(vocab, m=TRAIN_M):
     """The synthetic task of examples/train_distributed.py: predict the
-    next token of a ramp, [M, mb, S] tokens and targets, made on the
+    next token of a ramp, [m, mb, S] tokens and targets, made on the
     card."""
     dev = "cuda"
     base = (torch.arange(TRAIN_S, device=dev)[None, None, :]
             + torch.arange(TRAIN_B, device=dev)[None, :, None])
-    tokens = (base + torch.arange(TRAIN_M, device=dev)[:, None, None]) % vocab
+    tokens = (base + torch.arange(m, device=dev)[:, None, None]) % vocab
     return tokens, torch.roll(tokens, -1, dims=-1)
 
 
-def train_run(cfg, params, batch, lr=TRAIN_LR):
-    """TRAIN_STEPS AdamW steps (learning rate ``lr``) of the port's train
-    step on ``params`` (stage-sliced, updated in place): per-step losses,
+def adamw(params, lr=TRAIN_LR):
+    """The training phases' AdamW over the parameters' tensors."""
+    from mpi_acx_torch import train
+    return torch.optim.AdamW(train.param_leaves(params), lr=lr,
+                             betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
+
+
+def one_stage_mesh():
+    from mpi_acx_torch.parallel.mesh import mesh_from_devices
+    return mesh_from_devices({"dp": 1, "pp": 1, "tp": 1})
+
+
+def train_run(cfg, params, batch, lr=TRAIN_LR, steps=TRAIN_STEPS,
+              final=True, **options):
+    """``steps`` AdamW steps (learning rate ``lr``) of the port's train
+    step, with its pipeline ``options`` (remat, n_virtual, schedule), on
+    ``params`` (stage-sliced, updated in place): per-step losses,
     per-step host
     seconds (each ends in a synchronize), the launch counts of the
     attention kernels over the steps, the peak device memory, the loss
-    after the last step, and the step and params (for one more step)."""
+    after the last step (when ``final``), and the step and params (for
+    one more step)."""
     from mpi_acx_torch import train
-    from mpi_acx_torch.parallel.mesh import mesh_from_devices
-    opt = torch.optim.AdamW(train.param_leaves(params), lr=lr,
-                            betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
-    mesh = mesh_from_devices({"dp": 1, "pp": 1, "tp": 1})
-    step, n_stages = train.make_train_step_optim(cfg, mesh, TRAIN_M, opt)
+    mesh = one_stage_mesh()
+    n_micro = batch[0].shape[0]
+    step, n_stages = train.make_train_step_optim(
+        cfg, mesh, n_micro, adamw(params, lr), **options)
     if n_stages != 1:
         fail(f"train step has {n_stages} stages on a 1x1x1 mesh")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     losses, secs = [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         loss, params = step(params, *batch)
         losses.append(loss.item())              # synchronizes
@@ -2843,8 +2883,9 @@ def train_run(cfg, params, batch, lr=TRAIN_LR):
     from mpi_acx_torch.ops.attention import flash_attention
     copies = flash_attention.copies
     peak = torch.cuda.max_memory_allocated()
-    grad_fn, _ = train.make_loss_and_grads(cfg, mesh, TRAIN_M)
-    final = grad_fn(params, *batch)[0].item()
+    if final:
+        grad_fn, _ = train.make_loss_and_grads(cfg, mesh, n_micro, **options)
+        final = grad_fn(params, *batch)[0].item()
     return dict(losses=losses, secs=secs, counts=counts, copies=copies,
                 peak=peak, final=final, step=step, params=params)
 
@@ -2921,7 +2962,7 @@ def train_phase(card_str, label, cfg, make_init, around_kernel_run=None,
     none in the dense one; step time, tokens/s and each run's peak memory
     printed. ``around_kernel_run`` is a context manager entered around the
     kernel run; ``lr`` is AdamW's learning rate. Returns the kernel run's
-    launch counts."""
+    launch counts, per-step losses, step seconds and peak memory."""
     from mpi_acx_torch import train
     plain = dataclasses.replace(cfg, use_flash=False)
     batch = ramp_batch(cfg.vocab)
@@ -2981,19 +3022,33 @@ def train_phase(card_str, label, cfg, make_init, around_kernel_run=None,
               f"(mean of steps 1-{TRAIN_STEPS - 1}), "
               f"{n_tok / ms * 1e3:.0f} tokens/s, peak memory "
               f"{r['peak'] / 2 ** 30:.2f} GiB [{card_str}]", flush=True)
-    return kern["counts"]
+    return {k: kern[k] for k in ("counts", "losses", "peak", "secs")}
 
 
-def phase_train(card_str) -> dict:
+def staged(params, n_virtual=1):
+    """``params`` stage-sliced for the one-stage mesh, interleaved into
+    ``n_virtual`` chunks above 1."""
+    from mpi_acx_torch.models import transformer as tfm
+    if n_virtual > 1:
+        return tfm.stage_slice_interleaved(params, 1, n_virtual)
+    return tfm.stage_slice(params, 1)
+
+
+def gpt2_init(n_virtual=1):
+    """GPT-2 124M's seed-0 f32 parameters drawn on the card, staged."""
+    from mpi_acx_torch.models import transformer as tfm
+    return staged(tfm.init_params(dataclasses.replace(
+        tfm.gpt2_small(), dtype=torch.float32), seed=0), n_virtual)
+
+
+def phase_train(card_str):
     """Phase 5b: GPT-2 124M at full width and depth (seed-0 f32 params,
     bf16 compute) trained through the port's train step on a 1x1x1 mesh
-    (:func:`train_phase`). Returns B10's launch count in the kernel run."""
+    (:func:`train_phase`). Returns B10's launch count in the kernel run,
+    and that run (its losses and peak)."""
     from mpi_acx_torch.models import transformer as tfm
-    cfg = tfm.gpt2_small()
-    counts = train_phase(card_str, "GPT-2 124M", cfg, lambda: tfm.stage_slice(
-        tfm.init_params(dataclasses.replace(cfg, dtype=torch.float32),
-                        seed=0), 1))
-    return {"flash_attention_lse": counts["flash_attention_lse"]}
+    run = train_phase(card_str, "GPT-2 124M", tfm.gpt2_small(), gpt2_init)
+    return {"flash_attention_lse": run["counts"]["flash_attention_lse"]}, run
 
 
 def phase_moe_train(card_str) -> dict:
@@ -3002,15 +3057,13 @@ def phase_moe_train(card_str) -> dict:
     phase 5b trains GPT-2 (:func:`train_phase`; router loss weights at the
     train step's defaults), with each step's load-balance term printed
     (the mean over its router calls, read from the gates the kernel run
-    routed with). Returns B10's launch count in the kernel run."""
+    routed with). Returns B10's launch count in the kernel run, and that
+    run."""
     from mpi_acx_torch.models import moe, moe_transformer as mtf
-    from mpi_acx_torch.models import transformer as tfm
     cfg = mtf.MoeTransformerConfig()
     log = []
-    counts = train_phase(
-        card_str, "MoE", cfg, lambda: tfm.stage_slice(mtf.init_params(
-            dataclasses.replace(cfg, dtype=torch.float32), seed=0), 1),
-        around_kernel_run=recorded_routes(log))
+    run = train_phase(card_str, "MoE", cfg, lambda: moe_init(cfg),
+                      around_kernel_run=recorded_routes(log))
     calls = cfg.n_layers * TRAIN_M      # router calls a step
     for i in range((len(log)) // calls):
         lb = torch.stack([moe.load_balance_loss(g, k) for g, k in
@@ -3018,7 +3071,14 @@ def phase_moe_train(card_str) -> dict:
         when = f"step {i}" if i < TRAIN_STEPS else f"after {TRAIN_STEPS} steps"
         print(f"MoE train {when}: load-balance term {lb:.6f} (mean over "
               f"{calls} router calls; 1.0 is uniform routing)", flush=True)
-    return {"flash_attention_lse": counts["flash_attention_lse"]}
+    return {"flash_attention_lse": run["counts"]["flash_attention_lse"]}, run
+
+
+def moe_init(cfg):
+    """The MoE configuration's seed-0 f32 parameters on the card, staged."""
+    from mpi_acx_torch.models import moe_transformer as mtf
+    return staged(mtf.init_params(dataclasses.replace(
+        cfg, dtype=torch.float32), seed=0))
 
 
 LLAMA_TRAIN_LAYERS = 4      # of Llama-3-8B's 32: the one cut of phase 5d
@@ -3038,15 +3098,330 @@ def phase_llama_train(card_str) -> dict:
     cut to LLAMA_TRAIN_LAYERS layers, seed-0 f32 parameters drawn on the
     card, bf16 compute, trained as phase 5b trains GPT-2
     (:func:`train_phase`) at LLAMA_TRAIN_LR. Returns B10's D = 128 launch
-    count in the kernel run."""
+    count in the kernel run, and that run."""
+    cfg = llama_train_config()
+    run = train_phase(card_str, "Llama-3-8B (4 layers)", cfg,
+                      lambda: llama_init(cfg), lr=LLAMA_TRAIN_LR)
+    return ({"flash_attention_lse_d128":
+             run["counts"]["flash_attention_lse_d128"]}, run)
+
+
+def llama_train_config():
     from mpi_acx_torch.models import llama
+    return dataclasses.replace(llama.llama3_8b(), n_layers=LLAMA_TRAIN_LAYERS)
+
+
+def llama_init(cfg):
+    """Phase 5d's seed-0 f32 parameters drawn on the card, staged."""
+    from mpi_acx_torch.models import llama
+    return staged(llama.init_params(cfg, seed=0, dtype=torch.float32))
+
+
+# --- phase 5e --------------------------------------------------------------
+
+ENTRY_DIR = ROOT / "build" / "smoke_train_entry"   # 5e's files, removed after
+SAVE_STEP = 2           # 5e (b): saved after step 2 of 0-4, resumed at 3
+# 5e (d): GPipe again first, so that every option's step time is read
+# beside it under the same conditions.
+SCHEDULES = {"gpipe": {}, "remat": dict(remat=True),
+             "n_virtual=2": dict(n_virtual=2), "1f1b": dict(schedule="1f1b"),
+             "1f1b, n_virtual=2": dict(schedule="1f1b", n_virtual=2)}
+FLAT_M = (2, 8)         # 5e (e): microbatches of TRAIN_B x TRAIN_S tokens
+# 5e (e): 1F1B's peak at M = 8 may exceed its peak at M = 2 by this share
+# of it. What grows with M under 1F1B is the embedded inputs, M x 4 x
+# 1024 x 768 bf16 (6.3 MB a microbatch), against a peak of gigabytes.
+FLAT_TOL = 0.10
+
+
+def b10_per_step(n_layers, n_micro, n_virtual=1, schedule="gpipe",
+                 remat=False) -> int:
+    """B10's launches in one train step on the one-stage mesh, read from
+    the port's own schedule: GPipe (interleaved or not) runs every layer
+    once a microbatch; 1F1B runs a chunk of n_layers / n_virtual layers at
+    each forward op of its timetable and again at each backward op, which
+    re-runs the chunk from its banked input; remat adds the recompute of
+    every layer that autograd back-propagates through."""
+    again = 2 if remat else 1
+    if schedule != "1f1b":
+        return n_layers * n_micro * again
+    from mpi_acx_torch.parallel.pipeline import _sched_1f1b_tables
+    sc = _sched_1f1b_tables(1, n_micro, n_virtual)
+    fwd = int((sc.f_m[0] >= 0).sum())
+    bwd = int((sc.b_m[0] >= 0).sum())
+    return n_layers // n_virtual * (fwd + bwd * again)
+
+
+def check_b10(label, counts, head_dim, want) -> int:
+    name = lse_form(head_dim)[0]
+    print(f"{label}: {name} launched {counts[name]} times (the schedule "
+          f"gives {want})", flush=True)
+    if counts[name] != want:
+        fail(f"{label}: {name} launched {counts[name]} times, want {want}")
+    return counts[name]
+
+
+def hold_losses(label, got, want) -> None:
+    """Per-step losses within TOL_TRAIN_LOSS0 (step 0) and
+    TOL_TRAIN_LOSS of a GPipe kernel run's."""
+    tols = [TOL_TRAIN_LOSS0] + [TOL_TRAIN_LOSS] * (len(got) - 1)
+    diffs = [abs(a - b) for a, b in zip(got, want)]
+    print(f"{label}: losses {', '.join(f'{x:.6f}' for x in got)}; |diff| "
+          f"to the GPipe kernel run {', '.join(f'{d:.3e}' for d in diffs)}"
+          f" (tol {TOL_TRAIN_LOSS0} at step 0, then {TOL_TRAIN_LOSS})",
+          flush=True)
+    if not all(math.isfinite(x) for x in got):
+        fail(f"{label}: a training loss is not finite")
+    if any(d > t for d, t in zip(diffs, tols)):
+        fail(f"{label}: the losses differ from the GPipe kernel run's")
+
+
+def option_run(label, cfg, init, ref, card_str, lr=TRAIN_LR, m=TRAIN_M,
+               steps=TRAIN_STEPS, **options) -> dict:
+    """``steps`` AdamW steps of the train step with ``options`` from
+    ``init`` on the ramp batch of ``m`` microbatches: the losses held to
+    ``ref`` (a GPipe kernel run's, when given), B10 held to the schedule's
+    count, K1's operand copies to none; ms per step and peak memory
+    printed. Returns the launch counts and the peak."""
+    run = train_run(cfg, init, ramp_batch(cfg.vocab, m), lr, steps=steps,
+                    final=False, **options)
+    del run["step"], run["params"]
+    torch.cuda.empty_cache()
+    if ref is not None:
+        hold_losses(label, run["losses"], ref)
+    check_b10(label, run["counts"], cfg.head_dim,
+              steps * b10_per_step(cfg.n_layers, m, **options))
+    check_no_copies(label, run["copies"])
+    ms = 1e3 * float(np.mean(run["secs"][1:]))
+    print(f"{label}: {ms:.1f} ms per step (mean of steps 1-{steps - 1}), "
+          f"M={m} x {TRAIN_B} x {TRAIN_S} tokens, peak memory "
+          f"{run['peak'] / 2 ** 30:.2f} GiB [{card_str}]", flush=True)
+    return run
+
+
+def same_state(label, got, want, limit) -> None:
+    """Losses (lists) or parameter leaves (tensors) equal within
+    ``limit`` (0: bit-equal)."""
+    worst = max((abs(a - b) if isinstance(a, float) else
+                 (a - b).abs().max().item()) for a, b in zip(got, want))
+    print(f"{label}: largest difference {worst:.3e} (limit {limit:.3e})",
+          flush=True)
+    if len(got) != len(want) or worst > limit:
+        fail(f"{label}: differs by {worst:.3e}, limit {limit:.3e}")
+
+
+def entry_data_checkpoint(card_str) -> int:
+    """5e (a)-(c) on GPT-2 124M at full width and depth: the ramp task
+    read from a uint16 token file through TokenDataset, batches(seed=0)
+    and prefetch onto the card; a checkpoint saved in the background and
+    resumed; StepTimer and a trace. Returns B10's launches."""
+    import itertools
+    import shutil
+    from mpi_acx_torch import checkpoint, data, profiling, train
     from mpi_acx_torch.models import transformer as tfm
-    cfg = dataclasses.replace(llama.llama3_8b(), n_layers=LLAMA_TRAIN_LAYERS)
-    counts = train_phase(card_str, "Llama-3-8B (4 layers)", cfg,
-                         lambda: tfm.stage_slice(llama.init_params(
-                             cfg, seed=0, dtype=torch.float32), 1),
-                         lr=LLAMA_TRAIN_LR)
-    return {"flash_attention_lse_d128": counts["flash_attention_lse_d128"]}
+    cfg = tfm.gpt2_small()
+    mesh = one_stage_mesh()
+    shape = (TRAIN_M, TRAIN_B, TRAIN_S + 1)
+    per_step = b10_per_step(cfg.n_layers, TRAIN_M)
+    shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    ENTRY_DIR.mkdir(parents=True)
+    path = ENTRY_DIR / "ramp.bin"
+    (np.arange(16 * cfg.vocab) % cfg.vocab).astype(np.uint16).tofile(path)
+    ds = data.TokenDataset(str(path))
+    launches = 0
+
+    def windows(skip=0):
+        return itertools.islice(data.batches(
+            ds, TRAIN_M * TRAIN_B, TRAIN_S, seed=0, n_batches=TRAIN_STEPS),
+            skip, None)
+
+    def on_card(feed):
+        return (torch.tensor(w, device="cuda") for w in feed)
+
+    def fresh():
+        params = gpt2_init()
+        opt = adamw(params)
+        return params, opt, train.make_train_step_optim(cfg, mesh, TRAIN_M,
+                                                        opt)[0]
+
+    def run(label, params, step, feed, timer=None, after=None):
+        nonlocal launches
+        reset_counts()
+        losses = []
+        for i, w in enumerate(feed):
+            w = w.view(shape)
+            with timer.step() if timer else contextlib.nullcontext() as r:
+                loss, _ = step(params, w[..., :-1], w[..., 1:])
+                if timer:
+                    r.sync(loss)
+            losses.append(loss.item())
+            if after:
+                after(i)
+        launches += check_b10(label, read_counts(), cfg.head_dim,
+                              per_step * len(losses))
+        return losses
+
+    try:
+        # Two uninterrupted runs fed with tensors made on the card: their
+        # difference is the limit of (a) and (b) (0 if the step is
+        # deterministic on this card).
+        params, opt, step = fresh()
+        direct_timer = profiling.StepTimer()
+        direct = run("5e direct", params, step, on_card(windows()),
+                     direct_timer)
+        ref = [p.detach().clone() for p in train.param_leaves(params)]
+        del params, opt, step
+        params, opt, step = fresh()
+        again = run("5e direct, again", params, step, on_card(windows()))
+        limit_loss = max(abs(a - b) for a, b in zip(direct, again))
+        limit = max(limit_loss, max((a - b).abs().max().item() for a, b in
+                                    zip(train.param_leaves(params), ref)))
+        print(f"5e: two uninterrupted runs differ by {limit:.3e} in a loss "
+              f"or parameter (the limit of (a) and (b); 0 = bit-equal)",
+              flush=True)
+        del params, opt, step
+
+        # (a) prefetched, timed, (b) saved after step SAVE_STEP in the
+        # background.
+        params, opt, step = fresh()
+        timer = profiling.StepTimer()
+        ckpt = checkpoint.Checkpointer(str(ENTRY_DIR / "ckpt"),
+                                       max_to_keep=1)
+        ms = {}
+
+        def save(i):
+            if i == SAVE_STEP:
+                t0 = time.perf_counter()
+                ckpt.save(SAVE_STEP, {"params": params,
+                                      "opt": opt.state_dict(),
+                                      "step": SAVE_STEP}, wait=False)
+                ms["save"] = 1e3 * (time.perf_counter() - t0)
+
+        fed = run("5e (a) prefetched", params, step,
+                  data.prefetch(windows()), timer, save)
+        t0 = time.perf_counter()
+        ckpt.wait_until_finished()
+        ms["wait"] = 1e3 * (time.perf_counter() - t0)
+        same_state("5e (a) prefetched losses against direct ones", fed,
+                   direct, limit_loss)
+        print(f"5e (c) StepTimer over (a)'s steps: "
+              f"{json.dumps(timer.summary())}; over the first direct "
+              f"run's: {json.dumps(direct_timer.summary())} [{card_str}]",
+              flush=True)
+        del params, opt, step
+
+        # (b) a fresh model and optimizer, restored, run steps 3-4.
+        params, opt, step = fresh()
+        t0 = time.perf_counter()
+        state = ckpt.restore(like={"params": params,
+                                   "opt": opt.state_dict(), "step": 0})
+        with torch.no_grad():
+            for p, r in zip(train.param_leaves(params),
+                            train.param_leaves(state["params"])):
+                p.copy_(r)
+        opt.load_state_dict(state["opt"])
+        torch.cuda.synchronize()
+        ms["restore"] = 1e3 * (time.perf_counter() - t0)
+        if state["step"] != SAVE_STEP:
+            fail(f"5e (b): restored step {state['step']}, saved {SAVE_STEP}")
+        del state
+        ckpt_file = ENTRY_DIR / "ckpt" / str(SAVE_STEP) / "state.pt"
+        print(f"5e (b) checkpoint of step {SAVE_STEP} (params and AdamW "
+              f"state): {ckpt_file.stat().st_size} bytes; save(wait=False) "
+              f"returned in {ms['save']:.1f} ms, the background write ended "
+              f"{ms['wait']:.1f} ms after the last step, restore into a "
+              f"fresh model and AdamW {ms['restore']:.1f} ms [{card_str}]",
+              flush=True)
+        resumed = run("5e (b) resumed", params, step,
+                      data.prefetch(windows(SAVE_STEP + 1)))
+        same_state("5e (b) resumed losses against the uninterrupted run's",
+                   resumed, direct[SAVE_STEP + 1:], limit_loss)
+        same_state("5e (b) resumed final parameters against the "
+                   "uninterrupted run's", train.param_leaves(params), ref,
+                   limit)
+        ckpt.close()
+
+        # (c) one more step traced, its region annotated.
+        logdir = ENTRY_DIR / "trace"
+        w = next(on_card(windows())).view(shape)
+        reset_counts()
+        with profiling.trace(str(logdir)):
+            with profiling.annotate("train_step"):
+                step(params, w[..., :-1], w[..., 1:])[0].item()
+        launches += check_b10("5e (c) traced step", read_counts(),
+                              cfg.head_dim, per_step)
+        files = [f for f in logdir.rglob("*") if f.is_file()]
+        names = {ev.get("name") for f in files
+                 for ev in json.loads(f.read_text()).get("traceEvents", [])}
+        print(f"5e (c) trace: {len(files)} file(s) under its logdir, "
+              f"{sum(f.stat().st_size for f in files)} bytes, "
+              f"'train_step' {'found' if 'train_step' in names else 'absent'}"
+              f" among {len(names)} event names", flush=True)
+        if not files or "train_step" not in names:
+            fail("5e (c): the trace holds no 'train_step' annotation")
+        del params, opt, step
+    finally:
+        shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_entry(card_str, gpt2_run, moe_run, llama_run) -> dict:
+    """Phase 5e: the training entry point (data, checkpoint, profiling,
+    and the pipeline options remat, n_virtual and 1F1B) at full width,
+    held to phases 5b-5d's GPipe kernel runs. Returns B10's launches."""
+    from mpi_acx_torch.models import moe_transformer as mtf
+    from mpi_acx_torch.models import transformer as tfm
+    t_start = time.perf_counter()
+    b10 = entry_data_checkpoint(card_str)
+
+    # (d) each option on GPT-2 124M, from 5b's init and batch.
+    cfg = tfm.gpt2_small()
+    for name, options in SCHEDULES.items():
+        b10 += option_run(f"5e (d) GPT-2 124M {name}", cfg,
+                          gpt2_init(options.get("n_virtual", 1)),
+                          gpt2_run["losses"], card_str,
+                          **options)["counts"]["flash_attention_lse"]
+
+    # (e) the peak against the microbatch count.
+    peaks = {}
+    for m in FLAT_M:
+        for schedule in ("gpipe", "1f1b"):
+            run = option_run(f"5e (e) GPT-2 124M {schedule} M={m}", cfg,
+                             gpt2_init(), None, card_str, m=m, steps=2,
+                             schedule=schedule)
+            b10 += run["counts"]["flash_attention_lse"]
+            peaks[schedule, m] = run["peak"]
+    lo, hi = FLAT_M
+    print("5e (e) peak memory, GPT-2 124M: " + "; ".join(
+        f"{s} M={m} {peaks[s, m] / 2 ** 30:.2f} GiB" for m in FLAT_M
+        for s in ("gpipe", "1f1b")) + f" [{card_str}]", flush=True)
+    if peaks["1f1b", hi] > (1 + FLAT_TOL) * peaks["1f1b", lo]:
+        fail(f"5e (e): 1F1B's peak grew from M={lo} to M={hi} by more than "
+             f"{FLAT_TOL:.0%}")
+    if not peaks["1f1b", hi] < peaks["gpipe", hi]:
+        fail(f"5e (e): 1F1B's peak at M={hi} is not below GPipe's")
+
+    # (f) Llama-3-8B at full width, 4 layers, at 5d's lr.
+    cfg = llama_train_config()
+    b128 = 0
+    for name, options in (("remat", dict(remat=True)),
+                          ("1f1b", dict(schedule="1f1b"))):
+        run = option_run(f"5e (f) Llama-3-8B (4 layers) {name}", cfg,
+                         llama_init(cfg), llama_run["losses"], card_str,
+                         lr=LLAMA_TRAIN_LR, **options)
+        b128 += run["counts"]["flash_attention_lse_d128"]
+        print(f"5e (f) Llama-3-8B (4 layers) {name}: peak "
+              f"{run['peak'] / 2 ** 30:.2f} GiB against 5d's GPipe "
+              f"{llama_run['peak'] / 2 ** 30:.2f} GiB [{card_str}]",
+              flush=True)
+
+    # (g) MoE under 1F1B (the router-aux seeds), at 5c's capacity factor.
+    cfg = mtf.MoeTransformerConfig()
+    b10 += option_run("5e (g) MoE 1f1b", cfg, moe_init(cfg),
+                      moe_run["losses"], card_str,
+                      schedule="1f1b")["counts"]["flash_attention_lse"]
+    print(f"5e: {time.perf_counter() - t_start:.1f} s", flush=True)
+    return {"flash_attention_lse": b10, "flash_attention_lse_d128": b128}
 
 
 def phase_long_context() -> dict:
@@ -3577,9 +3952,14 @@ def main() -> int:
     times.update(llama_times)
     add_counts(counts, phase_moe(card_str, k2["ms"]))
 
-    counts.update(phase_train(card_str))
-    add_counts(counts, phase_moe_train(card_str))
-    counts.update(phase_llama_train(card_str))
+    c, gpt2_run = phase_train(card_str)
+    counts.update(c)
+    c, moe_run = phase_moe_train(card_str)
+    add_counts(counts, c)
+    c, llama_run = phase_llama_train(card_str)
+    counts.update(c)
+    add_counts(counts, phase_train_entry(card_str, gpt2_run, moe_run,
+                                         llama_run))
     counts.update(phase_long_context())
     times.update(phase_train_timing(card_str))
     torch.cuda.empty_cache()

@@ -9,8 +9,12 @@ over the native host plane; :mod:`mpi_acx_torch.triggers`, stream-ordered
 triggers; and the flag kernels in :mod:`mpi_acx_torch.ops.flags`), and
 training on one device through the framework's train step
 (:mod:`mpi_acx_torch.train` over :mod:`mpi_acx_torch.parallel`, with the
-row-logsumexp flash kernel and its backward). The kernels are written by hand for Hopper (:mod:`mpi_acx_torch.ops`, sources
-in ``csrc/``). It imports nothing of JAX or of ``mpi_acx_tpu``.
+row-logsumexp flash kernel and its backward; GPipe, interleaved and 1F1B
+schedules, remat), fed by :mod:`mpi_acx_torch.data`, checkpointed by
+:mod:`mpi_acx_torch.checkpoint` and timed by
+:mod:`mpi_acx_torch.profiling`. The kernels are written by hand for
+Hopper (:mod:`mpi_acx_torch.ops`, sources in ``csrc/``). It imports
+nothing of JAX or of ``mpi_acx_tpu``.
 
 Importing the package loads no submodule and does not initialise CUDA.
 """
@@ -18,7 +22,7 @@ Importing the package loads no submodule and does not initialise CUDA.
 from mpi_acx_torch.version import __version__  # noqa: F401
 
 _SUBMODULES = ("checkpoint", "data", "device", "models", "ops", "parallel",
-               "reqlog", "runtime", "train", "triggers")
+               "profiling", "reqlog", "runtime", "train", "triggers")
 
 
 def __getattr__(name):

@@ -20,6 +20,7 @@ _EXPORTS = {
     "forward": "transformer",
     "loss_fn": "transformer",
     "stage_slice": "transformer",
+    "stage_slice_interleaved": "transformer",
     "init_kv_cache": "transformer",
     "prefill": "transformer",
     "decode_step": "transformer",

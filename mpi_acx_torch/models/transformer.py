@@ -340,6 +340,30 @@ def stage_slice(params: Params, n_stages: int) -> Params:
     return out
 
 
+def stage_slice_interleaved(params: Params, n_stages: int,
+                            n_virtual: int) -> Params:
+    """Stacked layers [L, ...] -> [n_stages, n_virtual, L / (n_stages *
+    n_virtual), ...] for the interleaved pipeline schedule: global stage
+    g = j * n_stages + s lands at [s, j] (device s, chunk j), so
+    consecutive layer blocks snake over the devices n_virtual times. Views
+    of the input's tensors, as :func:`stage_slice` gives."""
+    L = next(iter(params["layers"].values())).shape[0]
+    G = n_stages * n_virtual
+    if L % G:
+        raise ValueError(f"{L} layers do not split into {n_stages} stages "
+                         f"x {n_virtual} chunks")
+    per = L // G
+
+    def rs(p):
+        q = p.detach().reshape((n_virtual, n_stages, per) + tuple(
+            p.shape[1:]))
+        return q.transpose(0, 1).requires_grad_(p.requires_grad)
+
+    out = dict(params)
+    out["layers"] = _tree_map(rs, params["layers"])
+    return out
+
+
 def check_device(params: Params, dev: torch.device) -> None:
     """Raise unless the parameters lie on ``dev``."""
     if not on_device(params["embed"], dev):

@@ -1,5 +1,6 @@
 """The parallel layer of the train step, in PyTorch: the mesh, the axis
-collectives, ring attention and the GPipe pipeline.
+collectives, ring attention and the pipeline schedules (GPipe, its
+interleaved form, and 1F1B).
 
 This slice runs them on one device: every mesh axis has size 1, where
 each collective is exactly the identity. An axis larger than 1 raises

@@ -15,12 +15,19 @@ gradient reduction rule — over a mesh whose axes all have size 1
 identity. The backward is autograd through
 that program; attention's is the blockwise flash backward.
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md §A):
-mesh axes larger than 1, ``n_virtual > 1``, ``schedule="1f1b"``,
-``remat=True`` and ``dp_quant_bits``.
+The JAX step's three pipeline options beyond GPipe are here too:
+``remat=True`` (each layer body under ``torch.utils.checkpoint``),
+``n_virtual > 1`` (the interleaved pipeline over
+:func:`models.transformer.stage_slice_interleaved` params) and
+``schedule="1f1b"`` (the 1F1B slot engine of
+:mod:`parallel.pipeline`), alone and combined. Not ported yet, each
+raising ``NotImplementedError`` (ROADMAP.md §A, 'multi-rank training'):
+mesh axes larger than 1, and ``dp_quant_bits``, whose quantized ring
+all-reduce has nothing to reduce on one device.
 
 Parameters are a dict of tensors, stage-sliced (:func:`models.transformer.
-stage_slice`), and the steps update them **in place**.
+stage_slice`, or :func:`models.transformer.stage_slice_interleaved` with
+``n_virtual > 1``), and the steps update them **in place**.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mpi_acx_torch.device import resolve_device
 from mpi_acx_torch.models import llama as lm
@@ -36,11 +44,12 @@ from mpi_acx_torch.models import moe_transformer as mtf
 from mpi_acx_torch.models import transformer as tfm
 from mpi_acx_torch.ops.xent import chunked_xent_ll
 from mpi_acx_torch.parallel import collective as col
-from mpi_acx_torch.parallel.pipeline import pipeline_forward
+from mpi_acx_torch.parallel.pipeline import (_pipeline_1f1b_engine,
+                                             pipeline_forward,
+                                             pipeline_forward_interleaved)
 from mpi_acx_torch.parallel.ring_attention import ring_attention_batched
 
-_ROADMAP = "is not ported yet (ROADMAP.md §A, 'interleaved and 1F1B " \
-           "schedules, remat and dp_quant_bits')"
+_ROADMAP = "is not ported yet (ROADMAP.md §A, 'multi-rank training')"
 
 
 def _gpt2_attn_sp(cfg, lp: Dict[str, Any], h, tp_axis: str):
@@ -190,27 +199,40 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
     returns it with the number of pipeline stages.
 
     ``params`` must be ``stage_slice(params, n_stages)`` on ``device``
-    (``None`` means the GPU); tokens/targets are ``[n_micro, micro_batch,
-    S]`` integers. ``grads`` has the structure of ``params``; the loss is
-    a detached f32 scalar. ``xent_chunk`` selects the chunked-vocab CE
-    (ops/xent.py).
+    (``None`` means the GPU), or ``stage_slice_interleaved(params,
+    n_stages, n_virtual)`` when ``n_virtual > 1`` selects the interleaved
+    pipeline (needs n_micro % pp == 0); tokens/targets are ``[n_micro,
+    micro_batch, S]`` integers. ``grads`` has the structure of
+    ``params``; the loss is a detached f32 scalar. ``xent_chunk`` selects
+    the chunked-vocab CE (ops/xent.py).
+
+    ``remat=True`` runs each layer body under
+    ``torch.utils.checkpoint.checkpoint`` (non-reentrant): its activations
+    are recomputed in the backward instead of kept, the same function for
+    about a third more work, so each layer's attention kernel runs again
+    in the recompute.
+
+    ``schedule="1f1b"`` replaces autograd through the pipeline with the
+    1F1B slot engine (:func:`parallel.pipeline._pipeline_1f1b_engine`):
+    each microbatch's forward runs without autograd and banks its stage
+    input, and its backward re-runs the stage from that input and
+    back-propagates at once, so the activations alive do not grow with
+    n_micro. The same loss and gradients as GPipe; it composes with
+    ``n_virtual > 1`` (interleaved 1F1B) and with ``remat``.
 
     ``cfg`` selects the family (``transformer.TransformerConfig``,
     ``llama.LlamaConfig`` or ``moe_transformer.MoeTransformerConfig``);
     at n_micro = 1 the loss equals the family's ``loss_fn``. For MoE the
     loss is CE + ``aux_weight`` * load-balance + ``z_weight`` * router-z,
     the router losses carried through the pipeline
-    (``pipeline_forward(with_aux=True)``) and normalized per router call,
-    one per (layer, microbatch). GPT-2 and Llama ignore the weights."""
+    (``pipeline_forward(with_aux=True)``; under 1F1B seeded in each
+    backward) and normalized per router call, one per (layer,
+    microbatch). GPT-2 and Llama ignore the weights."""
     dev = resolve_device(device)
-    if n_virtual != 1:
-        raise NotImplementedError(f"n_virtual={n_virtual} {_ROADMAP}")
+    if n_virtual < 1:
+        raise ValueError(f"n_virtual={n_virtual}: need at least 1")
     if schedule not in ("gpipe", "1f1b"):
         raise ValueError(f"unknown schedule {schedule!r}")
-    if schedule == "1f1b":
-        raise NotImplementedError(f"schedule='1f1b' {_ROADMAP}")
-    if remat:
-        raise NotImplementedError(f"remat=True {_ROADMAP}")
     if dp_quant_bits is not None:
         raise NotImplementedError(f"dp_quant_bits={dp_quant_bits} "
                                   f"{_ROADMAP}")
@@ -237,12 +259,17 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
             g = col.psum(g, "pp")
         return g
 
+    def layer_fn(lp, h):
+        if remat:
+            return checkpoint(fam.block, cfg, lp, h, "tp",
+                              use_reentrant=False)
+        return fam.block(cfg, lp, h, "tp")
+
     def stage_fn(stage_layers, h):
         n = next(iter(stage_layers.values())).shape[0]
         lb = rz = h.new_zeros((), dtype=torch.float32)   # MoE router losses
         for i in range(n):
-            h = fam.block(cfg, {k: a[i] for k, a in stage_layers.items()}, h,
-                          "tp")
+            h = layer_fn({k: a[i] for k, a in stage_layers.items()}, h)
             if fam.has_aux:
                 h, (b_lb, b_rz) = h
                 lb, rz = lb + b_lb, rz + b_rz
@@ -254,8 +281,13 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
         # so every parameter's cotangent path is unique.
         S = tokens.shape[-1]
         x = fam.embed(params, cfg, tokens)             # [M, mbl, S, d]
-        ys = pipeline_forward(stage_fn, params["layers"], x, "pp",
-                              with_aux=fam.has_aux)
+        if n_virtual > 1:
+            ys = pipeline_forward_interleaved(
+                stage_fn, params["layers"], x, "pp", n_virtual,
+                with_aux=fam.has_aux)
+        else:
+            ys = pipeline_forward(stage_fn, params["layers"], x, "pp",
+                                  with_aux=fam.has_aux)
         if fam.has_aux:
             ys, aux = ys
         ys = fam.final(params, ys)
@@ -279,27 +311,105 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
         return (-total / tokens.numel()
                 + (aux_weight * lb + z_weight * rz) / calls)
 
+    def reduce_all(grads):
+        out = {k: reduce_grad(g, False, False)
+               for k, g in grads.items() if k != "layers"}
+        out["layers"] = {k: reduce_grad(g, fam.tp_sharded(k), True)
+                         for k, g in grads["layers"].items()}
+        return {k: out[k] for k in grads}
+
+    def gpipe(params, tokens, targets):
+        # Detached aliases that require grad: the caller's tensors are
+        # left as they are, and may be updated in place afterwards.
+        live = _rebuild(params, iter(
+            p.detach().requires_grad_() for p in param_leaves(params)))
+        loss = loss_fn(live, tokens, targets)
+        flat = torch.autograd.grad(loss, param_leaves(live))
+        # The JAX step undoes the pp*tp scaling that its loss-assembly
+        # psum puts on every cotangent; kept for the same structure.
+        group = col.axis_size("pp") * col.axis_size("tp")
+        grads = _rebuild(params, iter(g / group for g in flat))
+        return col.pmean(loss.detach(), "dp"), reduce_all(grads)
+
+    def one_f_one_b(params, tokens, targets):
+        """The 1F1B counterpart of ``gpipe`` over the slot engine: the
+        tail (final norm and head) loss at the last global stage, the
+        embedding's backward at global stage 0, and the MoE router-aux
+        seeds gated to tp rank 0 (the exclusive-path rule)."""
+        M, mbl, S = tokens.shape
+        ti = col.axis_index("tp")
+        blk = S // col.axis_size("tp")
+        n_tok = M * mbl * S
+        calls = cfg.n_layers * M
+        chunks = {k: p[0] for k, p in params["layers"].items()}
+        if n_virtual == 1:
+            chunks = {k: p[None] for k, p in chunks.items()}  # chunk axis
+        tail = {k: v for k, v in params.items() if k != "layers"}
+        with torch.no_grad():
+            x_all = fam.embed(params, cfg, tokens)     # [M, mbl, S, d]
+
+        def tail_grads(fn, cotangent):
+            """``(fn(leaves), d fn / d leaves)`` over fresh leaves of the
+            tail parameters (zeros for a leaf ``fn`` does not read)."""
+            with torch.enable_grad():
+                leaves = {k: v.detach().requires_grad_()
+                          for k, v in tail.items()}
+                val, wrt = fn(leaves)
+                gs = torch.autograd.grad(val, list(leaves.values()) + wrt,
+                                         cotangent, allow_unused=True)
+            d_tail = {k: torch.zeros_like(v) if g is None else g
+                      for (k, v), g in zip(leaves.items(), gs)}
+            return val.detach(), d_tail, gs[len(leaves):]
+
+        def loss_side(y, m):
+            yy = y.detach().requires_grad_()
+
+            def ll(tp_):
+                # This rank's exclusive share of microbatch m: its tp
+                # block of the sequence.
+                ys = fam.final(tp_, yy)
+                sl = slice(ti * blk, (ti + 1) * blk)
+                return ll_sum(fam.head(tp_), ys[:, sl],
+                              targets[m][:, sl]), [yy]
+
+            seed = torch.tensor(-1.0 / n_tok, dtype=torch.float32,
+                                device=y.device)
+            llsum, d_tail, (dy,) = tail_grads(ll, seed)
+            return llsum, d_tail, dy.to(y.dtype)
+
+        def embed_side(dx, m):
+            return tail_grads(lambda tp_: (fam.embed(tp_, cfg, tokens[m]),
+                                           []), dx.to(x_all.dtype))[1]
+
+        aux_seed = aux_gate = None
+        if fam.has_aux:
+            gate = float(ti == 0)
+            aux_seed = (aux_weight / calls * gate, z_weight / calls * gate)
+            aux_gate = ti == 0
+        lacc, aux_acc, gl, gt = _pipeline_1f1b_engine(
+            stage_fn, chunks, x_all, "pp", n_virtual, loss_side=loss_side,
+            zero_head=tail, embed_side=embed_side, aux_seed=aux_seed,
+            aux_gate=aux_gate, lockstep=True)
+        loss = -col.psum(lacc, ("pp", "tp")) / n_tok
+        if fam.has_aux:
+            lb, rz = (col.psum(a, ("pp", "tp")) for a in aux_acc)
+            loss = loss + (aux_weight * lb + z_weight * rz) / calls
+        # The chunk axis of one chunk stands where the stage axis goes;
+        # interleaved grads gain the stage axis. These are the true local
+        # grads (seeded exclusively, no assembly psum to undo).
+        grads = dict(gt, layers={k: g if n_virtual == 1 else g[None]
+                                 for k, g in gl.items()})
+        return col.pmean(loss, "dp"), reduce_all(
+            {k: grads[k] for k in params})
+
+    body = one_f_one_b if schedule == "1f1b" else gpipe
+
     def grad_fn(params, tokens, targets):
         tfm.check_device(params, dev)
         tokens = torch.as_tensor(tokens, device=dev).long()
         targets = torch.as_tensor(targets, device=dev).long()
         with mesh, torch.enable_grad():
-            # Detached aliases that require grad: the caller's tensors are
-            # left as they are, and may be updated in place afterwards.
-            live = _rebuild(params, iter(
-                p.detach().requires_grad_() for p in param_leaves(params)))
-            loss = loss_fn(live, tokens, targets)
-            flat = torch.autograd.grad(loss, param_leaves(live))
-            # The JAX step undoes the pp*tp scaling that its loss-assembly
-            # psum puts on every cotangent; kept for the same structure.
-            group = col.axis_size("pp") * col.axis_size("tp")
-            grads = _rebuild(params, iter(g / group for g in flat))
-            loss = col.pmean(loss.detach(), "dp")
-            out = {k: reduce_grad(g, False, False)
-                   for k, g in grads.items() if k != "layers"}
-            out["layers"] = {k: reduce_grad(g, fam.tp_sharded(k), True)
-                             for k, g in grads["layers"].items()}
-        return loss, {k: out[k] for k in grads}
+            return body(params, tokens, targets)
 
     return grad_fn, n_stages
 

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from mpi_acx_torch import data as tdata
 from mpi_acx_torch import train as ttrain
 from mpi_acx_torch.models import kvpage as tkp
 from mpi_acx_torch.models import llama as tl
@@ -44,10 +45,12 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax():
-    assert len(PORT_FILES) >= 29
+    assert len(PORT_FILES) >= 30
     for name in ("llama.py", "moe.py", "moe_transformer.py",
                  "speculative.py"):
         assert ROOT / "mpi_acx_torch" / "models" / name in PORT_FILES
+    for name in ("data.py", "checkpoint.py", "profiling.py"):
+        assert ROOT / "mpi_acx_torch" / name in PORT_FILES
     bad = [(p.relative_to(ROOT), m) for p in PORT_FILES
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "mpi_acx_tpu")]
@@ -57,8 +60,8 @@ def test_port_imports_no_jax():
 def test_import_loads_neither_jax_nor_cuda():
     code = (
         "import sys, torch, mpi_acx_torch\n"
-        "from mpi_acx_torch import checkpoint, data, device, reqlog, "
-        "runtime, train, triggers\n"
+        "from mpi_acx_torch import checkpoint, data, device, profiling, "
+        "reqlog, runtime, train, triggers\n"
         "from mpi_acx_torch.models import decoding, kvpage, llama, moe, "
         "moe_transformer, serving, speculative, transformer\n"
         "from mpi_acx_torch.ops import _build, attention, flags, "
@@ -130,6 +133,7 @@ ENTRY_POINTS = {
         n_slots=1, max_len=8, family=tmt),
     "moe_transformer.make_train_step": lambda cfg, p:
         ttrain.make_train_step(_tiny_moe(), _mesh(), 1),
+    "prefetch": lambda cfg, p: tdata.prefetch(iter([])),
     "generate_sample": lambda cfg, p: tt.generate_sample(
         p, cfg, np.zeros((1, 3), np.int32), 2, torch.Generator()),
     "llama.generate_sample": lambda cfg, p: tl.generate_sample(
@@ -341,3 +345,46 @@ def test_chip_smoke_fails_without_the_repo(tmp_path):
     res = _run_smoke(tmp_path)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+@pytest.mark.parametrize("module", ["data", "checkpoint", "profiling"])
+def test_entry_modules_keep_the_jax_names_and_signatures(module):
+    """data, checkpoint and profiling define every public name of their
+    JAX counterparts, each function and method with JAX's parameters;
+    ``prefetch`` alone takes ``device`` where JAX takes ``sharding``."""
+    import importlib
+    import inspect
+    tree = ast.parse((ROOT / "mpi_acx_tpu" / f"{module}.py").read_text())
+    port = importlib.import_module(f"mpi_acx_torch.{module}")
+    want, got = {}, {}
+
+    def names(fn):
+        a = fn.args
+        out = [x.arg for x in a.posonlyargs + a.args]
+        out += [a.vararg.arg] if a.vararg else []
+        return out + [x.arg for x in a.kwonlyargs]
+
+    def raw(obj):
+        return getattr(obj, "__func__", obj)   # classmethod, staticmethod
+
+    for node in tree.body:
+        if not isinstance(node, (ast.FunctionDef, ast.ClassDef)) or \
+                node.name.startswith("_"):
+            continue
+        if isinstance(node, ast.FunctionDef):
+            want[node.name] = names(node)
+            got[node.name] = list(inspect.signature(
+                getattr(port, node.name)).parameters)
+            continue
+        cls = getattr(port, node.name)
+        for m in node.body:
+            if isinstance(m, ast.FunctionDef) and (
+                    not m.name.startswith("_") or m.name in (
+                        "__init__", "__enter__", "__exit__")):
+                qual = f"{node.name}.{m.name}"
+                want[qual] = names(m)
+                got[qual] = list(inspect.signature(raw(
+                    inspect.getattr_static(cls, m.name))).parameters)
+    if module == "data":
+        want["prefetch"] = ["it", "size", "device"]
+    assert want and got == want
