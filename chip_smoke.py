@@ -78,6 +78,23 @@ in the repository. Phases, each of which exits non-zero on failure:
              int8 draft from seed 7, k = 4, 4 rows of 128 tokens, 64 new)
              held to the int8-weight greedy tokens up to the first tie
              within TIE.
+4f. disagg — (after 4e, on GPT-2's bf16 weights; the only in-process
+             Runtime of the run, over the native host plane built here
+             with `make -j8 lib tools`, finalized before phase 7) phase 4's
+             16 requests with int8 slots: (a) serve_greedy(kv_int8=True),
+             the baseline of the same call; (b) serve_disagg_greedy in
+             loopback (a layerwise prefill per request, each layer's codes
+             and scales shipped as one partition of a partitioned send to
+             this process and spliced into the slot) with the prefill's
+             K/V quantized at the wire, quantized at compute, and shipped
+             only after the whole prompt pass: each one's tokens exactly
+             (a)'s, K1 launched exactly handoffs x 12, K2's int8 form
+             launched and its bf16 form not, each handoff's wire bytes
+             12 x layer_part_bytes of its bucket; the p50 of prefill,
+             ship, pickup and exposed-publish time, TTFT, ITL and tokens/s
+             of (a) and of each (b); (d) a peer loss raised before layer 6
+             of one handoff requeues it uncharged at max_request_retries=0
+             (tokens still (a)'s), a plain error there is charged.
 4c. llama  — (runs after phase 5's GPT-2 timings, with GPT-2's parameters
              freed) Llama-3-8B (seed-0 weights drawn on the card): at full
              width cut to 4 layers in f32, 8 requests through the kernels
@@ -211,6 +228,18 @@ in the repository. Phases, each of which exits non-zero on failure:
              the in-program twin; the 8-byte triggered ping-pong on CUDA
              tensors; and build/bench_pingpong, the host plane alone, for
              comparison in the same run. Every flag kernel must launch.
+7b. disagg fleet — two ranks on the card under build/acxrun
+             (ACX_ROLE=prefill,decode) running tests/torch_disagg_worker.py
+             at GPT-2 124M's full width: the prefill rank ships per-layer
+             handoffs, the decode rank serves them from fixed int8 slots,
+             then from 64-token int8 pages, and holds its outputs to its
+             own monolithic int8 serve exactly. Over the two ranks K1 runs
+             exactly requests x 12 times; the fixed run launches K2's int8
+             form and no B9, the paged run B9's int8 form and no K2. A
+             third run ships each handoff only after its whole prompt
+             pass (fixed slots), the baseline of per-layer Pready. The
+             ranks' TTFT split and figures are printed (correctness-grade:
+             the two ranks share the card).
 8. the kernels line (JSON), the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 """
@@ -2652,6 +2681,145 @@ def phase_gpt2_4e(params16, fixed, card_str) -> dict:
     return counts
 
 
+# --- phase 4f: disaggregated serving in loopback ----------------------------
+
+DISAGG_FAULT_LAYER = 6      # a handoff's failure strikes before this layer
+
+
+def build_host_plane() -> None:
+    """``make -j8 lib tools``: the native host plane (build/libtpuacx.so,
+    build/acxrun) the runtime binding and the rank programs use."""
+    t0 = time.perf_counter()
+    res = subprocess.run(["make", "-C", str(ROOT), "-j8", "lib", "tools"],
+                         capture_output=True, text=True, timeout=900)
+    if res.returncode != 0:
+        fail(f"make lib tools: exit {res.returncode}\n{res.stdout[-3000:]}\n"
+             f"{res.stderr[-3000:]}")
+    print(f"native host plane: make lib tools {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+
+
+def p50_ms(xs) -> str:
+    return f"{np.median(np.asarray(xs)) * 1e3:.3f}"
+
+
+def check_disagg_counts(label, counts, handoffs) -> None:
+    """A disagg serve with int8 slots: K1 once per layer of every handoff
+    (the layerwise prefill), K2's int8 form only."""
+    print(f"{label}: launches {json.dumps(counts)}", flush=True)
+    if counts["flash_attention"] != handoffs * 12:
+        fail(f"{label}: K1 launched {counts['flash_attention']} times, "
+             f"{handoffs} handoffs x 12 layers = {handoffs * 12}")
+    if counts["flash_decode_attend_int8"] == 0:
+        fail(f"{label}: K2's int8 form never launched")
+    others = {k: n for k, n in counts.items()
+              if k not in ("flash_attention", "flash_decode_attend_int8")
+              and n}
+    if others:
+        fail(f"{label}: kernels off the int8 disagg path launched: {others}")
+
+
+def phase_disagg(params16, card_str) -> dict:
+    """Phase 4f (see the module docstring). Returns the launch counts of
+    its serves."""
+    from mpi_acx_torch import runtime
+    from mpi_acx_torch.models import disagg, serving, transformer as tfm
+    from mpi_acx_torch.parallel.kv_ship import layer_part_bytes
+    build_host_plane()
+    cfg = tfm.gpt2_small()
+    prompts, n_new = serve_requests(cfg.vocab)
+    kw = dict(n_slots=8, max_len=1024, chunk=8)
+    fns = serving.make_server_fns(params16, cfg, tfm, chunk=8, kv_int8=True)
+    want_bytes = [12 * layer_part_bytes(min(serving._bucket(len(p)), 1024),
+                                        cfg.n_heads, cfg.head_dim)
+                  for p in prompts]
+    names = ("flash_attention", "flash_decode_attend",
+             "flash_decode_attend_int8", "paged_flash_decode_attend",
+             "paged_flash_decode_attend_int8")
+    total = {}
+    rt = runtime.Runtime()
+    try:
+        # Warm-up: the handoff path's first launches and host buffers.
+        disagg.serve_disagg_greedy(params16, cfg, prompts[:2], 4,
+                                   server_fns=fns, rt=rt, **kw)
+        torch.cuda.synchronize()
+        reset_counts()
+        mono = serving.serve_greedy(params16, cfg, prompts, n_new,
+                                    kv_int8=True, server_fns=fns, **kw)
+        torch.cuda.synchronize()
+        add_counts(total, read_counts(names))
+        check_served("4f (a) monolithic int8", mono, prompts, n_new,
+                     cfg.vocab)
+        print(f"4f (a) monolithic serve_greedy(kv_int8=True): "
+              f"{served_figures(mono.metrics)} [{card_str}]", flush=True)
+        for label, variant in (
+                ("quantize at wire, per-layer Pready", {}),
+                ("quantize at compute, per-layer Pready",
+                 dict(prefill_kv_int8=True)),
+                ("quantize at wire, ship after prefill",
+                 dict(overlap=False))):
+            label = f"4f (b) loopback disagg, {label}"
+            reset_counts()
+            res = disagg.serve_disagg_greedy(params16, cfg, prompts, n_new,
+                                             server_fns=fns, rt=rt,
+                                             **variant, **kw)
+            torch.cuda.synchronize()
+            counts = read_counts(names)
+            add_counts(total, counts)
+            check_served(label, res, prompts, n_new, cfg.vocab)
+            exactly_equal(f"{label} vs (a)", res, mono)
+            hs = res.metrics.handoffs
+            check_disagg_counts(label, counts, len(hs))
+            got_bytes = [h.wire_bytes for h in sorted(hs,
+                                                      key=lambda h: h.rid)]
+            if got_bytes != want_bytes:
+                fail(f"{label}: wire bytes {got_bytes}, want {want_bytes}")
+            print(f"{label}: tokens equal to (a); {len(hs)} handoffs, "
+                  f"{sum(got_bytes)} wire bytes ({min(got_bytes)}-"
+                  f"{max(got_bytes)} a handoff); p50 prefill "
+                  f"{p50_ms([h.prefill_s for h in hs])} ms, ship "
+                  f"{p50_ms([h.ship_s for h in hs])} ms, pickup "
+                  f"{p50_ms([h.pickup_s for h in hs])} ms, exposed publish "
+                  f"{p50_ms([h.expose_s for h in hs])} ms; "
+                  f"{served_figures(res.metrics)} [{card_str}]", flush=True)
+        for label, exc, retries in (
+                ("peer loss", runtime.AcxPeerDeadError(
+                    "tpu-acx: peer dead (injected)", runtime.ERR_PEER_DEAD,
+                    0, 0), 0),
+                ("plain error", RuntimeError("injected handoff failure"),
+                 2)):
+            fired = []
+
+            def ship_fault(rid, layer, exc=exc, fired=fired):
+                if rid == 1 and layer == DISAGG_FAULT_LAYER and not fired:
+                    fired.append(rid)
+                    raise exc
+
+            label = f"4f (d) {label} before layer {DISAGG_FAULT_LAYER}"
+            reset_counts()
+            res = disagg.serve_disagg_greedy(
+                params16, cfg, prompts, n_new, server_fns=fns, rt=rt,
+                ship_fault=ship_fault, max_request_retries=retries, **kw)
+            torch.cuda.synchronize()
+            add_counts(total, read_counts(names))
+            exactly_equal(f"{label} vs (a)", res, mono)
+            m = res.metrics
+            retried = [r.retries for r in m.per_request]
+            print(f"{label}: requeues {m.requeues}, peer_requeues "
+                  f"{m.peer_requeues}, retries {retried}; tokens equal to "
+                  f"(a)", flush=True)
+            if not fired or m.requeues < 1:
+                fail(f"{label}: the fault did not requeue ({fired}, {m})")
+            uncharged = isinstance(exc, runtime.AcxPeerDeadError)
+            if uncharged and (m.peer_requeues < 1 or any(retried)):
+                fail(f"{label}: requeued charged: {retried}")
+            if not uncharged and (m.peer_requeues or retried[1] != 1):
+                fail(f"{label}: not charged: {retried}")
+    finally:
+        rt.finalize()
+    return total
+
+
 # --- phase 4d: the MoE family -----------------------------------------------
 
 MOE_F32_LAYERS = 2      # the f32 check's depth (full width)
@@ -3726,21 +3894,24 @@ PINGPONG_ITERS = 2000
 RANK_TIMEOUT_S = 300
 
 
-def run_ranks(args, label) -> str:
-    """``build/acxrun -np 2`` on ``args``; fails the run unless both ranks
-    exit 0. Returns their standard output."""
-    cmd = [str(ROOT / "build" / "acxrun"), "-np", "2", "-timeout",
+def run_ranks(args, label, np_=2, env=None) -> str:
+    """``build/acxrun -np np_`` on ``args`` with ``env`` added to the
+    environment; fails the run unless every rank exits 0. Returns their
+    standard output."""
+    import os
+    cmd = [str(ROOT / "build" / "acxrun"), "-np", str(np_), "-timeout",
            str(RANK_TIMEOUT_S), *map(str, args)]
     t0 = time.perf_counter()
     try:
         res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                             timeout=RANK_TIMEOUT_S + 60)
+                             timeout=RANK_TIMEOUT_S + 60,
+                             env=dict(os.environ, **(env or {})))
     except subprocess.TimeoutExpired:
         fail(f"{label}: acxrun outlived its timeout")
     if res.returncode != 0:
         fail(f"{label}: exit {res.returncode}\n{res.stdout[-4000:]}\n"
              f"{res.stderr[-4000:]}")
-    print(f"{label}: both ranks exit 0 in {time.perf_counter() - t0:.1f} s",
+    print(f"{label}: {np_} ranks exit 0 in {time.perf_counter() - t0:.1f} s",
           flush=True)
     return res.stdout
 
@@ -3754,10 +3925,11 @@ def field(out, tag, key) -> float:
     return float(m.group(1))
 
 
-def worker_launches(out) -> dict:
-    """The flag kernels' launch counts printed by each rank (LAUNCHES
-    records, counted from 0 just before the rank's exchange), summed."""
-    total = dict.fromkeys(FLAG_KERNELS, 0)
+def worker_launches(out, names=None) -> dict:
+    """The launch counts printed by each rank (LAUNCHES records, counted
+    from 0 just before the rank's exchange or serve), summed over the
+    ranks, of ``names`` (the flag kernels unless given)."""
+    total = dict.fromkeys(FLAG_KERNELS if names is None else names, 0)
     for js in re.findall(r"LAUNCHES (\{[^}]*\})", out):
         for name, n in json.loads(js).items():
             total[name] += n
@@ -3775,14 +3947,7 @@ def phase_exchange(card_str) -> dict:
     build/bench_pingpong, the host plane alone, on the same machine.
     Returns the flag kernels'
     launch counts in the full-size exchange, summed over its two ranks."""
-    t0 = time.perf_counter()
-    res = subprocess.run(["make", "-C", str(ROOT), "-j8", "lib", "tools"],
-                         capture_output=True, text=True, timeout=900)
-    if res.returncode != 0:
-        fail(f"make lib tools: exit {res.returncode}\n{res.stdout[-3000:]}\n"
-             f"{res.stderr[-3000:]}")
-    print(f"native host plane: make lib tools {time.perf_counter() - t0:.1f} "
-          f"s", flush=True)
+    build_host_plane()
     py = sys.executable
     mib = PARTS * PART_SHAPE[0] * PART_SHAPE[1] * 4 / 2 ** 20
     shape = [str(v) for v in PART_SHAPE]
@@ -3852,6 +4017,64 @@ def phase_exchange(card_str) -> dict:
     if min(counts.values()) == 0:
         fail(f"a flag kernel of the exchange never launched: {counts}")
     return counts
+
+
+# Phase 7b's fleet: requests of 32-512 prompt tokens through one decode rank
+# (the worker's full-width load: 4 slots, chunk 8, max_len 1024).
+FLEET_REQUESTS = 8
+FLEET_PAGE_TOKENS = 64
+FLEET_COUNTS = ("flash_attention", "flash_decode_attend",
+                "flash_decode_attend_int8", "paged_flash_decode_attend",
+                "paged_flash_decode_attend_int8")
+
+
+def phase_disagg_fleet(card_str) -> dict:
+    """Phase 7b (see the module docstring). Returns the attention kernels'
+    launch counts of the three fleet serves, summed over their ranks."""
+    total = {}
+    for label, extra, decode_form in (
+            ("fixed int8 slots", [], "flash_decode_attend_int8"),
+            (f"{FLEET_PAGE_TOKENS}-token int8 pages",
+             ["--page-tokens", FLEET_PAGE_TOKENS],
+             "paged_flash_decode_attend_int8"),
+            ("fixed int8 slots, ship after prefill", ["--no-overlap"],
+             "flash_decode_attend_int8")):
+        label = f"7b disagg fleet, GPT-2 124M, {label}"
+        out = run_ranks([sys.executable, "tests/torch_disagg_worker.py",
+                         "--device", "cuda", "--full-width", "--requests",
+                         FLEET_REQUESTS, *extra], label,
+                        env={"ACX_ROLE": "prefill,decode"})
+        if "DISAGG_OK rank=1" not in out or "DISAGG_SHIPPED rank=0" not in out:
+            fail(f"{label}: DISAGG_OK / DISAGG_SHIPPED missing\n{out}")
+        counts = worker_launches(out, FLEET_COUNTS)
+        print(f"{label}: launches over both ranks {json.dumps(counts)}",
+              flush=True)
+        if counts["flash_attention"] != FLEET_REQUESTS * 12:
+            fail(f"{label}: K1 launched {counts['flash_attention']} times, "
+                 f"want {FLEET_REQUESTS} handoffs x 12 layers")
+        if counts[decode_form] == 0 or any(
+                n for k, n in counts.items()
+                if k not in ("flash_attention", decode_form)):
+            fail(f"{label}: the decode rank's kernels: {counts} (only "
+                 f"{decode_form} may decode)")
+        add_counts(total, counts)
+        for row in re.findall(r"DISAGG_ROW (\{[^}]*\})", out):
+            r = json.loads(row)
+            if r["role"] != "decode":
+                print(f"{label}: prefill rank wall {r['wall_s']:.3f} s",
+                      flush=True)
+                continue
+            print(f"{label}: decode rank (outputs equal to its monolithic "
+                  f"int8 serve) {r['requests']} requests, {r['new_tokens']} "
+                  f"tokens, {r['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+                  f"{r['ttft_p50_s'] * 1e3:.2f} ms (handoff prefill p50 "
+                  f"{r['prefill_p50_s'] * 1e3:.2f} ms, pickup p50 "
+                  f"{r['pickup_p50_s'] * 1e3:.3f} ms, exposed publish p50 "
+                  f"{r['expose_p50_s'] * 1e3:.3f} ms), ITL p50 "
+                  f"{r['itl_p50_s'] * 1e3:.3f} ms, "
+                  f"{r['handoff_wire_bytes']} wire bytes; correctness-grade: "
+                  f"two ranks share the card [{card_str}]", flush=True)
+    return total
 
 
 KERNELS = {
@@ -3939,6 +4162,7 @@ def main() -> int:
     counts, fixed = phase_serve(params16, card_str)
     counts.update(phase_paged(params16, fixed, card_str))
     add_counts(counts, phase_gpt2_4e(params16, fixed, card_str))
+    add_counts(counts, phase_disagg(params16, card_str))
     times = phase_timing(card_str)
     phase_cta_sizes(card_str)
     k2 = times["flash_decode_attend"]
@@ -3967,6 +4191,7 @@ def main() -> int:
     flag_errs = phase_flags()
     times.update(phase_flag_timing(card_str))
     counts.update(phase_exchange(card_str))
+    add_counts(counts, phase_disagg_fleet(card_str))
 
     line = []
     for name, meta in KERNELS.items():

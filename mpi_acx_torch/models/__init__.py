@@ -1,8 +1,9 @@
 """The GPT-2 family (forward, loss, stage slicing), the Llama family's
 serving path (``models.llama``), the MoE family (``models.moe``, the
 layer; ``models.moe_transformer``, the model), the continuous-batching
-servers (fixed-slot and paged KV caches, greedy and sampled) and
-speculative decoding (``models.speculative``), in PyTorch. The package-level
+servers (fixed-slot and paged KV caches, greedy and sampled),
+disaggregated prefill/decode serving (``models.disagg``) and speculative
+decoding (``models.speculative``), in PyTorch. The package-level
 names ``init_params``, ``forward``, ``prefill``... are GPT-2's; the Llama
 and MoE ones live in their modules, which the servers take as
 ``family``.
@@ -29,6 +30,7 @@ _EXPORTS = {
     "serve_greedy": "serving",
     "serve_sample": "serving",
     "serve_paged_greedy": "serving",
+    "serve_disagg_greedy": "disagg",
     "PageAllocator": "kvpage",
     "RadixPrefixCache": "kvpage",
     "PagedKV": "kvpage",
@@ -42,7 +44,7 @@ _EXPORTS = {
     "speculative_generate": "speculative",
     "speculative_sample": "speculative",
 }
-_SUBMODULES = ("decoding", "kvpage", "llama", "moe", "moe_transformer",
+_SUBMODULES = ("decoding", "disagg", "kvpage", "llama", "moe", "moe_transformer",
                "serving", "speculative", "transformer")
 
 

@@ -537,20 +537,25 @@ class PagedKV:
 
     # -- prompt scatter / history gather -----------------------------------
 
-    def scatter_prompt(self, one, pages: List[int]) -> None:
+    def scatter_prompt(self, one, pages: List[int], start_page: int = 0
+                       ) -> None:
         """Write a prefilled cache (``one`` = {'k','v'[,'ks','vs']: [L, 1,
-        S_bucket, H, *]}) into ``pages``, in place: page d takes bucket rows
-        [d*pt, (d+1)*pt) (zero-padded rows past the prompt are never
-        attended)."""
+        S_bucket, H, *]}, on the pool's device) into ``pages``, in place:
+        page d takes bucket rows [(start_page + d)*pt, ...+pt)
+        (zero-padded rows past the prompt are never attended).
+        ``start_page`` offsets the source rows only; 0 scatters a whole
+        prompt. (The JAX package takes ``start_page`` and ignores it, so
+        the two agree at 0, the only value its callers pass.)"""
         pt = self.page_tokens
         bucket = one["k"].shape[2]
         keys = [k for k in _POOL_KEYS if k in one and k in self.pool]
         for j, page in enumerate(pages):
-            n = min(pt, bucket - j * pt)
+            r0 = (start_page + j) * pt
+            n = min(pt, bucket - r0)
             if n <= 0:
                 break
             for key in keys:
-                self.pool[key][:, page, :n] = one[key][:, 0, j * pt:j * pt + n]
+                self.pool[key][:, page, :n] = one[key][:, 0, r0:r0 + n]
 
     def gather_history(self, pages: List[int]):
         """``pages`` gathered into contiguous [L, n*pt, H, Dh] history K/V

@@ -22,16 +22,21 @@ tables, with typed admission against the page budget, lazy page growth and
 preemption, radix prefix sharing, an SLO admission gate and per-token
 streaming.
 
-Not ported yet (absent, and listed in ROADMAP.md): the native-runtime
-hooks (flight dumps, fleet membership and slot shedding, telemetry
-annotation, causal spans), which come with the serving-to-runtime hooks.
-Without them a failed step charges every victim's retry budget and no
-slot is ever shed. The paged server does publish its page counters to the
-native metrics registry when the port's runtime binding is already loaded.
+Both servers report to the native runtime (``mpi_acx_torch.runtime``) as
+the JAX package's do, and only when the binding has already loaded the
+library (telemetry never builds or loads it): a failed step writes a flight
+dump (``ACX_FLIGHT``), each scheduler turn annotates the live telemetry
+samples with the rolling SLOs (``ACX_TSERIES``), each prefill opens a causal
+span for its request (``ACX_TRACE``), and the fleet view's ACTIVE count is
+watched so that slots shed after a peer loss come back when a replacement
+joins. A failure shaped like peer loss (:func:`_peer_dead`) requeues its
+victims without charging their retry budget and sheds one slot.
 """
 
 from __future__ import annotations
 
+import ctypes
+import json
 import math
 import operator
 import os
@@ -75,8 +80,7 @@ class RequestTelemetry:
 @dataclass
 class ServingMetrics:
     """Batch-level serving telemetry returned on ServedBatch.metrics (the
-    JAX package's fields; the peer-loss, fleet and hang-dump counters stay 0
-    until the serving-to-runtime hooks are ported)."""
+    JAX package's fields)."""
 
     requests: int = 0
     wall_s: float = 0.0
@@ -160,6 +164,127 @@ class ServedBatch(list):
     def __init__(self, outputs, metrics: ServingMetrics):
         super().__init__(outputs)
         self.metrics = metrics
+
+
+def _peer_dead(exc: BaseException) -> bool:
+    """True iff ``exc`` is shaped like peer loss: the runtime's
+    ``AcxPeerDeadError``, anything carrying ``error == ERR_PEER_DEAD``, or
+    a message naming the condition. Losing a rank is not the request's
+    fault, so the scheduler requeues its victims uncharged."""
+    from mpi_acx_torch.runtime import ERR_PEER_DEAD, AcxPeerDeadError
+    if isinstance(exc, AcxPeerDeadError):
+        return True
+    if getattr(exc, "error", None) == ERR_PEER_DEAD:
+        return True
+    msg = str(exc).lower()
+    return "peer dead" in msg or "peer_dead" in msg
+
+
+def _loaded_lib():
+    """The native library if the port's binding has already loaded it,
+    else None: the hooks below never build or load it."""
+    from mpi_acx_torch import runtime
+    return runtime._lib
+
+
+def _fleet_active() -> Optional[int]:
+    """The count of ACTIVE rank slots in this process's fleet view, or None
+    when the native library is not loaded. The server polls it to see
+    capacity return (a replacement rank joined) and revive shed slots."""
+    lib = _loaded_lib()
+    if lib is None:
+        return None
+    out = (ctypes.c_uint64 * 5)()
+    lib.acx_fleet_stats(out)
+    return int(out[4])
+
+
+def _flight_dump_best_effort() -> bool:
+    """Write this rank's flight-recorder dump when ``ACX_FLIGHT`` names a
+    prefix and the native library is loaded (tools/acx_doctor.py reads it
+    to say which op wedged). Returns True iff a dump was written."""
+    if not os.environ.get("ACX_FLIGHT"):
+        return False
+    lib = _loaded_lib()
+    return lib is not None and lib.acx_flight_dump(None) == 0
+
+
+def _tseries_annotate_best_effort(fragment: dict) -> bool:
+    """Hand ``fragment`` to the native telemetry sampler (it rides under
+    ``"app"`` in every later ``ACX_TSERIES`` sample) when the library is
+    loaded and sampling is armed; the JSON is not even encoded otherwise.
+    Returns True iff the sampler took it."""
+    if not os.environ.get("ACX_TSERIES"):
+        return False
+    lib = _loaded_lib()
+    if lib is None or not lib.acx_tseries_enabled():
+        return False
+    lib.acx_tseries_annotate(
+        json.dumps(fragment, separators=(",", ":")).encode())
+    return True
+
+
+def _span_app_begin_best_effort(request_id: int) -> bool:
+    """Open a causal-tracing bracket for ``request_id`` (``ACX_TRACE``
+    armed, library loaded): every native op enqueued until the matching
+    end is tied to the request, so tools/acx_critpath.py can split its
+    TTFT. The span id is ``request_id + 1`` (0 means no span). Returns True
+    iff the bracket was opened; the caller must then close it."""
+    if not os.environ.get("ACX_TRACE"):
+        return False
+    lib = _loaded_lib()
+    if lib is None:
+        return False
+    lib.acx_span_app_begin(request_id + 1)
+    return True
+
+
+def _span_app_end_best_effort() -> None:
+    lib = _loaded_lib()
+    if lib is not None:
+        lib.acx_span_app_end()
+
+
+class _FleetSlots:
+    """Slot shedding and revival of one serve call over its ``owner``
+    list (-1 idle, -2 shed, else the request id): a peer loss sheds an
+    idle slot, and a rise of the fleet's ACTIVE count revives the shed
+    ones."""
+
+    def __init__(self, owner: List[int]):
+        self.owner = owner
+        self.active_seen = _fleet_active()
+        self.shed = 0
+        self.revived = 0
+
+    def check_rejoin(self) -> List[int]:
+        """Revive the shed slots when the fleet view shows capacity back;
+        returns them, so the caller refills exactly those. A drop only
+        lowers the watermark, so the next join revives."""
+        if self.active_seen is None:
+            return []
+        act = _fleet_active()
+        if act is None:
+            return []
+        revived = []
+        if act > self.active_seen:
+            for b, o in enumerate(self.owner):
+                if o == -2:
+                    self.owner[b] = -1
+                    revived.append(b)
+            self.revived += len(revived)
+        self.active_seen = act
+        return revived
+
+    def shed_one(self) -> None:
+        """Retire one idle slot for good: a lost rank shrank the job, so
+        the batch shrinks with it. At least one slot always stays."""
+        alive = [b for b, o in enumerate(self.owner) if o != -2]
+        idle = [b for b in alive if self.owner[b] == -1]
+        if len(alive) <= 1 or not idle:
+            return
+        self.owner[max(idle)] = -2
+        self.shed += 1
 
 
 class RollingSLO:
@@ -373,7 +498,10 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
                   for rid, p in enumerate(prompts) if rid not in rejected)
     for depth, (rid, _p) in enumerate(queue):
         reqlog.emit("queue", rid, depth=depth)
-    owner = [-1] * n_slots          # request id per slot; -1 = idle
+    # Request id per slot; -1 = idle, -2 = shed after a peer loss (never
+    # refilled until the fleet shows capacity back).
+    owner = [-1] * n_slots
+    fleet = _FleetSlots(owner)
     emitted: List[List[int]] = [[] for _ in prompts]
     done: List[Optional[object]] = [None] * len(prompts)
     for rid, rej in rejected.items():
@@ -393,23 +521,25 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
     itl_samples: List[float] = []
     qd_samples: List[int] = []
     occ_samples: List[float] = []
-    n_steps = 0
-    n_prefills = 0
-    n_requeues = 0
+    n_steps = n_prefills = n_requeues = n_peer_requeues = n_hang_dumps = 0
 
-    def _requeue(rid, prompt, exc):
+    def _requeue(rid, prompt, exc, charge=True):
         """Put a failed request back on the queue for a restart, or
-        re-raise past the retry budget."""
-        nonlocal n_requeues
-        attempts[rid] += 1
-        if attempts[rid] > max_request_retries:
-            raise RuntimeError(
-                f"request {rid} failed {attempts[rid]} time(s), past "
-                f"max_request_retries={max_request_retries}") from exc
+        re-raise past the retry budget. ``charge=False`` (peer loss)
+        leaves the budget alone."""
+        nonlocal n_requeues, n_peer_requeues
+        if charge:
+            attempts[rid] += 1
+            if attempts[rid] > max_request_retries:
+                raise RuntimeError(
+                    f"request {rid} failed {attempts[rid]} time(s), past "
+                    f"max_request_retries={max_request_retries}") from exc
+        else:
+            n_peer_requeues += 1
         emitted[rid] = []
         ttft[rid] = None
         n_requeues += 1
-        reqlog.emit("requeue", rid, charged=True)
+        reqlog.emit("requeue", rid, charged=bool(charge))
         queue.append((rid, prompt))
 
     def refill(b):
@@ -423,6 +553,7 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
         padded = np.zeros((1, min(_bucket(S), max_len, cfg.max_seq)),
                           np.int32)
         padded[0, :S] = prompt
+        spanned = _span_app_begin_best_effort(rid)
         reqlog.emit("prefill_start", rid, prompt_len=S,
                     bucket=padded.shape[1])
         try:
@@ -435,8 +566,11 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
                                           keys[b], *sample_cfg)[0])
             slots = scatter_fn(slots, one, b, S)
         except Exception as exc:  # noqa: BLE001 — any device failure
-            _requeue(rid, prompt, exc)
+            _requeue(rid, prompt, exc, charge=not _peer_dead(exc))
             return False
+        finally:
+            if spanned:
+                _span_app_end_best_effort()
         owner[b] = rid
         emitted[rid].append(first)
         last_tok[b] = first
@@ -483,6 +617,13 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
         qd_samples.append(len(queue))
         occ_samples.append(sum(o >= 0 for o in owner) / n_slots)
         slo.note_gauges(qd_samples[-1], occ_samples[-1])
+        _tseries_annotate_best_effort(slo.live_slos())
+        if queue:
+            # Capacity may have returned (a replacement rank joined):
+            # revive shed slots and refill exactly those.
+            for b in fleet.check_rejoin():
+                if queue and refill(b) and slot_finished(b):
+                    retire(b)
         if not any(o >= 0 for o in owner):
             # All slots idle with requests queued: only reachable after a
             # failure re-queued them — reseed and keep serving.
@@ -496,12 +637,20 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
         except Exception as exc:  # noqa: BLE001 — any device failure
             # The slot cache is updated in place, so after a failed step it
             # cannot be trusted: re-queue every active request (bit-equal
-            # restart, bounded by max_request_retries) and rebuild it.
+            # restart, bounded by max_request_retries) and rebuild it. Peer
+            # loss charges no victim and sheds a slot (the job shrank).
+            lost_peer = _peer_dead(exc)
+            # The flight dump records the comm plane as the failure left it.
+            if _flight_dump_best_effort():
+                n_hang_dumps += 1
             for b in range(n_slots):
                 if owner[b] >= 0:
                     rid = owner[b]
                     owner[b] = -1
-                    _requeue(rid, np.asarray(prompts[rid], np.int32), exc)
+                    _requeue(rid, np.asarray(prompts[rid], np.int32), exc,
+                             charge=not lost_peer)
+            if lost_peer:
+                fleet.shed_one()
             slots = fresh_slots()
             keys = [None] * n_slots
             last_tok = np.zeros((n_slots,), np.int32)
@@ -539,7 +688,9 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
     return ServedBatch(done, _batch_metrics(
         prompts, rejected, emitted, ttft, finish, attempts, t0, itl_samples,
         qd_samples, occ_samples, steps=n_steps, prefills=n_prefills,
-        requeues=n_requeues))
+        requeues=n_requeues, peer_requeues=n_peer_requeues,
+        slots_shed=fleet.shed, slots_revived=fleet.revived,
+        hang_dumps=n_hang_dumps))
 
 
 def _batch_metrics(prompts, rejected, emitted, ttft, finish, attempts, t0,
@@ -747,7 +898,8 @@ def serve_paged_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
                   for rid, p in enumerate(prompts) if rid not in rejected)
     for depth, (rid, _p) in enumerate(queue):
         reqlog.emit("queue", rid, depth=depth)
-    owner = [-1] * n_slots          # request id per slot; -1 = idle
+    owner = [-1] * n_slots          # -1 idle, -2 shed (as _serve)
+    fleet = _FleetSlots(owner)
     emitted: List[List[int]] = [[] for _ in prompts]
     done: List[Optional[object]] = [None] * len(prompts)
     for rid, rej in rejected.items():
@@ -765,20 +917,24 @@ def serve_paged_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
     qd_samples: List[int] = []
     occ_samples: List[float] = []
     n_steps = n_prefills = n_requeues = n_preempts = n_slo_defer = 0
+    n_peer_requeues = n_hang_dumps = 0
     # Requests evicted by page pressure: their next seat is a "resume".
     preempted_rids: set = set()
 
-    def _requeue(rid, prompt, exc):
-        nonlocal n_requeues
-        attempts[rid] += 1
-        if attempts[rid] > max_request_retries:
-            raise RuntimeError(
-                f"request {rid} failed {attempts[rid]} time(s), past "
-                f"max_request_retries={max_request_retries}") from exc
+    def _requeue(rid, prompt, exc, charge=True):
+        nonlocal n_requeues, n_peer_requeues
+        if charge:
+            attempts[rid] += 1
+            if attempts[rid] > max_request_retries:
+                raise RuntimeError(
+                    f"request {rid} failed {attempts[rid]} time(s), past "
+                    f"max_request_retries={max_request_retries}") from exc
+        else:
+            n_peer_requeues += 1
         emitted[rid] = []
         ttft[rid] = None
         n_requeues += 1
-        reqlog.emit("requeue", rid, charged=True)
+        reqlog.emit("requeue", rid, charged=bool(charge))
         queue.append((rid, prompt))
 
     def _slo_defers() -> bool:
@@ -847,6 +1003,7 @@ def serve_paged_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
                 pkv.alloc.decref(p)
             queue.appendleft((rid, prompt))
             return False
+        spanned = _span_app_begin_best_effort(rid)
         reqlog.emit("prefill_start", rid, prompt_len=S,
                     hit_pages=len(hit_pages), fresh_pages=len(fresh))
         try:
@@ -855,8 +1012,11 @@ def serve_paged_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
         except Exception as exc:  # noqa: BLE001 — any device failure
             for p in hit_pages + fresh:
                 pkv.alloc.decref(p)
-            _requeue(rid, prompt, exc)
+            _requeue(rid, prompt, exc, charge=not _peer_dead(exc))
             return False
+        finally:
+            if spanned:
+                _span_app_end_best_effort()
         reqlog.emit("prefill_end", rid, first_token=first)
         pkv.seat(b, hit_pages, fresh, S, rid=rid)
         if pkv.prefix is not None:
@@ -956,7 +1116,12 @@ def serve_paged_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
         qd_samples.append(len(queue))
         occ_samples.append(sum(o >= 0 for o in owner) / n_slots)
         slo.note_gauges(qd_samples[-1], occ_samples[-1])
+        _tseries_annotate_best_effort(slo.live_slos())
         publish()
+        if queue:
+            for b in fleet.check_rejoin():
+                if queue and refill(b) and slot_finished(b):
+                    retire(b)
         if not any(o >= 0 for o in owner):
             # All slots idle with requests queued (failure requeues, a
             # deferred seed, total preemption): reseed. The gate never
@@ -991,11 +1156,17 @@ def serve_paged_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
             # The pool is written in place, so after a failed step it
             # cannot be trusted: requeue every active request and start
             # the pool over (the prefix cache's pages lived in it too).
+            lost_peer = _peer_dead(exc)
+            if _flight_dump_best_effort():
+                n_hang_dumps += 1
             for b in range(n_slots):
                 if owner[b] >= 0:
                     rid = owner[b]
                     owner[b] = -1
-                    _requeue(rid, np.asarray(prompts[rid], np.int32), exc)
+                    _requeue(rid, np.asarray(prompts[rid], np.int32), exc,
+                             charge=not lost_peer)
+            if lost_peer:
+                fleet.shed_one()
             pkv.reset_pool()
             last_tok = np.zeros((n_slots,), np.int32)
             continue
@@ -1032,7 +1203,9 @@ def serve_paged_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
     batch = ServedBatch(done, _batch_metrics(
         prompts, rejected, emitted, ttft, finish, attempts, t0, itl_samples,
         qd_samples, occ_samples, steps=n_steps, prefills=n_prefills,
-        requeues=n_requeues, preemptions=n_preempts,
+        requeues=n_requeues, peer_requeues=n_peer_requeues,
+        slots_shed=fleet.shed, slots_revived=fleet.revived,
+        hang_dumps=n_hang_dumps, preemptions=n_preempts,
         prefix_hits=pkv.prefix.hits if pkv.prefix else 0,
         prefix_evictions=pkv.prefix.evictions if pkv.prefix else 0,
         prefix_pages_reused=pkv.prefix.pages_reused if pkv.prefix else 0,

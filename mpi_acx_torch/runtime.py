@@ -1,13 +1,15 @@
 """ctypes binding to the native host plane (``build/libtpuacx.so``), taking
 tensors.
 
-The port's own copy of what the device-triggered exchange needs from the
-native runtime: init and finalize, enqueued sends and receives on the host
-queue, host waits, partitioned channels, the device<->proxy flag bridge
-(``publish_partition_flags`` / ``fetch_partition_flags``), a barrier, a max
-all-reduce and the proxy's counters. The C surface is the library's public
-API (``include/mpi-acx.h``, ``include/compat/mpi.h``), the same one the C
-tests and the JAX package call, so ranks of either package meet on one wire.
+The port's own copy of the JAX package's binding: init and finalize,
+enqueued sends and receives on the host queue, host waits, partitioned
+channels, the device<->proxy flag bridge (``publish_partition_flags`` /
+``fetch_partition_flags``), a barrier, a max all-reduce, the proxy's
+counters, and the resilience, fleet-membership, metrics, live-telemetry,
+causal-tracing and flight-recorder calls the serving loop reports through.
+The C surface is the library's public API (``include/mpi-acx.h``,
+``include/compat/mpi.h``), the same one the C tests and the JAX package
+call, so ranks of either package meet on one wire.
 
 Buffers are tensors:
 
@@ -36,6 +38,7 @@ other's symbols, and this module never synchronises the device through it.
 from __future__ import annotations
 
 import ctypes
+import json
 import os
 import subprocess
 from typing import Optional
@@ -60,6 +63,7 @@ ERR_PEER_DEAD = 20
 ERR_INJECTED = 21
 
 QUEUE_STREAM = 0        # MPIX_QUEUE_CUDA_STREAM: the host execution queue
+QUEUE_GRAPH = 1         # MPIX_QUEUE_CUDA_GRAPH (no graph-queue path here yet)
 _COMM_WORLD = 0
 _MPI_MAX = 0
 _MPI_IN_PLACE = ctypes.c_void_p(2 ** 64 - 1)   # (void *)-1
@@ -82,6 +86,11 @@ class AcxTimeoutError(AcxError):
 class AcxPeerDeadError(AcxError):
     """Peer declared dead: EOF or heartbeat timeout (MPIX_ERR_PEER_DEAD)."""
 
+
+# MemberState values of the fleet membership table (include/acx/membership.h;
+# MPIX_FLEET_* in include/mpi-acx.h). Indices are the C enum: do not reorder.
+FLEET_STATE_NAMES = ("unknown", "joining", "active", "draining", "left",
+                     "dead")
 
 _ERRORS = {ERR_TIMEOUT: (AcxTimeoutError, "op timed out"),
            ERR_PEER_DEAD: (AcxPeerDeadError, "peer dead"),
@@ -110,6 +119,7 @@ def lib() -> ctypes.CDLL:
         i64p = ctypes.POINTER(ctypes.c_int64)
         i32p = ctypes.POINTER(ctypes.c_int32)
         u64p = ctypes.POINTER(ctypes.c_uint64)
+        u64, d, s = ctypes.c_uint64, ctypes.c_double, ctypes.c_char_p
         sig = {
             "MPI_Init_thread": ([p, p, i, ip], i),
             "MPI_Finalize": ([], i),
@@ -134,6 +144,29 @@ def lib() -> ctypes.CDLL:
             "acx_flags_publish": ([i64p, i32p, i], i),
             "acx_flags_fetch": ([i64p, i32p, i], i),
             "acx_proxy_stats": ([u64p], None),
+            "cudaStreamSynchronize": ([p], i),
+            "MPIX_Set_deadline": ([d], i),
+            "MPIX_Get_deadline": ([ctypes.POINTER(d)], i),
+            "MPIX_Op_status": ([p, ip, ip, ip], i),
+            "acx_resilience_stats": ([u64p], None),
+            "acx_recovery_stats": ([u64p], None),
+            "acx_drain": ([d], i),
+            "MPIX_Fleet_epoch": ([], u64),
+            "MPIX_Fleet_view": ([i32p, i], i),
+            "MPIX_Fleet_leave": ([d], i),
+            "acx_fleet_stats": ([u64p], None),
+            "acx_metrics_enabled": ([], i),
+            "acx_metrics_snapshot": ([s, i], i),
+            "acx_metrics_prom": ([s, i], i),
+            "acx_metrics_dump_json": ([s], i),
+            "acx_tseries_enabled": ([], i),
+            "acx_tseries_sample_now": ([], i),
+            "acx_tseries_live_json": ([s, i], i),
+            "acx_tseries_annotate": ([s], None),
+            "acx_span_app_begin": ([u64], None),
+            "acx_span_app_end": ([], None),
+            "acx_flight_dump": ([s], i),
+            "acx_flight_stats": ([u64p], None),
         }
         for name, (args, res) in sig.items():
             fn = getattr(L, name)
@@ -238,6 +271,7 @@ class Runtime:
         self._inprogram_sends = []     # triggers: (request, host buffer)
         self._triggers = {}            # triggers: stream id -> trigger thread
         self._open = True
+        self._left = False             # fleet_leave() was called
 
     # -- enqueued ops (default host queue) ---------------------------------
 
@@ -288,6 +322,12 @@ class Runtime:
                       st.MPI_ERROR, st.MPI_SOURCE, st.MPI_TAG)
         return st
 
+    def stream_sync(self) -> None:
+        """Wait for the native default host queue to drain (the library's
+        host shim of ``cudaStreamSynchronize``, on which the enqueued ops
+        run). It waits for no work on the card."""
+        self._lib.cudaStreamSynchronize(None)
+
     # -- partitioned ops ----------------------------------------------------
 
     def _pinit(self, fn, buf, partitions: int, peer: int, tag: int):
@@ -331,6 +371,11 @@ class Runtime:
                                    ctypes.byref(flag)) != 0:
             raise RuntimeError("MPIX_Parrived failed")
         return bool(flag.value)
+
+    def wait_partitioned(self, req) -> Status:
+        """Wait for a partitioned round to complete (its errors raise as
+        :meth:`wait`'s do)."""
+        return self.wait(req)
 
     def request_free(self, req) -> None:
         if self._lib.MPIX_Request_free(ctypes.byref(req)) != 0:
@@ -400,10 +445,185 @@ class Runtime:
         return int(buf[0])
 
     def proxy_stats(self) -> dict:
+        """The proxy's counters, with :meth:`resilience_stats` and
+        :meth:`recovery_stats` merged in."""
         out = (ctypes.c_uint64 * 4)()
         self._lib.acx_proxy_stats(out)
-        return {"sweeps": out[0], "ops_issued": out[1],
-                "ops_completed": out[2], "slots_reclaimed": out[3]}
+        stats = {"sweeps": out[0], "ops_issued": out[1],
+                 "ops_completed": out[2], "slots_reclaimed": out[3]}
+        stats.update(self.resilience_stats())
+        stats.update(self.recovery_stats())
+        return stats
+
+    def _counters(self, fn, names) -> dict:
+        out = (ctypes.c_uint64 * len(names))()
+        fn(out)
+        return dict(zip(names, out))
+
+    def _json_text(self, fn) -> str:
+        """The text a sizing C call returns: probe with (NULL, 0), then
+        fill, with slack, until the text fits (live counters can gain
+        digits between the probe and the fill)."""
+        n = fn(None, 0)
+        while True:
+            cap = n + 256
+            buf = ctypes.create_string_buffer(cap)
+            n = fn(buf, cap)
+            if n < cap:
+                return buf.value.decode()
+
+    # -- resilience plane ---------------------------------------------------
+
+    def set_deadline(self, timeout_ms: float) -> None:
+        """Deadline of every op issued after this call (0 disables): an op
+        past it completes with ERR_TIMEOUT instead of blocking forever."""
+        if self._lib.MPIX_Set_deadline(float(timeout_ms)) != 0:
+            raise ValueError(f"bad deadline {timeout_ms!r} (must be >= 0)")
+
+    def get_deadline(self) -> float:
+        out = ctypes.c_double(0.0)
+        if self._lib.MPIX_Get_deadline(ctypes.byref(out)) != 0:
+            raise RuntimeError("MPIX_Get_deadline failed")
+        return out.value
+
+    def op_status(self, req) -> dict:
+        """Nonblocking probe of a request: its lifecycle state (the flag
+        word), its first error and its issue attempts (above 1: the retry
+        path fired)."""
+        st, err, att = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+        if self._lib.MPIX_Op_status(req, ctypes.byref(st), ctypes.byref(err),
+                                    ctypes.byref(att)) != 0:
+            raise RuntimeError("MPIX_Op_status: not a live request")
+        return {"state": st.value, "error": err.value,
+                "attempts": att.value}
+
+    def resilience_stats(self) -> dict:
+        """Process-wide resilience counters: proxy retries and timeouts,
+        injected-fault hits, heartbeats and dead peers."""
+        return self._counters(self._lib.acx_resilience_stats, (
+            "retries", "timeouts", "fault_drops", "fault_delays",
+            "fault_fails", "hb_sent", "hb_recv", "peers_dead"))
+
+    def drain(self, timeout_ms: float = 1000.0) -> int:
+        """MPIX_Drain: wait up to ``timeout_ms`` for every in-flight op,
+        then cancel the stragglers with a typed error so every waiter
+        returns. Returns the number of ops cancelled (0: a clean drain)."""
+        n = self._lib.acx_drain(float(timeout_ms))
+        if n < 0:
+            raise RuntimeError("acx_drain: runtime not initialized")
+        return n
+
+    def recovery_stats(self) -> dict:
+        """Process-wide survivable-link counters: reconnects, frames
+        replayed, CRC rejects, NAKs sent, ops cancelled by a drain, links
+        mid-reconnect and links whose replay buffer overran."""
+        return self._counters(self._lib.acx_recovery_stats, (
+            "reconnects", "replayed_frames", "crc_rejects", "naks_sent",
+            "drained_slots", "links_recovering", "replay_broken_links"))
+
+    # -- fleet membership ---------------------------------------------------
+
+    def fleet_epoch(self) -> int:
+        """This rank's fleet epoch: it grows with every membership verdict
+        the rank adopts (a join, a graceful leave, a death)."""
+        return int(self._lib.MPIX_Fleet_epoch())
+
+    def fleet_view(self) -> list:
+        """This rank's membership view: one state name
+        (``FLEET_STATE_NAMES``) per rank slot."""
+        states = (ctypes.c_int32 * max(self.size, 1))()
+        n = self._lib.MPIX_Fleet_view(states, self.size)
+        return [FLEET_STATE_NAMES[states[i]]
+                if 0 <= states[i] < len(FLEET_STATE_NAMES) else "unknown"
+                for i in range(max(n, 0))]
+
+    def fleet_stats(self) -> dict:
+        """Membership counters: epoch, joins, leaves and deaths adopted,
+        and the rank slots ACTIVE now."""
+        return self._counters(self._lib.acx_fleet_stats, (
+            "epoch", "joins", "leaves", "deaths", "active"))
+
+    def fleet_leave(self, timeout_ms: float = 2000.0) -> int:
+        """Leave the fleet: drain (up to ``timeout_ms``), announce LEFT to
+        every peer and give up the rendezvous listener for a replacement.
+        Returns the ops the drain cancelled. :meth:`finalize` then skips
+        MPI_Finalize's barrier with a rank set this rank has left."""
+        n = self._lib.MPIX_Fleet_leave(float(timeout_ms))
+        if n < 0:
+            raise RuntimeError("MPIX_Fleet_leave: runtime not initialized")
+        self._left = True
+        return n
+
+    # -- metrics plane (ACX_METRICS) ----------------------------------------
+
+    def metrics_enabled(self) -> bool:
+        """True iff ACX_METRICS was set when the library loaded."""
+        return bool(self._lib.acx_metrics_enabled())
+
+    def metrics(self) -> dict:
+        """The native metrics registry: ``{"enabled", "counters",
+        "histograms"}`` (counters read 0 with ACX_METRICS unset)."""
+        return json.loads(self._json_text(self._lib.acx_metrics_snapshot))
+
+    def metrics_prom(self) -> str:
+        """The registry in Prometheus text exposition format."""
+        return self._json_text(self._lib.acx_metrics_prom)
+
+    def metrics_dump(self, path: str) -> None:
+        """Write the registry snapshot to ``path`` as JSON."""
+        if self._lib.acx_metrics_dump_json(path.encode()) != 0:
+            raise RuntimeError(f"acx_metrics_dump_json({path!r}) failed")
+
+    # -- live telemetry (ACX_TSERIES) ---------------------------------------
+
+    def tseries_enabled(self) -> bool:
+        """True iff ACX_TSERIES sampling is armed."""
+        return bool(self._lib.acx_tseries_enabled())
+
+    def live_metrics(self) -> dict:
+        """A fresh telemetry sample as a dict (the record the sampler
+        appends to its ``.tseries.jsonl``, the last annotation under
+        ``"app"``), or ``{"enabled": False}`` with ACX_TSERIES unset."""
+        if self._lib.acx_tseries_sample_now() < 0:
+            return {"enabled": False}
+        text = self._json_text(self._lib.acx_tseries_live_json)
+        return json.loads(text) if text else {}
+
+    def tseries_annotate(self, fragment: dict) -> None:
+        """Attach a JSON fragment (serving SLOs, say) to later telemetry
+        samples under ``"app"``; a no-op while sampling is off."""
+        self._lib.acx_tseries_annotate(
+            json.dumps(fragment, separators=(",", ":")).encode())
+
+    # -- causal tracing (ACX_TRACE) -----------------------------------------
+
+    def span_app_begin(self, request_id: int) -> None:
+        """Tie every op enqueued until :meth:`span_app_end` to
+        ``request_id`` (nonzero; the latest begin wins, no nesting)."""
+        self._lib.acx_span_app_begin(request_id)
+
+    def span_app_end(self) -> None:
+        self._lib.acx_span_app_end()
+
+    # -- flight recorder ----------------------------------------------------
+
+    def hang_report(self, path: Optional[str] = None) -> str:
+        """Write this rank's flight dump for tools/acx_doctor.py to
+        ``<prefix>.rank<r>.flight.json`` (prefix: ``path``, else
+        $ACX_FLIGHT, else "acx"); returns the file name."""
+        prefix = path if path is not None else os.environ.get(
+            "ACX_FLIGHT", "acx")
+        arg = path.encode() if path is not None else None
+        if self._lib.acx_flight_dump(arg) != 0:
+            raise RuntimeError(f"acx_flight_dump({path!r}) failed")
+        return f"{prefix}.rank{self.rank}.flight.json"
+
+    def flight_stats(self) -> dict:
+        """Flight-recorder counters: events recorded, ring capacity,
+        stall warnings, watchdog hang dumps and dump files written."""
+        return self._counters(self._lib.acx_flight_stats, (
+            "recorded", "capacity", "stall_warns", "hang_dumps",
+            "dumps_written"))
 
     def finalize(self) -> None:
         """Stop the trigger threads, then MPIX_Finalize and MPI_Finalize
@@ -422,5 +642,7 @@ class Runtime:
                   f"in-program send(s) never drained (triggers.drain_sends)",
                   file=sys.stderr)
         self._lib.MPIX_Finalize()
-        self._lib.MPI_Finalize()
+        if not self._left:
+            # MPI_Finalize barriers with the rank set this rank has left.
+            self._lib.MPI_Finalize()
         self._open = False

@@ -19,6 +19,7 @@ import torch
 
 from mpi_acx_torch import data as tdata
 from mpi_acx_torch import train as ttrain
+from mpi_acx_torch.models import disagg as tdg
 from mpi_acx_torch.models import kvpage as tkp
 from mpi_acx_torch.models import llama as tl
 from mpi_acx_torch.models import moe as tmoe
@@ -51,6 +52,8 @@ def test_port_imports_no_jax():
         assert ROOT / "mpi_acx_torch" / "models" / name in PORT_FILES
     for name in ("data.py", "checkpoint.py", "profiling.py"):
         assert ROOT / "mpi_acx_torch" / name in PORT_FILES
+    for name in ("models/disagg.py", "parallel/kv_ship.py"):
+        assert ROOT / "mpi_acx_torch" / name in PORT_FILES
     bad = [(p.relative_to(ROOT), m) for p in PORT_FILES
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "mpi_acx_tpu")]
@@ -62,14 +65,15 @@ def test_import_loads_neither_jax_nor_cuda():
         "import sys, torch, mpi_acx_torch\n"
         "from mpi_acx_torch import checkpoint, data, device, profiling, "
         "reqlog, runtime, train, triggers\n"
-        "from mpi_acx_torch.models import decoding, kvpage, llama, moe, "
-        "moe_transformer, serving, speculative, transformer\n"
+        "from mpi_acx_torch.models import decoding, disagg, kvpage, llama, "
+        "moe, moe_transformer, serving, speculative, transformer\n"
         "from mpi_acx_torch.ops import _build, attention, flags, "
         "flash_decode, kvquant, wquant, xent\n"
-        "from mpi_acx_torch.parallel import collective, mesh, pipeline, "
-        "ring_attention\n"
+        "from mpi_acx_torch.parallel import collective, kv_ship, mesh, "
+        "pipeline, ring_attention\n"
         "import mpi_acx_torch.models as m; m.serve_greedy; m.gpt2_small\n"
         "m.serve_paged_greedy; m.PagedKV; m.kvpage\n"
+        "m.serve_disagg_greedy; m.disagg\n"
         "m.llama3_8b; m.LlamaConfig; m.llama\n"
         "m.MoeConfig; m.MoeTransformerConfig; m.tiny_moe_config; "
         "m.moe_transformer\n"
@@ -149,6 +153,12 @@ ENTRY_POINTS = {
         p, cfg, p, cfg, np.zeros((1, 3), np.int32), 2),
     "speculative_sample": lambda cfg, p: tsp.speculative_sample(
         p, cfg, p, cfg, np.zeros((1, 3), np.int32), 2, torch.Generator()),
+    "serve_disagg_greedy": lambda cfg, p: tdg.serve_disagg_greedy(
+        p, cfg, [np.arange(3, dtype=np.int32)], 2, n_slots=1, max_len=8),
+    "run_prefill_worker": lambda cfg, p: tdg.run_prefill_worker(
+        None, p, cfg, [np.arange(3, dtype=np.int32)], 8),
+    "run_decode_worker": lambda cfg, p: tdg.run_decode_worker(
+        None, p, cfg, [np.arange(3, dtype=np.int32)], 2, 1, 8),
 }
 
 
