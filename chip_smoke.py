@@ -46,8 +46,12 @@ in the repository. Phases, each of which exits non-zero on failure:
              its first, middle and last 128 query rows, each over its
              whole key prefix; the backward (dq, dk, dv of flash_attention
              and flash_attention_lse, random dO and dLSE) against autograd
-             through the plain versions, within TOL_GRAD. Each at GPT-2's
-             heads (H=12, D=64) and again at Llama-3-8B's (H=32, D=128).
+             through the plain versions, within TOL_GRAD, causal at the
+             training shape and, for flash_attention_lse, at a ring
+             step's non-causal block (B=2, S = Sk = 512: phase 7c's
+             earlier K/V block, whose lse cotangent is nonzero). Each at
+             GPT-2's heads (H=12, D=64) and again at Llama-3-8B's (H=32,
+             D=128).
 3. f32     — GPT-2 124M at full width in float32 served through the kernels
              and through the plain versions: the tokens must be equal (a
              divergence passes only at a true tie, see TIE), and the two
@@ -240,6 +244,24 @@ in the repository. Phases, each of which exits non-zero on failure:
              pass (fixed slots), the baseline of per-layer Pready. The
              ranks' TTFT split and figures are printed (correctness-grade:
              the two ranks share the card).
+7c. multi-rank train — eight ranks of tests/torch_rank_worker.py under
+             build/acxrun on the one card (gloo groups: NCCL refuses two
+             ranks on one device), each calling multihost.initialize(),
+             global_mesh({dp: 2, pp: 2, tp: 2}), shard_params and the
+             port's train step on GPT-2 124M at full width and depth (6
+             layers a stage) with phase 5b's batch and seed-0 weights: (a)
+             f32 step 0 (TF32 off), the ranks' gradient shards assembled
+             by unshard_params and held with the loss to the one-rank
+             step's on the same weights and batch (TOL_MULTI_F32,
+             TOL_MULTI_LOSS); (b) the same under 1F1B with n_virtual=2,
+             held to (a); (c) dp_quant_bits=8, the loss equal to (a)'s
+             and each leaf within the quantized sync's bounds of (a)'s;
+             (d) bf16 compute on f32 weights, 3 AdamW steps, the losses
+             held to phase 5b's kernel run (TOL_TRAIN_LOSS0,
+             TOL_TRAIN_LOSS); B10's launches per rank and run exactly
+             what the code gives (b10_multirank); per rank the step ms,
+             peak memory, bytes handed to the wire per axis and the
+             backend, correctness-grade (8 ranks share one card).
 8. the kernels line (JSON), the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 """
@@ -248,6 +270,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import itertools
 import json
 import math
 import re
@@ -356,7 +380,12 @@ TOL_LSE_F32 = {torch.float32: 5e-6, torch.bfloat16: 5e-6}
 # rounding. Readings on an H100: bf16 abs 3.1e-2, row 5.6e-2 against the
 # bf16 plain version (whose own row error against f32 is 3.9-5.0e-2) and
 # 4.9e-2 against f32; f32 abs 9.5e-6, row 1.0e-5. Limits: about twice
-# the readings (f32 abs at 1e-4).
+# the readings (f32 abs at 1e-4). The non-causal ring block (B = 2, S =
+# Sk = 512, random dLSE; two runs on an H100) reads within them: bf16 row
+# 4.3-5.2e-2 against the bf16 plain version (whose own row error against
+# f32 is 3.9-4.6e-2) and 1.3-1.4e-2 against f32 at D = 64, 4.0-5.0e-2 and
+# 1.4-1.5e-2 at D = 128 (plain's own 3.5-4.9e-2); f32 1.6-4.6e-6 at D =
+# 64 and 2.1-5.5e-6 at D = 128. So the same limits hold it.
 TOL_GRAD = {torch.float32: dict(abs=1e-4, row=2e-5, row_f32=2e-5),
             torch.bfloat16: dict(abs=6e-2, row=0.12, row_f32=0.1)}
 # The same at Llama-3-8B's heads (H = 32, D = 128), where dq reads more
@@ -1077,24 +1106,35 @@ def grads(fn, xs, cts):
     return torch.autograd.grad(outs, xs, cts)
 
 
+# The backward's cases: (B, S = Sk, causal). The second is a ring step's
+# non-causal block at tp = 2 (phase 7c: an earlier K/V block of 512
+# positions, 2 sequences a dp rank), whose lse cotangent the ring's
+# logaddexp merge makes nonzero.
+BACKWARD_CASES = ((TRAIN_B, TRAIN_S, True), (2, 512, False))
+
+
 def phase_backward(gen, heads=H, head_dim=D) -> dict:
     """The backward of flash_attention and flash_attention_lse (through the
-    kernels' forwards) against autograd through the plain versions, at the
-    training shape, causal, with random dO and dLSE."""
+    kernels' forwards) against autograd through the plain versions, with
+    random dO and dLSE: at the training shape, causal, and at a ring step's
+    non-causal block (flash_attention_lse alone, which the ring calls)."""
     from mpi_acx_torch.ops.attention import _reference_lse, \
         attention_reference, flash_attention, flash_attention_lse
     worst = {}
-    shape = (TRAIN_B, TRAIN_S, heads, head_dim)
-    for dtype in (torch.bfloat16, torch.float32):
+    for (B, S, causal), dtype in itertools.product(
+            BACKWARD_CASES, (torch.bfloat16, torch.float32)):
+        shape = (B, S, heads, head_dim)
         xs = [randn(shape, dtype, gen) for _ in range(3)]
         do = randn(shape, dtype, gen)
-        dlse = randn((TRAIN_B, heads, TRAIN_S), torch.float32, gen)
+        dlse = randn((B, heads, S), torch.float32, gen)
         x32 = [x.float() for x in xs]
-        for name, kern, plain, cts, cts32 in (
-                ("flash_attention", flash_attention, attention_reference,
-                 (do,), (do.float(),)),
-                ("flash_attention_lse", flash_attention_lse, _reference_lse,
-                 (do, dlse), (do.float(), dlse))):
+        forms = (("flash_attention", flash_attention, attention_reference,
+                  (do,), (do.float(),)),
+                 ("flash_attention_lse", flash_attention_lse, _reference_lse,
+                  (do, dlse), (do.float(), dlse)))
+        for name, kern, plain, cts, cts32 in forms[0 if causal else 1:]:
+            kern = functools.partial(kern, causal=causal)
+            plain = functools.partial(plain, causal=causal)
             got = grads(kern, xs, cts)
             ref = grads(plain, xs, cts)
             ref32 = grads(plain, x32, cts32)
@@ -1104,8 +1144,8 @@ def phase_backward(gen, heads=H, head_dim=D) -> dict:
             for gname, g, r, r32 in zip(("dq", "dk", "dv"), got, ref, ref32):
                 e = errors(g, r, r32, rms_floor=GRAD_RMS_FLOOR,
                            head_dim=head_dim)
-                print(f"backward {name} {str(dtype)[6:]} {gname} B={TRAIN_B} "
-                      f"S={TRAIN_S} H={heads} D={head_dim} causal: "
+                print(f"backward {name} {str(dtype)[6:]} {gname} B={B} "
+                      f"S=Sk={S} H={heads} D={head_dim} causal={causal}: "
                       f"max_abs_err {e['abs']:.3e} (tol {tol['abs']}), row err "
                       f"{e['row']:.3e} vs plain (tol {tol['row']}), "
                       f"{e['row_f32']:.3e} vs f32 plain (tol "
@@ -1118,11 +1158,12 @@ def phase_backward(gen, heads=H, head_dim=D) -> dict:
                     w[key] = max(w[key], val)
             if bad:
                 fail(f"the backward of {name} ({', '.join(bad)}, {dtype}, "
-                     f"D={head_dim}) disagrees with autograd through the "
-                     f"plain version")
+                     f"D={head_dim}, causal={causal}) disagrees with "
+                     f"autograd through the plain version")
     print(f"backward check passed: dq, dk, dv of flash_attention and "
-          f"flash_attention_lse at H={heads} D={head_dim} within limits in "
-          f"bf16 and f32", flush=True)
+          f"flash_attention_lse at H={heads} D={head_dim} (and the "
+          f"non-causal ring block) within limits in bf16 and f32",
+          flush=True)
     return worst
 
 
@@ -4077,6 +4118,201 @@ def phase_disagg_fleet(card_str) -> dict:
     return total
 
 
+# --- phase 7c --------------------------------------------------------------
+
+MULTI_DIR = ROOT / "build" / "smoke_multirank"    # 7c's files, removed after
+MULTI_MESH = {"dp": 2, "pp": 2, "tp": 2}
+# The wire of 7c's groups. Its eight ranks share the one card, and NCCL
+# refuses two ranks on one device (probes/nccl_one_card.py), so the groups
+# are gloo's: each collective copies its CUDA tensors to the host and back
+# explicitly.
+MULTI_BACKEND = "gloo"
+# f32 step 0 of the 2x2x2 step against the one-rank step on the same
+# weights and batch, TF32 off on both sides: the two differ only in
+# reduction order (the tp halves of each FFN product summed by psum, the
+# ring's logaddexp merge of two blocks, the gradients' psums). Each
+# gradient leaf's largest difference over its largest magnitude, and the
+# loss's relative difference. Readings on an H100: leaves
+# 0.91-2.41e-6 (1F1B with n_virtual=2 against GPipe: at most 1.23e-6),
+# the loss 8.7e-8 (1F1B: 0). Limits: about four times the largest leaf's
+# reading, and about ten times the loss's (one f32 ulp of a loss of 11 is
+# 1e-7 of it).
+TOL_MULTI_F32 = 1e-5
+TOL_MULTI_LOSS = 1e-6
+# dp_quant_bits=8 against the exact step's gradients, per leaf: the JAX
+# package's own bounds for its quantized sync (max error < 2.5% and mean
+# < 0.6% of the leaf's max-norm).
+TOL_QUANT_MAX, TOL_QUANT_MEAN = 0.025, 0.006
+
+
+def b10_multirank(ti, n_layers=12, n_micro=TRAIN_M, n_virtual=1,
+                  schedule="gpipe", pp=2) -> int:
+    """B10's launches in one step on a rank of tp index ``ti`` of the
+    2x2x2 mesh, from the port's code: the ring calls B10 on the diagonal
+    block and on the ti earlier ones (a later block is masked and
+    skipped), for every layer a stage runs. GPipe runs every stage's
+    n_layers / pp layers at each of its n_micro + pp - 1 ticks (the bubble
+    ticks compute too); 1F1B runs a chunk of n_layers / (pp * n_virtual)
+    layers at each forward op of its timetable and again at each backward
+    op, which re-runs the chunk from its banked input."""
+    if schedule != "1f1b":
+        return (n_micro + pp - 1) * (n_layers // pp) * (ti + 1)
+    from mpi_acx_torch.parallel.pipeline import _sched_1f1b_tables
+    sc = _sched_1f1b_tables(pp, n_micro, n_virtual)
+    ops = [int((sc.f_m[s] >= 0).sum() + (sc.b_m[s] >= 0).sum())
+           for s in range(pp)]
+    if len(set(ops)) != 1:
+        fail(f"1F1B's timetable gives stages {ops} ops")
+    return ops[0] * (n_layers // (pp * n_virtual)) * (ti + 1)
+
+
+def layer_major(tree, n_virtual=1):
+    """Gradient leaves with the layer leaves as [L, ...], from the
+    stage-sliced [pp, L / pp, ...] or the interleaved [pp, v, L / (pp v),
+    ...] (global stage j * pp + s at [s, j])."""
+    out = {}
+    for k, v in tree.items():
+        if k != "layers":
+            out[k] = v
+            continue
+        for name, a in v.items():
+            if n_virtual > 1:
+                a = a.transpose(0, 1)
+            out[name] = a.reshape((-1,) + tuple(a.shape[
+                (3 if n_virtual > 1 else 2):]))
+    return out
+
+
+def leaf_errors(got, want) -> dict:
+    """Per leaf, the largest |got - want| over the largest |want|."""
+    return {k: ((got[k].float() - w.float()).abs().max()
+                / w.float().abs().max().clamp(min=1e-30)).item()
+            for k, w in want.items()}
+
+
+def multirank_reference():
+    """Phase 7c's one-rank reference: the f32 loss and gradients (on the
+    host, layer-major) of GPT-2 124M's seed-0 weights on the ramp batch at
+    step 0, on the 1x1x1 mesh."""
+    from mpi_acx_torch import train
+    from mpi_acx_torch.models import transformer as tfm
+    cfg = dataclasses.replace(tfm.gpt2_small(), dtype=torch.float32)
+    grad_fn, _ = train.make_loss_and_grads(cfg, one_stage_mesh(), TRAIN_M)
+    loss, grads = grad_fn(gpt2_init(), *ramp_batch(cfg.vocab))
+    grads = {k: g.cpu() for k, g in layer_major(grads).items()}
+    torch.cuda.empty_cache()
+    return loss.item(), grads
+
+
+def assembled(label, n_virtual):
+    """The ranks' gradient shards of run ``label``, assembled (the
+    reading copies, written by the dp = 0 ranks) into layer-major
+    leaves."""
+    from mpi_acx_torch import train
+    from mpi_acx_torch.models import transformer as tfm
+    shards = {r: torch.load(MULTI_DIR / f"{label}.rank{r}.pt")
+              for r in range(4)}
+    specs = train.step_specs(tfm.gpt2_small(), n_virtual)
+    return layer_major(train.unshard_params(shards, specs, MULTI_MESH),
+                       n_virtual)
+
+
+def phase_multirank(card_str, gpt2_run) -> dict:
+    """Phase 7c (see the module docstring). Returns B10's launches summed
+    over the eight ranks."""
+    import shutil
+    ref_loss, ref = multirank_reference()
+    shutil.rmtree(MULTI_DIR, ignore_errors=True)
+    MULTI_DIR.mkdir(parents=True)
+    label = "7c multi-rank train, GPT-2 124M, dp x pp x tp = 2 x 2 x 2"
+    run_ranks([sys.executable, "tests/torch_rank_worker.py", "smoke",
+               "--device", "cuda", "--backend", MULTI_BACKEND, "--out",
+               MULTI_DIR], label, np_=8,
+              env={"ACX_COORDINATOR": f"file://{MULTI_DIR / 'rdv'}"})
+    recs = [r for rank in range(8) for r in torch.load(
+        MULTI_DIR / f"smoke.rank{rank}.pt", weights_only=False)["records"]]
+    runs = {}
+    for r in recs:
+        runs.setdefault(r["run"], {})[r["rank"]] = r
+    grade = (f"correctness-grade: 8 ranks share one card and the "
+             f"{MULTI_BACKEND} wire goes through the host; no speed claim "
+             f"[{card_str}]")
+
+    # (a) f32 step 0 against the one-rank step.
+    f32 = runs["f32"]
+    loss_err = max(abs(r["loss"] - ref_loss) / abs(ref_loss)
+                   for r in f32.values())
+    got = assembled("f32", 1)
+    errs = leaf_errors(got, ref)
+    worst = max(errs, key=errs.get)
+    print(f"{label}, f32 step 0 vs the one-rank step: loss {ref_loss:.7f} "
+          f"(largest relative difference over the ranks {loss_err:.3e}, "
+          f"limit {TOL_MULTI_LOSS}); largest leaf error {errs[worst]:.3e} "
+          f"({worst}; limit {TOL_MULTI_F32}); every leaf: " + ", ".join(
+              f"{k} {v:.2e}" for k, v in errs.items()), flush=True)
+    if loss_err > TOL_MULTI_LOSS or errs[worst] > TOL_MULTI_F32:
+        fail(f"{label}: the f32 step differs from the one-rank step")
+    # (b) 1F1B with n_virtual=2 against the GPipe run.
+    errs = leaf_errors(assembled("f32_1f1b_v2", 2), got)
+    worst = max(errs, key=errs.get)
+    loss_err = max(abs(r["loss"] - f32[r["rank"]]["loss"])
+                   / abs(ref_loss) for r in runs["f32_1f1b_v2"].values())
+    print(f"{label}, 1f1b n_virtual=2 vs GPipe, f32 step 0: loss relative "
+          f"difference {loss_err:.3e}, largest leaf error {errs[worst]:.3e} "
+          f"({worst}; limits {TOL_MULTI_LOSS}, {TOL_MULTI_F32})", flush=True)
+    if loss_err > TOL_MULTI_LOSS or errs[worst] > TOL_MULTI_F32:
+        fail(f"{label}: 1F1B with n_virtual=2 differs from GPipe")
+    # (c) dp_quant_bits=8: the loss is the exact run's (it is computed
+    # before the sync), the gradients within the quantized sync's bounds.
+    quant = runs["f32_quant"]
+    qmax = max(r["quant_max"] for r in quant.values())
+    qmean = max(r["quant_mean"] for r in quant.values())
+    same = all(r["loss"] == f32[k]["loss"] for k, r in quant.items())
+    print(f"{label}, dp_quant_bits=8 vs the exact sync, f32 step 0: loss "
+          f"equal {same}; gradient error over each leaf's max-norm: largest "
+          f"max {qmax:.3e} (limit {TOL_QUANT_MAX}), largest mean "
+          f"{qmean:.3e} (limit {TOL_QUANT_MEAN})", flush=True)
+    if not same or qmax > TOL_QUANT_MAX or qmean > TOL_QUANT_MEAN:
+        fail(f"{label}: the quantized dp sync is out of its bounds")
+    # (d) bf16 compute on f32 weights, AdamW: the losses of phase 5b's
+    # kernel run on the same init, batch and learning rate.
+    bf16 = runs["bf16_adamw"]
+    steps = len(bf16[0]["losses"])
+    for r in bf16.values():
+        if r["losses"] != bf16[0]["losses"]:
+            fail(f"{label}: ranks disagree on the bf16 losses: {r}")
+    hold_losses(f"{label}, bf16 AdamW vs phase 5b's one-rank run",
+                bf16[0]["losses"], gpt2_run["losses"][:steps])
+    # B10 launches, per rank and run, from the code.
+    total = 0
+    for run, kw, n_steps in (("f32", {}, 1),
+                             ("f32_1f1b_v2", dict(schedule="1f1b",
+                                                  n_virtual=2), 1),
+                             ("f32_quant", {}, 1),
+                             ("bf16_adamw", {}, steps)):
+        for rank, r in sorted(runs[run].items()):
+            got_b10 = sum(r["b10"]) if isinstance(r["b10"], list) \
+                else r["b10"]
+            want = n_steps * b10_multirank(r["coords"]["tp"], **kw)
+            if got_b10 != want:
+                fail(f"{label}, {run}: rank {rank} launched B10 {got_b10} "
+                     f"times, the code gives {want}")
+            total += got_b10
+        print(f"{label}, {run}: B10 launches per rank "
+              f"{[runs[run][k]['b10'] for k in sorted(runs[run])]} (as the "
+              f"code gives: (ti + 1) blocks a layer)", flush=True)
+    for run, rr in runs.items():
+        for rank, r in sorted(rr.items()):
+            ms = r["ms"] if isinstance(r["ms"], list) else [r["ms"]]
+            print(f"{label}, {run}, rank {rank} {r['coords']}: step ms "
+                  f"{', '.join(f'{x:.1f}' for x in ms)}, peak "
+                  f"{r['peak'] / 2 ** 30:.2f} GiB, wire bytes a step "
+                  f"{json.dumps(r['wire'])}, backend {r['backend']}; "
+                  f"{grade}", flush=True)
+    shutil.rmtree(MULTI_DIR, ignore_errors=True)
+    return {"flash_attention_lse": total}
+
+
 KERNELS = {
     "flash_attention": dict(
         source="mpi_acx_torch/csrc/flash_attention.cu",
@@ -4192,6 +4428,7 @@ def main() -> int:
     times.update(phase_flag_timing(card_str))
     counts.update(phase_exchange(card_str))
     add_counts(counts, phase_disagg_fleet(card_str))
+    add_counts(counts, phase_multirank(card_str, gpt2_run))
 
     line = []
     for name, meta in KERNELS.items():

@@ -7,11 +7,12 @@ and scheduler, and the two attention kernels it runs on the GPU), and the
 device-triggered exchange (:mod:`mpi_acx_torch.runtime`, a ctypes binding
 over the native host plane; :mod:`mpi_acx_torch.triggers`, stream-ordered
 triggers; and the flag kernels in :mod:`mpi_acx_torch.ops.flags`), and
-training on one device through the framework's train step
-(:mod:`mpi_acx_torch.train` over :mod:`mpi_acx_torch.parallel`, with the
+training through the framework's train step on a dp x pp x tp mesh of
+ranks (:mod:`mpi_acx_torch.train` over :mod:`mpi_acx_torch.parallel`:
+process groups and collectives over ``torch.distributed``, with the
 row-logsumexp flash kernel and its backward; GPipe, interleaved and 1F1B
-schedules, remat), fed by :mod:`mpi_acx_torch.data`, checkpointed by
-:mod:`mpi_acx_torch.checkpoint` and timed by
+schedules, remat, the int8 dp sync), fed by :mod:`mpi_acx_torch.data`,
+checkpointed by :mod:`mpi_acx_torch.checkpoint` and timed by
 :mod:`mpi_acx_torch.profiling`. The kernels are written by hand for
 Hopper (:mod:`mpi_acx_torch.ops`, sources in ``csrc/``). It imports
 nothing of JAX or of ``mpi_acx_tpu``.

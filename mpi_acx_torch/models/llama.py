@@ -16,10 +16,8 @@ CPU both run their plain versions. Llama-3-8B (:func:`llama3_8b`) has head
 dim 128, for which both kernels have their own instantiations.
 :func:`loss_fn` trains through K1's forward and its blockwise backward;
 the framework's train step (``mpi_acx_torch/train.py``) runs the same
-blocks sequence-parallel, with B10 on every layer.
-
-Not ported yet: the training specs (ROADMAP.md §A, 'multi-rank
-training').
+blocks sequence-parallel, with B10 on every layer; its layout on the mesh
+is ``train.llama_param_specs``.
 """
 
 from __future__ import annotations

@@ -13,10 +13,10 @@ written out here because PyTorch refuses mixed-dtype products.
 Expert parallelism over a mesh axis comes in two forms in the JAX
 package. The replicated-token form (``moe_layer_replicated_ep``: every
 rank routes all tokens, runs its local experts, one ``psum``) goes
-through :mod:`mpi_acx_torch.parallel.collective` and so runs on the
-size-1 axes of this port. The forms that move tokens with ``all_to_all``
-(``moe_layer`` with ``ep_axis``, ``moe_layer_sharded_dispatch``,
-``make_moe_train_step``) raise ``NotImplementedError``.
+through :mod:`mpi_acx_torch.parallel.collective`, on any mesh; the train
+step uses it. The forms that move tokens with ``all_to_all`` (``moe_layer``
+with ``ep_axis``, ``moe_layer_sharded_dispatch``, ``make_moe_train_step``)
+raise ``NotImplementedError`` ('multi-rank training').
 """
 
 from __future__ import annotations

@@ -17,7 +17,8 @@ computation only where no token is dropped: serve with ``capacity_factor
 
 Not ported yet: ``param_specs`` and ``make_moe_transformer_train_step``
 (DP+EP over all_to_all: 'multi-rank training'). The framework's train
-step (``mpi_acx_torch/train.py``) trains this family on one device.
+step (``mpi_acx_torch/train.py``) trains this family on any dp x pp x tp
+mesh, its experts split over 'tp' (``train.moe_param_specs``).
 """
 
 from __future__ import annotations

@@ -18,8 +18,10 @@ the memory-bounded 1F1B schedule.
   the banked cotangent. So the activations alive are the banked inputs,
   O(n_virtual * pp) microbatches, flat in n_micro.
 
-On the one-device mesh of this port every axis has size 1: one stage, no
-bubble, and each ``ppermute`` is the identity or gives zeros.
+Each stage is a rank of the mesh's 'pp' axis, and ``ppermute`` moves the
+activations (and, in the backward, their cotangents) between the stages'
+processes. On a one-stage mesh there is no bubble, and each ``ppermute``
+is the identity or gives zeros.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from mpi_acx_torch.parallel.collective import (axis_index, axis_size,
-                                               ppermute, psum)
+                                               ppermute, psum, tape)
 
 
 def _tree(fn, tree):
@@ -496,11 +498,13 @@ def _pipeline_1f1b_engine(stage_fn: Callable, chunk_params, xs,
       the train step).
     * ``lockstep``: in the JAX package, ``False`` runs each slot's ops
       under a per-device cond (``stage_fn`` collective-free) and ``True``
-      computes both bodies on every rank and masks the results, so that a
-      stage's collectives run in lockstep. On a mesh whose axes are all 1
-      there is one rank, a masked body contributes zero, and both modes
-      run only the scheduled op of each slot; the masked bodies come with
-      'multi-rank training' (ROADMAP.md §A).
+      computes both bodies on every rank and masks the results, because
+      every device of an SPMD program executes every collective. Here a
+      collective runs on the process group of one axis line, and only that
+      line's members take part. The ranks that share a stage's collectives
+      (its tp and dp peers) share its timetable, so each slot runs only its
+      scheduled op in both modes: the same results, and half the work of
+      the masked bodies.
 
     Returns ``(lacc, aux_acc, chunk_grads, head_grads)``: raw
     accumulators, the caller normalizes and reduces them.
@@ -511,7 +515,7 @@ def _pipeline_1f1b_engine(stage_fn: Callable, chunk_params, xs,
     (``torch.autograd.backward``), reading the input's ``.grad`` as the dx
     it sends on. So the activations alive are the K-deep input buffer,
     O(n_virtual * pp), flat in n_micro."""
-    del lockstep  # one rank: only scheduled ops run (see above)
+    del lockstep  # only scheduled ops run (see above)
     P = axis_size(axis_name)
     stage = axis_index(axis_name)
     V = n_virtual
@@ -568,8 +572,11 @@ def _pipeline_1f1b_engine(stage_fn: Callable, chunk_params, xs,
             jb, cb = int(sc.b_j[stage, t]), int(sc.b_cell[stage, t])
             with torch.enable_grad():
                 x = ib[cb].detach().requires_grad_()
-                out = stage_fn(_tree(lambda q: q[jb], live), x)
-                y_b = out[0] if has_aux else out
+                # Every rank of the stage back-propagates through every
+                # collective of the re-run (collective.tape).
+                with tape(xs.device) as tp:
+                    out = stage_fn(_tree(lambda q: q[jb], live), x)
+                y_b = tp.sink(out[0] if has_aux else out)
                 if stage == last and jb == V - 1:
                     lval, d_head, dy = loss_side(y_b.detach(), mb)
                     lacc = lacc + lval
@@ -599,6 +606,9 @@ def _pipeline_1f1b_engine(stage_fn: Callable, chunk_params, xs,
         fmsg = ppermute(y_f, axis_name, fwd_perm)
         bmsg = ppermute(dx_out, axis_name, bwd_perm)
 
+    if has_aux and aux_acc is None:     # a rank that accumulates no aux
+        aux_acc = tuple(torch.zeros((), dtype=torch.float32,
+                                    device=xs.device) for _ in aux_seed)
     gl = _tree(lambda p: p.grad if p.grad is not None
                else torch.zeros_like(p), live)
     return lacc, aux_acc, gl, gh

@@ -8,8 +8,9 @@ by logaddexp. A K/V block is, by the causal structure, entirely visible
 causal call) or entirely masked (skipped). The flash branch runs each
 block through :func:`mpi_acx_torch.ops.attention.flash_attention_lse`
 (B10; the kernel on a CUDA tensor), the dense branch through
-:func:`_dense_block`. On the one-device mesh of this port the ring has
-one step, whose block is the diagonal one.
+:func:`_dense_block`. K and V travel stacked, one ``ppermute`` a ring
+step, so their cotangents travel back as one message that cannot be
+taken for the other's.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from mpi_acx_torch.ops.attention import flash_attention_lse
 from mpi_acx_torch.parallel.collective import (_ring_perm, axis_index,
-                                               axis_size, ppermute)
+                                               axis_size, ppermute, tie)
 
 _NEG = float(torch.finfo(torch.float32).min)
 
@@ -81,8 +82,11 @@ def ring_attention_batched(q, k, v, axis_name: str, causal: bool = True,
     if use_flash:
         def block_fn(q_, kk, vv, src):
             if causal and src > my:                   # entirely masked
-                return (torch.zeros((mb, sq, h, dh), dtype=torch.float32,
-                                    device=q.device),
+                # The block that arrived is tied in with a zero cotangent,
+                # so that its ppermute runs its backward on this rank as on
+                # the ranks that read theirs.
+                return (tie(torch.zeros((mb, sq, h, dh), dtype=torch.float32,
+                                        device=q.device), kk, vv),
                         torch.full((mb, h, sq), _NEG, dtype=torch.float32,
                                    device=q.device))
             o, lse = flash_attention_lse(q_, expand(kk), expand(vv),
@@ -118,8 +122,9 @@ def ring_attention_batched(q, k, v, axis_name: str, causal: bool = True,
         wb = torch.exp(lse_b - lse_new).transpose(1, 2)[..., None]
         o_acc = o_acc * wa + o_b * wb
         lse_acc = lse_new
-        kk = ppermute(kk, axis_name, _ring_perm(n, 1))
-        vv = ppermute(vv, axis_name, _ring_perm(n, 1))
+        if t < n - 1:           # the JAX ring's last rotation is unused
+            kk, vv = ppermute(torch.stack([kk, vv]), axis_name,
+                              _ring_perm(n, 1)).unbind(0)
     return o_acc.to(q.dtype)
 
 
@@ -128,6 +133,17 @@ def ring_attention(q, k, v, axis_name: str, causal: bool = True,
     """3-D per-rank form: q, k, v ``[seq_shard, heads, head_dim]``."""
     return ring_attention_batched(q[None], k[None], v[None], axis_name,
                                   causal=causal, use_flash=use_flash)[0]
+
+
+def ring_attention_sharded(q, k, v, mesh, axis_name: str = "x",
+                           causal: bool = True,
+                           use_flash: bool | None = None):
+    """The JAX wrapper's per-rank meaning: this rank's sequence blocks of
+    q, k, v ``[seq_shard, heads, head_dim]`` (the leading axis sharded over
+    ``axis_name`` of ``mesh``); returns this rank's output block."""
+    with mesh:
+        return ring_attention(q, k, v, axis_name, causal=causal,
+                              use_flash=use_flash)
 
 
 def blockwise_attention_reference(q, k, v, causal: bool = True):

@@ -1,42 +1,48 @@
 """The train step of the framework (the JAX package's ``train.py``) in
 PyTorch: GPT-2, the Llama family and the MoE family through the dp x pp x
-tp/sp composition, on one device.
+tp/sp composition.
 
-The step is built as the JAX package builds it — embed, the GPipe
-pipeline over 'pp' (:func:`parallel.pipeline.pipeline_forward`), in each
-stage every layer's attention sequence-parallel over 'tp' by ring
-attention (:func:`parallel.ring_attention.ring_attention_batched`, whose
-blocks run B10's kernel on the card; Llama's K/V stay at their KV groups
-and are broadcast per block) and the MLP tensor-parallel with one psum
-(MoE: the routed FFN with its experts sharded over 'tp', its router
-losses carried through the pipeline), the exclusive-path loss, and the
-gradient reduction rule — over a mesh whose axes all have size 1
-(:func:`parallel.mesh.mesh_from_devices`), where every collective is the
-identity. The backward is autograd through
-that program; attention's is the blockwise flash backward.
+The step is the JAX step's per-shard body, run by every rank of a
+('dp', 'pp', 'tp') mesh (:func:`parallel.mesh.mesh_from_devices`) on its
+own shard: embed, the GPipe pipeline over 'pp'
+(:func:`parallel.pipeline.pipeline_forward`), in each stage every layer's
+attention sequence-parallel over 'tp' by ring attention
+(:func:`parallel.ring_attention.ring_attention_batched`, whose blocks run
+B10's kernel on the card; Llama's K/V stay at their KV groups and are
+broadcast per block) and the MLP tensor-parallel with one psum (MoE: the
+routed FFN with its experts sharded over 'tp', tokens replicated, its
+router losses carried through the pipeline), the exclusive-path loss, and
+the gradient reduction rule. The backward is autograd through that
+program, the collectives' backwards being JAX's transposes
+(:mod:`parallel.collective`); attention's is the blockwise flash backward.
+On a 1x1x1 mesh every collective is the identity and no
+``torch.distributed`` world is needed.
 
-The JAX step's three pipeline options beyond GPipe are here too:
-``remat=True`` (each layer body under ``torch.utils.checkpoint``),
-``n_virtual > 1`` (the interleaved pipeline over
-:func:`models.transformer.stage_slice_interleaved` params) and
-``schedule="1f1b"`` (the 1F1B slot engine of
-:mod:`parallel.pipeline`), alone and combined. Not ported yet, each
-raising ``NotImplementedError`` (ROADMAP.md §A, 'multi-rank training'):
-mesh axes larger than 1, and ``dp_quant_bits``, whose quantized ring
-all-reduce has nothing to reduce on one device.
+The JAX step's options are here too: ``remat=True`` (each layer body
+under ``torch.utils.checkpoint``), ``n_virtual > 1`` (the interleaved
+pipeline over :func:`models.transformer.stage_slice_interleaved` params),
+``schedule="1f1b"`` (the 1F1B slot engine of :mod:`parallel.pipeline`),
+alone and combined, and ``dp_quant_bits=8`` (the dp gradient sync through
+the int8 ring all-reduce of :mod:`parallel.quantized`).
 
-Parameters are a dict of tensors, stage-sliced (:func:`models.transformer.
-stage_slice`, or :func:`models.transformer.stage_slice_interleaved` with
-``n_virtual > 1``), and the steps update them **in place**.
+Parameters are a dict of tensors: this rank's shard
+(:func:`shard_params`) of the stage-sliced parameters
+(:func:`models.transformer.stage_slice`, or
+:func:`models.transformer.stage_slice_interleaved` with ``n_virtual >
+1``), laid out by :func:`step_specs`; the batch is this rank's shard
+(:func:`shard_batch`, the micro-batch axis split over 'dp'). The steps
+update the parameters **in place**.
 """
 
 from __future__ import annotations
 
+import itertools
+import math
 from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from mpi_acx_torch.device import resolve_device
 from mpi_acx_torch.models import llama as lm
@@ -44,12 +50,12 @@ from mpi_acx_torch.models import moe_transformer as mtf
 from mpi_acx_torch.models import transformer as tfm
 from mpi_acx_torch.ops.xent import chunked_xent_ll
 from mpi_acx_torch.parallel import collective as col
+from mpi_acx_torch.parallel.mesh import PartitionSpec as P
 from mpi_acx_torch.parallel.pipeline import (_pipeline_1f1b_engine,
                                              pipeline_forward,
                                              pipeline_forward_interleaved)
+from mpi_acx_torch.parallel.quantized import quantized_pmean
 from mpi_acx_torch.parallel.ring_attention import ring_attention_batched
-
-_ROADMAP = "is not ported yet (ROADMAP.md §A, 'multi-rank training')"
 
 
 def _gpt2_attn_sp(cfg, lp: Dict[str, Any], h, tp_axis: str):
@@ -131,16 +137,67 @@ def _llama_block_sp_tp(cfg, lp: Dict[str, Any], h, tp_axis: str):
     return h + col.psum(part, tp_axis)
 
 
+def param_specs(stage: bool = True) -> Dict[str, Any]:
+    """How the stage-sliced GPT-2 parameters lie on the mesh: layers carry
+    a leading 'pp' stage axis; the FFN dims of w1/b1/w2 split over 'tp';
+    everything else is replicated."""
+    pp = "pp" if stage else None
+    return {
+        "embed": P(), "pos": P(), "lnf_g": P(), "lnf_b": P(),
+        "layers": {
+            "ln1_g": P(pp), "ln1_b": P(pp),
+            "wqkv": P(pp), "wo": P(pp),
+            "ln2_g": P(pp), "ln2_b": P(pp),
+            "w1": P(pp, None, None, "tp"), "b1": P(pp, None, "tp"),
+            "w2": P(pp, None, "tp", None), "b2": P(pp),
+        },
+    }
+
+
+def llama_param_specs(stage: bool = True) -> Dict[str, Any]:
+    """The same for the Llama family: the SwiGLU FFN dims split over 'tp';
+    attention and norms are replicated per stage."""
+    pp = "pp" if stage else None
+    return {
+        "embed": P(), "final_norm": P(), "unembed": P(),
+        "layers": {
+            "attn_norm": P(pp), "wq": P(pp), "wk": P(pp), "wv": P(pp),
+            "wo": P(pp), "mlp_norm": P(pp),
+            "w_gate": P(pp, None, None, "tp"),
+            "w_up": P(pp, None, None, "tp"),
+            "w_down": P(pp, None, "tp", None),
+        },
+    }
+
+
+def moe_param_specs(stage: bool = True) -> Dict[str, Any]:
+    """The same for the MoE family: the expert dim of w1/w2 splits over
+    'tp' (expert parallelism on the tp axis); attention, norms and the
+    gate are replicated per stage."""
+    pp = "pp" if stage else None
+    return {
+        "embed": P(), "pos": P(), "lnf_g": P(), "lnf_b": P(),
+        "layers": {
+            "ln1_g": P(pp), "ln1_b": P(pp),
+            "wqkv": P(pp), "wo": P(pp),
+            "ln2_g": P(pp), "ln2_b": P(pp),
+            "gate": P(pp),
+            "w1": P(pp, None, "tp"), "w2": P(pp, None, "tp"),
+        },
+    }
+
+
 class _Family:
     """Model-family adapter: what make_loss_and_grads needs to run a
     family through the composition."""
 
-    def __init__(self, block, embed, final, head, tp_sharded,
+    def __init__(self, block, embed, final, head, specs, tp_sharded,
                  has_aux=False):
         self.block = block            # (cfg, lp, h, tp_axis) -> h | (h, aux)
         self.embed = embed            # (params, cfg, tokens) -> x [...,S,d]
         self.final = final            # (params, ys) -> ys
         self.head = head              # (params) -> [vocab, d] logits matrix
+        self.specs = specs            # () -> PartitionSpec tree
         self.tp_sharded = tp_sharded  # layer-leaf name -> bool
         self.has_aux = has_aux        # block returns (h, (balance, z))
 
@@ -156,6 +213,7 @@ def _family(cfg) -> _Family:
             embed=lambda p, c, t: p["embed"][t].to(c.dtype),
             final=lambda p, ys: lm.rmsnorm(ys, p["final_norm"]),
             head=lambda p: p["unembed"],
+            specs=llama_param_specs,
             tp_sharded=lambda k: k in ("w_gate", "w_up", "w_down"),
         )
     moe = isinstance(cfg, mtf.MoeTransformerConfig)
@@ -168,9 +226,101 @@ def _family(cfg) -> _Family:
                                p["pos"][:t.shape[-1]]).to(c.dtype),
         final=lambda p, ys: tfm.layernorm(ys, p["lnf_g"], p["lnf_b"]),
         head=lambda p: p["embed"],
+        specs=moe_param_specs if moe else param_specs,
         tp_sharded=lambda k: k in ("w1", "b1", "w2"),
         has_aux=moe,
     )
+
+
+def step_specs(cfg, n_virtual: int = 1) -> Dict[str, Any]:
+    """The layout of the train step's parameters for ``cfg``'s family: its
+    specs, with the chunk axis after 'pp' on the layer leaves when
+    ``n_virtual > 1`` (the JAX step's rule)."""
+    specs = _family(cfg).specs()
+    if n_virtual > 1:
+        specs = dict(specs, layers={k: P(s[0], None, *s[1:])
+                                    for k, s in specs["layers"].items()})
+    return specs
+
+
+def _map(fn, tree, specs):
+    return {k: _map(fn, v, specs[k]) if isinstance(v, dict)
+            else fn(v, specs[k]) for k, v in tree.items()}
+
+
+def _split(spec, mesh_shape):
+    """(dim, axis) of every dimension that ``spec`` splits over an axis
+    larger than 1."""
+    return [(i, a) for i, a in enumerate(spec)
+            if a is not None and mesh_shape[a] > 1]
+
+
+def _shard(x, spec, mesh):
+    """This rank's block of the global tensor ``x`` laid out by ``spec``
+    (a copy of its own: contiguous, detached, with ``x``'s
+    ``requires_grad``)."""
+    for dim, axis in _split(spec, mesh.shape):
+        n = mesh.shape[axis]
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of size {x.shape[dim]} does not "
+                             f"split over {axis}={n}")
+        size = x.shape[dim] // n
+        x = x.narrow(dim, mesh.coords[axis] * size, size)
+    return x.detach().clone().requires_grad_(x.requires_grad)
+
+
+def shard_params(params, specs, mesh):
+    """This rank's shard of the stage-sliced global parameters (``specs``
+    from :func:`step_specs`): what its train step takes."""
+    return _map(lambda x, spec: _shard(x, spec, mesh), params, specs)
+
+
+def shard_batch(tokens, mesh):
+    """This rank's shard of a global ``[n_micro, micro_batch, S]`` batch:
+    the JAX step's ``P(None, "dp")``, each dp rank its block of the
+    micro-batch axis."""
+    return _shard(torch.as_tensor(tokens), P(None, "dp"), mesh)
+
+
+def unshard_params(shards, specs, mesh_shape):
+    """The inverse of :func:`shard_params`: the global tree from the
+    ranks' shards, ``shards[rank]`` being rank ``rank``'s tree. Of each
+    leaf only the blocks of the ranks whose coordinates are 0 on every
+    axis that does not split it are read (rank 0's always), so the other
+    ranks' entries may be missing. ``mesh_shape`` maps axis names to
+    sizes, in the mesh's order."""
+    names = list(mesh_shape)
+    strides = {a: math.prod(mesh_shape[b] for b in names[i + 1:])
+               for i, a in enumerate(names)}
+    first = shards[0]
+
+    def leaf_of(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    def build(path, spec):
+        split = _split(spec, mesh_shape)
+        block = leaf_of(first, path)
+        shape = list(block.shape)
+        for dim, axis in split:
+            shape[dim] *= mesh_shape[axis]
+        out = block.new_empty(shape)
+        for coords in itertools.product(
+                *(range(mesh_shape[a]) for _, a in split)):
+            rank = sum(strides[a] * c for (_, a), c in zip(split, coords))
+            view = out
+            part = leaf_of(shards[rank], path)
+            for (dim, _), c in zip(split, coords):
+                view = view.narrow(dim, c * part.shape[dim], part.shape[dim])
+            view.copy_(part.detach())
+        return out
+
+    def walk(tree, sp, path):
+        return {k: walk(v, sp[k], path + (k,)) if isinstance(v, dict)
+                else build(path + (k,), sp[k]) for k, v in tree.items()}
+
+    return walk(first, specs, ())
 
 
 def param_leaves(params):
@@ -196,21 +346,30 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
                         xent_chunk: int | None = None, device=None):
     """Builds ``(params, tokens, targets) -> (loss, grads)`` over a
     ('dp', 'pp', 'tp') mesh — the core every optimizer shares — and
-    returns it with the number of pipeline stages.
+    returns it with the number of pipeline stages. Every rank of the mesh
+    calls it with its own shards.
 
-    ``params`` must be ``stage_slice(params, n_stages)`` on ``device``
-    (``None`` means the GPU), or ``stage_slice_interleaved(params,
+    ``params`` must be this rank's shard (:func:`shard_params` over
+    :func:`step_specs`) of ``stage_slice(params, n_stages)`` on ``device``
+    (``None`` means the GPU), or of ``stage_slice_interleaved(params,
     n_stages, n_virtual)`` when ``n_virtual > 1`` selects the interleaved
-    pipeline (needs n_micro % pp == 0); tokens/targets are ``[n_micro,
-    micro_batch, S]`` integers. ``grads`` has the structure of
-    ``params``; the loss is a detached f32 scalar. ``xent_chunk`` selects
-    the chunked-vocab CE (ops/xent.py).
+    pipeline (needs n_micro % pp == 0); tokens/targets are this rank's
+    ``[n_micro, micro_batch / dp, S]`` integers (:func:`shard_batch`).
+    ``grads`` has the structure of ``params``, reduced as the JAX step
+    reduces them (equal on the ranks that hold the same shard); the loss
+    is a detached f32 scalar, the mean over the global batch.
+    ``xent_chunk`` selects the chunked-vocab CE (ops/xent.py).
+
+    ``dp_quant_bits=8`` replaces the exact dp-gradient pmean with the int8
+    ring all-reduce of :func:`parallel.quantized.quantized_pmean` (about
+    4x fewer bytes on the dp axis, at under 1% gradient error).
 
     ``remat=True`` runs each layer body under
-    ``torch.utils.checkpoint.checkpoint`` (non-reentrant): its activations
-    are recomputed in the backward instead of kept, the same function for
-    about a third more work, so each layer's attention kernel runs again
-    in the recompute.
+    ``torch.utils.checkpoint.checkpoint`` (non-reentrant, without early
+    stop, so that the recompute runs every collective of the layer on
+    every rank): its activations are recomputed in the backward instead of
+    kept, the same function for about a third more work, so each layer's
+    attention kernel and collectives run again in the recompute.
 
     ``schedule="1f1b"`` replaces autograd through the pipeline with the
     1F1B slot engine (:func:`parallel.pipeline._pipeline_1f1b_engine`):
@@ -233,11 +392,16 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
         raise ValueError(f"n_virtual={n_virtual}: need at least 1")
     if schedule not in ("gpipe", "1f1b"):
         raise ValueError(f"unknown schedule {schedule!r}")
-    if dp_quant_bits is not None:
-        raise NotImplementedError(f"dp_quant_bits={dp_quant_bits} "
-                                  f"{_ROADMAP}")
+    if dp_quant_bits not in (None, 8):
+        raise ValueError(f"dp_quant_bits={dp_quant_bits}: int8 (8) is the "
+                         f"quantized sync's one wire format")
     fam = _family(cfg)
     n_stages = mesh.shape["pp"]
+    if isinstance(cfg, mtf.MoeTransformerConfig) and \
+            cfg.n_experts % mesh.shape["tp"]:
+        raise ValueError(f"n_experts ({cfg.n_experts}) must divide by the "
+                         f"'tp' mesh axis ({mesh.shape['tp']}): experts "
+                         f"split over tp")
 
     def ll_sum(head_mat, ys_blk, tg_blk):
         """Summed target log-likelihood of a rank's exclusive slice."""
@@ -252,7 +416,10 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
     def reduce_grad(g, tp_sharded: bool, pp_sharded: bool):
         """pmean over dp, psum over every axis the leaf is replicated on,
         nothing over the axes it is sharded on."""
-        g = col.pmean(g, "dp")
+        if dp_quant_bits is not None:
+            g = quantized_pmean(g, "dp", dp_quant_bits)
+        else:
+            g = col.pmean(g, "dp")
         if not tp_sharded:
             g = col.psum(g, "tp")
         if not pp_sharded:
@@ -260,10 +427,16 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
         return g
 
     def layer_fn(lp, h):
-        if remat:
-            return checkpoint(fam.block, cfg, lp, h, "tp",
-                              use_reentrant=False)
-        return fam.block(cfg, lp, h, "tp")
+        if not remat:
+            return fam.block(cfg, lp, h, "tp")
+        with set_checkpoint_early_stop(False):
+            out = checkpoint(fam.block, cfg, lp, h, "tp",
+                             use_reentrant=False)
+        # Every output of the layer on the tape: each rank back-propagates
+        # into it from the same outputs, so the recompute (with its
+        # collectives) starts at the same point on every rank.
+        col.retain(*(out if isinstance(out, tuple) else (out,)))
+        return out
 
     def stage_fn(stage_layers, h):
         n = next(iter(stage_layers.values())).shape[0]
@@ -298,15 +471,17 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
         ys_blk = ys[:, :, ti * blk:(ti + 1) * blk]
         tg_blk = targets[:, :, ti * blk:(ti + 1) * blk]
         contrib = (ll_sum(fam.head(params), ys_blk, tg_blk)
-                   if si == n_stages - 1 else ys.new_zeros((), torch.float32))
+                   if si == n_stages - 1
+                   else ys.new_zeros((), dtype=torch.float32))
         total = col.psum(contrib, ("pp", "tp"))
         if not fam.has_aux:
             return -total / tokens.numel()
         # The router losses are replicated over tp: only tp rank 0 adds
-        # them, and the psum sums every stage's once. One router call per
-        # (layer, microbatch).
-        lb, rz = (col.psum(a if ti == 0 else torch.zeros_like(a),
-                           ("pp", "tp")) for a in aux)
+        # them (the other ranks' weigh 0, as JAX's where gives: every rank
+        # keeps the same graph), and the psum sums every stage's once. One
+        # router call per (layer, microbatch).
+        gate = float(ti == 0)
+        lb, rz = (col.psum(a * gate, ("pp", "tp")) for a in aux)
         calls = cfg.n_layers * tokens.shape[0]
         return (-total / tokens.numel()
                 + (aux_weight * lb + z_weight * rz) / calls)
@@ -323,8 +498,14 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
         # left as they are, and may be updated in place afterwards.
         live = _rebuild(params, iter(
             p.detach().requires_grad_() for p in param_leaves(params)))
-        loss = loss_fn(live, tokens, targets)
-        flat = torch.autograd.grad(loss, param_leaves(live))
+        # Every rank back-propagates through every collective it ran
+        # (collective.tape); a leaf this rank's stage does not read (the
+        # embedding past stage 0, the head before the last) gets zeros.
+        with col.tape(tokens.device) as tp:
+            loss = tp.sink(loss_fn(live, tokens, targets))
+        flat = torch.autograd.grad(
+            loss, param_leaves(live) + [tp.leaf], allow_unused=True,
+            materialize_grads=True)[:-1]
         # The JAX step undoes the pp*tp scaling that its loss-assembly
         # psum puts on every cotangent; kept for the same structure.
         group = col.axis_size("pp") * col.axis_size("tp")

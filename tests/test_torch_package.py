@@ -52,7 +52,8 @@ def test_port_imports_no_jax():
         assert ROOT / "mpi_acx_torch" / "models" / name in PORT_FILES
     for name in ("data.py", "checkpoint.py", "profiling.py"):
         assert ROOT / "mpi_acx_torch" / name in PORT_FILES
-    for name in ("models/disagg.py", "parallel/kv_ship.py"):
+    for name in ("models/disagg.py", "parallel/kv_ship.py",
+                 "parallel/multihost.py", "parallel/quantized.py"):
         assert ROOT / "mpi_acx_torch" / name in PORT_FILES
     bad = [(p.relative_to(ROOT), m) for p in PORT_FILES
            for m in _imported_modules(p)

@@ -1,4 +1,4 @@
-"""The port's parallel layer (mpi_acx_torch/parallel) on its one-device
+"""The port's parallel layer (mpi_acx_torch/parallel) on a one-rank
 mesh, held against the JAX package under ``shard_map`` on a mesh of size
 1: the mesh, the axis collectives, ring attention and the GPipe pipeline.
 
@@ -50,8 +50,12 @@ def test_mesh_of_size_one_axes():
 
 @pytest.mark.parametrize("axis", ["dp", "pp", "tp"])
 def test_mesh_axis_above_one_raises(axis):
+    """An axis of 2 needs a torch.distributed world of 2 ranks; this
+    process has none, and the error names both numbers
+    (tests/test_torch_mesh.py runs such meshes over gloo ranks)."""
     sizes = {"dp": 1, "pp": 1, "tp": 1, axis: 2}
-    with pytest.raises(NotImplementedError, match="multi-rank training"):
+    with pytest.raises(ValueError, match="spans 2 ranks but the "
+                       "torch.distributed world has 1"):
         tmesh(sizes)
 
 
@@ -80,9 +84,11 @@ COLLECTIVES = {
 
 @pytest.mark.parametrize("name", sorted(COLLECTIVES))
 def test_collectives_raise_above_size_one(name):
-    """A mesh built by hand with an axis of 2: no collective pretends."""
-    with Mesh({"pp": 1, "tp": 2}):
-        with pytest.raises(NotImplementedError, match="tp=2"):
+    """A mesh built by hand with an axis of 2 and no world of 2 ranks
+    under it: refused before any collective could pretend to reduce or
+    exchange."""
+    with pytest.raises(ValueError, match="world has 1"):
+        with Mesh({"pp": 1, "tp": 2}):
             COLLECTIVES[name](torch.zeros(3))
 
 

@@ -1,5 +1,5 @@
-"""The port's train step with an optimizer, and the option the port
-leaves out (``dp_quant_bits``, which comes with multi-rank training).
+"""The port's train step with an optimizer, and ``dp_quant_bits`` on a
+one-rank mesh.
 
 ``make_train_step_optim`` with ``torch.optim.AdamW`` is held against the
 JAX package's ``make_train_step_optax`` with ``optax.adamw`` (optax's
@@ -61,13 +61,25 @@ UNSUPPORTED = {
                                      "make_train_step_optim"])
 @pytest.mark.parametrize("option", sorted(UNSUPPORTED))
 def test_options_left_out_raise(option, builder):
+    """``dp_quant_bits=8``, once refused, is taken by every builder: on a
+    dp axis of 1 the quantized sync is the identity, so the step equals
+    the exact one bit for bit (tests/test_torch_train_ranks*.py hold it at
+    dp = 2 against JAX's)."""
     _, tcfg = _configs(True)
-    args = (tcfg, tmesh(MESH), M)
-    if builder == "make_train_step_optim":
-        args += (torch.optim.SGD([torch.zeros(1)], lr=0.1),)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.*'multi-rank training'"):
-        getattr(ttrain, builder)(*args, device="cpu", **UNSUPPORTED[option])
+    tokens, targets = _data(3)
+    results = []
+    for kw in ({}, UNSUPPORTED[option]):
+        params = ttfm.stage_slice(ttfm.init_params(tcfg, seed=6,
+                                                   device="cpu"), 1)
+        args = (tcfg, tmesh(MESH), M)
+        if builder == "make_train_step_optim":
+            args += (torch.optim.SGD(ttrain.param_leaves(params), lr=0.1),)
+        fn, _ = getattr(ttrain, builder)(*args, device="cpu", **kw)
+        loss, out = fn(params, tokens, targets)
+        results.append((loss, ttrain.param_leaves(out)))
+    (l0, p0), (l1, p1) = results
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(p0, p1))
 
 
 def test_other_families_raise():
