@@ -258,7 +258,7 @@ in the repository. Phases, each of which exits non-zero on failure:
              and each leaf within the quantized sync's bounds of (a)'s;
              (d) bf16 compute on f32 weights, 3 AdamW steps, the losses
              held to phase 5b's kernel run (TOL_TRAIN_LOSS0,
-             TOL_TRAIN_LOSS); B10's launches per rank and run exactly
+             TOL_MULTI_TRAIN_LOSS); B10's launches per rank and run exactly
              what the code gives (b10_multirank); per rank the step ms,
              peak memory, bytes handed to the wire per axis and the
              backend, correctness-grade (8 ranks share one card).
@@ -3369,14 +3369,14 @@ def check_b10(label, counts, head_dim, want) -> int:
     return counts[name]
 
 
-def hold_losses(label, got, want) -> None:
-    """Per-step losses within TOL_TRAIN_LOSS0 (step 0) and
-    TOL_TRAIN_LOSS of a GPipe kernel run's."""
-    tols = [TOL_TRAIN_LOSS0] + [TOL_TRAIN_LOSS] * (len(got) - 1)
+def hold_losses(label, got, want, later=TOL_TRAIN_LOSS) -> None:
+    """Per-step losses within TOL_TRAIN_LOSS0 (step 0) and ``later``
+    (TOL_TRAIN_LOSS unless given) of a GPipe kernel run's."""
+    tols = [TOL_TRAIN_LOSS0] + [later] * (len(got) - 1)
     diffs = [abs(a - b) for a, b in zip(got, want)]
     print(f"{label}: losses {', '.join(f'{x:.6f}' for x in got)}; |diff| "
           f"to the GPipe kernel run {', '.join(f'{d:.3e}' for d in diffs)}"
-          f" (tol {TOL_TRAIN_LOSS0} at step 0, then {TOL_TRAIN_LOSS})",
+          f" (tol {TOL_TRAIN_LOSS0} at step 0, then {later})",
           flush=True)
     if not all(math.isfinite(x) for x in got):
         fail(f"{label}: a training loss is not finite")
@@ -4139,6 +4139,12 @@ MULTI_BACKEND = "gloo"
 # 1e-7 of it).
 TOL_MULTI_F32 = 1e-5
 TOL_MULTI_LOSS = 1e-6
+# (d) bf16 AdamW, steps 1 and 2 of the 2x2x2 run against phase 5b's
+# one-rank kernel run. Phase 5b's one-rank kernel and dense-block runs
+# disagree there by at most 1.79e-3 (readings on an H100: 2.1e-5 at step
+# 1, 1.79e-3 at step 2); the 2x2x2 run's own readings were 2.1e-4 and
+# 4.2e-4. Limit: about twice 5b's reading. Step 0 keeps TOL_TRAIN_LOSS0.
+TOL_MULTI_TRAIN_LOSS = 4e-3
 # dp_quant_bits=8 against the exact step's gradients, per leaf: the JAX
 # package's own bounds for its quantized sync (max error < 2.5% and mean
 # < 0.6% of the leaf's max-norm).
@@ -4282,7 +4288,8 @@ def phase_multirank(card_str, gpt2_run) -> dict:
         if r["losses"] != bf16[0]["losses"]:
             fail(f"{label}: ranks disagree on the bf16 losses: {r}")
     hold_losses(f"{label}, bf16 AdamW vs phase 5b's one-rank run",
-                bf16[0]["losses"], gpt2_run["losses"][:steps])
+                bf16[0]["losses"], gpt2_run["losses"][:steps],
+                later=TOL_MULTI_TRAIN_LOSS)
     # B10 launches, per rank and run, from the code.
     total = 0
     for run, kw, n_steps in (("f32", {}, 1),

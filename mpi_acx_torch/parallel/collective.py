@@ -139,22 +139,15 @@ def _gather(x, mesh, axis_name):
 
 def _scatter_sum(parts, mesh, axis_name):
     """The reduce-scatter of ``parts`` [n, ...]: part ``axis_index`` summed
-    over the ranks. A gloo group sums the whole stack and keeps its part
-    (gloo's own reduce-scatter is not in every PyTorch release), a NCCL
-    group reduce-scatters."""
+    over the ranks, by an all_reduce of the whole stack (gloo's own
+    reduce-scatter is not in every PyTorch release)."""
     group, _ = mesh.line((axis_name,))
     buf = _to_wire(parts, group)
+    if buf.data_ptr() == parts.data_ptr():
+        buf = buf.clone()                  # reduced in place: not parts
     _count((axis_name,), buf)
-    if dist.get_backend(group) == "gloo":
-        if buf.data_ptr() == parts.data_ptr():
-            buf = buf.clone()              # reduced in place: not parts
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-        out = buf[mesh.coords[axis_name]]
-    else:
-        out = buf.new_empty(buf.shape[1:])
-        dist.reduce_scatter(out, list(buf.unbind(0)),
-                            op=dist.ReduceOp.SUM, group=group)
-    return _from_wire(out, parts)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return _from_wire(buf[mesh.coords[axis_name]], parts)
 
 
 def _check_perm(perm, n):
@@ -326,7 +319,9 @@ def tie(y, *deps):
 def tape(device=None):
     """Open a :class:`Tape` for the collectives run inside the block.
     Close it before the backward: a recompute there (``remat``) runs its
-    collectives outside any graph that is back-propagated."""
+    collectives outside any graph that is back-propagated. On a mesh whose
+    axes are all 1 no collective reaches the tape, and its sink is the
+    identity."""
     t = Tape(device)
     _TAPES.append(t)
     try:

@@ -397,6 +397,11 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
                          f"quantized sync's one wire format")
     fam = _family(cfg)
     n_stages = mesh.shape["pp"]
+    # Only across ranks does a collective move data. There remat's
+    # recompute re-runs the whole layer (early stop off) from outputs on
+    # the tape, so every rank issues the same backward collectives; on one
+    # rank it is torch's plain checkpoint (and the tape records nothing).
+    multi_rank = any(n > 1 for n in mesh.shape.values())
     if isinstance(cfg, mtf.MoeTransformerConfig) and \
             cfg.n_experts % mesh.shape["tp"]:
         raise ValueError(f"n_experts ({cfg.n_experts}) must divide by the "
@@ -429,6 +434,9 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
     def layer_fn(lp, h):
         if not remat:
             return fam.block(cfg, lp, h, "tp")
+        if not multi_rank:
+            return checkpoint(fam.block, cfg, lp, h, "tp",
+                              use_reentrant=False)
         with set_checkpoint_early_stop(False):
             out = checkpoint(fam.block, cfg, lp, h, "tp",
                              use_reentrant=False)

@@ -5,24 +5,29 @@ the hybrid mesh, a host-local block as the process's part of the global
 array, a cross-process reduction (52 = 0+1+2+3 + 10+11+12+13), process
 0's pytree broadcast, the barrier, an idempotent second
 ``initialize()``, and two SGD steps of the train step on a dp = 2 mesh,
-one sequence a process, equal to the one-process step on the whole
-batch (loss rtol 1e-5; parameters atol 1e-5, rtol 1e-4, both processes
+one sequence a process, equal to JAX's ``make_train_step`` on the
+whole batch on one device (loss rtol 1e-5; parameters atol 1e-5, rtol 1e-4; both processes
 bit-equal). In this process: the no-op without a coordinator, the
 errors, and the budgets equal to JAX's.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from mpi_acx_tpu import train as jtrain
+from mpi_acx_tpu.models import transformer as jtfm
 from mpi_acx_tpu.parallel import multihost as jmh
+from mpi_acx_tpu.parallel.mesh import mesh_from_devices as jmesh
 from mpi_acx_torch import train as ttrain
 from mpi_acx_torch.parallel import multihost as mh
-from mpi_acx_torch.parallel.mesh import mesh_from_devices
 from tests import torch_rank_worker as worker
 
 
@@ -42,18 +47,33 @@ def test_two_processes(procs):
 
 
 def test_dp_train_step_equals_one_process(procs):
-    cfg = worker.train_config("gpt2")
-    params = worker.staged(worker.train_init("gpt2", cfg), 1, 1)
-    step, _ = ttrain.make_train_step(cfg, mesh_from_devices(
-        {"dp": 1, "pp": 1, "tp": 1}), worker.TRAIN_M, lr=0.1, device="cpu")
-    batch = worker.train_batch()
-    losses = [step(params, *batch)[0].item() for _ in range(2)]
+    """Two SGD steps at dp = 2, one sequence a process, equal JAX's
+    ``make_train_step`` on the whole batch on one device (the same seed-0
+    parameters and tokens, dense ring blocks on the JAX side)."""
+    make, sizes = worker.TRAIN_SIZES["gpt2"]
+    jcfg = dataclasses.replace(getattr(jtfm, make)(**sizes),
+                               dtype=jnp.float32, use_flash=False)
+    init = worker.train_init("gpt2", worker.train_config("gpt2"))
+    jp = jtfm.stage_slice(jax.tree.map(lambda t: jnp.asarray(t.numpy()),
+                                       init), 1)
+    step, _ = jtrain.make_train_step(jcfg, jmesh({"dp": 1, "pp": 1,
+                                                  "tp": 1}),
+                                     worker.TRAIN_M, lr=0.1)
+    tokens, targets = (jnp.asarray(t.astype(np.int32))
+                       for t in worker.train_batch())
+    losses = []
+    for _ in range(2):
+        loss, jp = step(jp, tokens, targets)
+        losses.append(float(loss))
+    jp = jax.device_get(jp)
+    want = [jp[k] for k in jp if k != "layers"] + list(jp["layers"].values())
     for rec in procs:
         np.testing.assert_allclose(rec["losses"], losses, rtol=1e-5)
-        for a, b in zip(ttrain.param_leaves(rec["params"]),
-                        ttrain.param_leaves(params)):
-            np.testing.assert_allclose(a.detach().numpy(),
-                                       b.detach().numpy(), atol=1e-5,
+        got = rec["params"]
+        got = [got[k] for k in jp if k != "layers"] + [
+            got["layers"][k] for k in jp["layers"]]
+        for a, b in zip(got, want, strict=True):
+            np.testing.assert_allclose(a.detach().numpy(), b, atol=1e-5,
                                        rtol=1e-4)
     for a, b in zip(*(ttrain.param_leaves(r["params"]) for r in procs)):
         assert torch.equal(a, b)

@@ -52,23 +52,17 @@ class _OtherConfig:
     """A model configuration of another family (Llama, MoE)."""
 
 
-UNSUPPORTED = {
-    "dp_quant_bits": dict(dp_quant_bits=8),
-}
-
-
 @pytest.mark.parametrize("builder", ["make_loss_and_grads", "make_train_step",
                                      "make_train_step_optim"])
-@pytest.mark.parametrize("option", sorted(UNSUPPORTED))
-def test_options_left_out_raise(option, builder):
-    """``dp_quant_bits=8``, once refused, is taken by every builder: on a
-    dp axis of 1 the quantized sync is the identity, so the step equals
-    the exact one bit for bit (tests/test_torch_train_ranks*.py hold it at
-    dp = 2 against JAX's)."""
+def test_dp_quant_is_exact_at_dp_one(builder):
+    """``dp_quant_bits=8`` is taken by every builder: on a dp axis of 1
+    the quantized sync is the identity, so the step equals the exact one
+    bit for bit (tests/test_torch_train_ranks*.py hold it at dp = 2
+    against JAX's)."""
     _, tcfg = _configs(True)
     tokens, targets = _data(3)
     results = []
-    for kw in ({}, UNSUPPORTED[option]):
+    for kw in ({}, dict(dp_quant_bits=8)):
         params = ttfm.stage_slice(ttfm.init_params(tcfg, seed=6,
                                                    device="cpu"), 1)
         args = (tcfg, tmesh(MESH), M)
