@@ -23,7 +23,13 @@ in the repository. Phases, each of which exits non-zero on failure:
              the strided q/k/v views of a fused qkv product (read in
              place, no copy), with an operand at an odd element offset
              (copied by the wrapper, exactly once); its cases must reach
-             both CTA sizes of the wrapper's rule. The
+             both CTA sizes of the wrapper's rule; and on the views one
+             rank of a tensor-parallel split makes (GPT-2 at 6 and 3
+             local heads, the k view 768 and 384 bytes in), read in place.
+             K2 at the split's shapes: 6 KV heads at n_rep 1 (GPT-2, tp =
+             2) and 4 KV groups of 4 at D = 128 (Llama, tp = 2), both
+             operand forms, W 1 and 4, max_len 1024 and 1000 and each
+             candidate chunk stood in for the rule. The
              decode kernels in all four forms: K2 and B9 (paged), each
              over bf16/f32 and int8 caches; B9 over page sizes 16, 64
              and 128 with shuffled tables and an aliased first page; both
@@ -248,8 +254,10 @@ in the repository. Phases, each of which exits non-zero on failure:
              build/acxrun on the one card (gloo groups: NCCL refuses two
              ranks on one device), each calling multihost.initialize(),
              global_mesh({dp: 2, pp: 2, tp: 2}), shard_params and the
-             port's train step on GPT-2 124M at full width and depth (6
-             layers a stage) with phase 5b's batch and seed-0 weights: (a)
+             port's train step on GPT-2 124M at full width, its depth cut
+             to MULTI_LAYERS = 4 of 12 (2 layers a stage, so that the
+             whole run stays near 750 s beside phase 7d), with phase 5b's
+             batch and seed-0 weights: (a)
              f32 step 0 (TF32 off), the ranks' gradient shards assembled
              by unshard_params and held with the loss to the one-rank
              step's on the same weights and batch (TOL_MULTI_F32,
@@ -257,11 +265,45 @@ in the repository. Phases, each of which exits non-zero on failure:
              held to (a); (c) dp_quant_bits=8, the loss equal to (a)'s
              and each leaf within the quantized sync's bounds of (a)'s;
              (d) bf16 compute on f32 weights, 3 AdamW steps, the losses
-             held to phase 5b's kernel run (TOL_TRAIN_LOSS0,
+             held to the one-rank kernel run at the same depth
+             (TOL_TRAIN_LOSS0,
              TOL_MULTI_TRAIN_LOSS); B10's launches per rank and run exactly
              what the code gives (b10_multirank); per rank the step ms,
              peak memory, bytes handed to the wire per axis and the
              backend, correctness-grade (8 ranks share one card).
+7d. serving and MoE across ranks — two ranks of
+             tests/torch_rank_worker.py (``tp --full-width``, its sub-runs
+             in tests/torch_tp_smoke.py) under build/acxrun on the one
+             card over gloo, every rank's results equal to the other's bit
+             for bit: (a) GPT-2 124M bf16 at tp = 2 through
+             make_tp_server_fns under serve_greedy (phase 4's requests, 8
+             slots, chunk 8), bf16 and int8 KV, held to phases 4 and 4b's
+             one-rank tokens (a divergence only at a tie within TIE, the
+             margin from the rank's own logits over the common prefix), K1
+             exactly prefills x 12 a rank; make_tp_generate sampled
+             (temperature 0.8, top-k 40, top-p 0.95) twice with one seed,
+             bit-equal, every token inside its step's top-k set; (b)
+             Llama-3-8B at full width and depth, each rank drawing only its
+             KV-group slice of the seed-0 bf16 weights leaf by leaf, served
+             with bf16 and int8 KV, held to phase 4c's tokens (TIE_LLAMA);
+             (c) the MoE transformer (phase 4d's configuration) with auto
+             (sharded all_to_all dispatch) and replicated experts, held to
+             phase 4d (TIE_MOE), the routed calls dispatched sharded
+             printed; (d) TP speculative decoding (GPT-2 target, 1-layer
+             draft, k = 4, 4 rows of 128, 64 new) held to one-rank
+             speculative_generate up to the first near tie, K1 exactly 12 +
+             1 and K2 rounds x (12 + 4) a rank; (e) the DP+EP train step
+             of the MoE transformer (f32, capacity factor 8.0, one
+             sequence of 1024 a rank) and make_moe_train_step at d 768,
+             d_ff 3072, 8 experts, each held to its one-rank step on the
+             whole batch (TOL_MULTI_LOSS, TOL_MULTI_F32 per leaf); (f)
+             Ulysses at S = 4096, heads 12 x 64 and 32 x 128, bf16 and f32,
+             each rank's block held to one-rank K1 within phase 2's limits,
+             K1 once a call at H / 2 heads; (g) the partitioned exchange
+             of 64 MiB of int32 in 16 partitions, with and without a
+             consumer, and the pipeline, exact. Tokens/s and launches per
+             rank printed; correctness-grade (two ranks share one card, the
+             wire goes through the host): no speed claim.
 8. the kernels line (JSON), the card's name and power limit, and last the
    result line {"ok": true, "device": {...}}.
 """
@@ -646,12 +688,14 @@ def k1_errs(S, Sk, causal, dtype, gen, B=1, heads=H, head_dim=D):
     return k1_check(q, k, v, causal)
 
 
-def qkv_views(B, S, dtype, gen):
-    """q, k, v as ``transformer._qkv`` hands them to K1: [B, S, H, D] views
-    of one fused [B, S, 3 H D] product (seq stride 3 H D, element offsets
-    0, H D and 2 H D)."""
-    qkv = randn((B, S, 3 * H * D), dtype, gen)
-    return tuple(t.reshape(B, S, H, D) for t in qkv.split(H * D, dim=-1))
+def qkv_views(B, S, dtype, gen, heads=H):
+    """q, k, v as ``transformer._qkv`` (and one rank of the tensor-parallel
+    split, ``heads`` of them) hands them to K1: [B, S, heads, D] views of
+    one fused [B, S, 3 heads D] product (seq stride 3 heads D, element
+    offsets 0, heads D and 2 heads D)."""
+    qkv = randn((B, S, 3 * heads * D), dtype, gen)
+    return tuple(t.reshape(B, S, heads, D)
+                 for t in qkv.split(heads * D, dim=-1))
 
 
 def odd_offset(x):
@@ -900,6 +944,57 @@ def d128_cases(dtype, gen, keep, rows_seen) -> int:
     return n
 
 
+def e_size(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def tp_decode_cases(dtype, gen, keep) -> int:
+    """K2 in both operand forms at one tensor-parallel rank's heads (tp =
+    2): GPT-2's 6 KV heads at n_rep 1 (D = 64) and Llama-3-8B's 4 KV
+    groups of 4 query heads (D = 128); W 1 (serving) and 4 (the TP
+    speculative window), positions at the split rule's chunk edges,
+    max_len 1024 and 1000, and each candidate chunk stood in for the
+    rule; each kernel equal to itself over two calls, under the same
+    limits. Returns the number of cases."""
+    from mpi_acx_torch.ops import flash_decode as fd
+    n, sms = 0, sm_count()
+    for heads, n_rep, dh, sfx in ((H // 2, 1, D, ""),
+                                  (LLAMA_H // 2, LLAMA_REP, LLAMA_D,
+                                   "_d128")):
+        def case(W, max_len, chunk=None):
+            nonlocal n
+            rule = fd.decode_chunk
+            if chunk is not None:
+                fd.decode_chunk = lambda *_, c=chunk: c
+            try:
+                c = fd.decode_chunk(8, heads // n_rep, W * n_rep, max_len,
+                                    sms, dh)
+                pos = edge_positions(c, max_len, W)
+                args = (8, W, n_rep, pos, dtype, gen)
+                kw = dict(max_len=max_len, heads=heads, head_dim=dh,
+                          twice=True)
+                forms = ((f"flash_decode_attend{sfx}", k2_errs(*args, **kw)),
+                         (f"flash_decode_attend_int8{sfx}",
+                          k2_int8_errs(*args, **kw)))
+            finally:
+                fd.decode_chunk = rule
+            n += 1
+            desc = (f"B=8 W={W} n_rep={n_rep} Hq={heads} D={dh} max_len="
+                    f"{max_len} (one rank of tp = 2), {c}-position chunks"
+                    + (" (stood in)" if chunk else "") + f", pos={pos}")
+            for name, e in forms:
+                check(name, desc, dtype, e)
+                keep(name, dtype, e)
+
+        case(1, 1024)
+        case(1, 1000)
+        case(4, 1024)
+        case(4, SPEC_S + SPEC_NEW + SPEC_K)
+        for chunk in CHUNKS:
+            case(1, 1024, chunk)
+    return n
+
+
 def phase_kernels() -> dict:
     """Worst errors per kernel form and dtype over the slice's shapes."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -953,6 +1048,19 @@ def phase_kernels() -> dict:
                 fail("K1's wrapper copied a strided view of the fused qkv")
             if dtype == torch.bfloat16:
                 rows_seen.add(rows)
+        # The views one rank of GPT-2's tensor-parallel split hands K1: its
+        # Hl heads of a fused [B, S, 3 Hl D] product (tp = 2 and 4).
+        for Hl in (H // 2, H // 4):
+            for B, S in ((1, 129), (1, 512), (4, 1000)):
+                n_copies = flash_attention.copies
+                e = k1_check(*qkv_views(B, S, dtype, gen, heads=Hl), True)
+                check("flash_attention", f"B={B} S=Sk={S} causal H={Hl} "
+                      f"D={D}, one TP rank's q/k/v views (seq stride "
+                      f"{3 * Hl * D}, k {Hl * D * e_size(dtype)} bytes in)",
+                      dtype, e)
+                keep("flash_attention", dtype, e)
+                if flash_attention.copies != n_copies:
+                    fail("K1's wrapper copied a TP rank's q/k/v view")
         cases2 = [(1, 1, slot_pos), (1, 1, 300),
                   (3, 2, [0, 63, 64, 500, 1021, 5, 255, 777])]
         for W, n_rep, pos in cases2:
@@ -983,6 +1091,10 @@ def phase_kernels() -> dict:
                               f"first page shared, pos={pos}", dtype, e)
                         keep(name, dtype, e)
         n_bit += decode_split_cases(dtype, gen, keep)
+        n_tp = tp_decode_cases(dtype, gen, keep)
+        print(f"K2 at one tensor-parallel rank's heads: equal to itself over "
+              f"two calls in all {n_tp} {str(dtype)[6:]} cases of each "
+              f"operand form", flush=True)
         print(f"B9 equal to K2 bit for bit on the same rows, and each equal "
               f"to itself over two calls, in all {n_bit} {str(dtype)[6:]} "
               f"cases (bf16/f32 and int8 caches)", flush=True)
@@ -1520,6 +1632,11 @@ def served_figures(m) -> str:
             f"ms, {m.steps} steps")
 
 
+# One-rank served tokens of phases 4, 4b, 4c and 4d, by run: phase 7d holds
+# the tensor-parallel serves of the same requests to them.
+SERVED = {}
+
+
 def phase_serve(params16, card_str):
     from mpi_acx_torch.models import serving, transformer as tfm
     cfg = tfm.gpt2_small()
@@ -1545,6 +1662,7 @@ def phase_serve(params16, card_str):
                                 max_len=1024, chunk=8)
     compare_paths("bf16 serve (16 requests, 8 slots)", params16, cfg, res,
                   want, prompts)
+    SERVED["gpt2_bf16"] = [np.asarray(o) for o in res]
     return counts, res
 
 
@@ -1605,6 +1723,7 @@ def phase_paged(params16, fixed, card_str) -> dict:
     paged8 = run("(b) paged int8", serving.serve_paged_greedy, kv_int8=True,
                  **pkw)
     exactly_equal("(b) paged int8 vs fixed-slot int8", paged8, fixed8)
+    SERVED["gpt2_int8"] = [np.asarray(o) for o in fixed8]
     # (c) page pressure: preempted requests replay the same tokens.
     pressed = run(f"(c) paged bf16, {PRESSURE_PAGES} pages",
                   serving.serve_paged_greedy, n_pages=PRESSURE_PAGES, **pkw)
@@ -2226,6 +2345,8 @@ def phase_llama(card_str):
             "flash_attention_d128", 0) + got["flash_attention_d128"]
         counts[k2] = got[k2]
         greedy[int8] = res
+        SERVED["llama_int8" if int8 else "llama_bf16"] = [np.asarray(o)
+                                                          for o in res]
         want = serving.serve_greedy(params, plain, prompts, n_new,
                                     kv_int8=int8, **kw)
         # The f32 reference of the bf16 run: the same weights widened
@@ -3015,6 +3136,8 @@ def phase_moe(card_str, k2_ms) -> dict:
                  f"{got[other]}")
         for name, n in got.items():
             counts[name] = counts.get(name, 0) + n
+        if not int8:
+            SERVED["moe_bf16"] = [np.asarray(o) for o in res]
         want = serving.serve_greedy(params, plain, prompts, n_new,
                                     kv_int8=int8, **kw)
         ref = None if int8 else (
@@ -3935,17 +4058,17 @@ PINGPONG_ITERS = 2000
 RANK_TIMEOUT_S = 300
 
 
-def run_ranks(args, label, np_=2, env=None) -> str:
+def run_ranks(args, label, np_=2, env=None, timeout=RANK_TIMEOUT_S) -> str:
     """``build/acxrun -np np_`` on ``args`` with ``env`` added to the
-    environment; fails the run unless every rank exits 0. Returns their
-    standard output."""
+    environment and ``timeout`` seconds; fails the run unless every rank
+    exits 0. Returns their standard output."""
     import os
     cmd = [str(ROOT / "build" / "acxrun"), "-np", str(np_), "-timeout",
-           str(RANK_TIMEOUT_S), *map(str, args)]
+           str(timeout), *map(str, args)]
     t0 = time.perf_counter()
     try:
         res = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
-                             timeout=RANK_TIMEOUT_S + 60,
+                             timeout=timeout + 60,
                              env=dict(os.environ, **(env or {})))
     except subprocess.TimeoutExpired:
         fail(f"{label}: acxrun outlived its timeout")
@@ -4122,6 +4245,11 @@ def phase_disagg_fleet(card_str) -> dict:
 
 MULTI_DIR = ROOT / "build" / "smoke_multirank"    # 7c's files, removed after
 MULTI_MESH = {"dp": 2, "pp": 2, "tp": 2}
+# 7c's depth: GPT-2 124M's width cut to 4 of its 12 layers (2 a stage, one
+# a chunk under n_virtual=2), so that the whole run stays near 750 s with
+# phase 7d beside it.
+MULTI_LAYERS = 4
+MULTI_STEPS = 3         # the rank program's bf16 AdamW steps (SMOKE_STEPS)
 # The wire of 7c's groups. Its eight ranks share the one card, and NCCL
 # refuses two ranks on one device (probes/nccl_one_card.py), so the groups
 # are gloo's: each collective copies its CUDA tensors to the host and back
@@ -4151,7 +4279,7 @@ TOL_MULTI_TRAIN_LOSS = 4e-3
 TOL_QUANT_MAX, TOL_QUANT_MEAN = 0.025, 0.006
 
 
-def b10_multirank(ti, n_layers=12, n_micro=TRAIN_M, n_virtual=1,
+def b10_multirank(ti, n_layers=MULTI_LAYERS, n_micro=TRAIN_M, n_virtual=1,
                   schedule="gpipe", pp=2) -> int:
     """B10's launches in one step on a rank of tp index ``ti`` of the
     2x2x2 mesh, from the port's code: the ring calls B10 on the diagonal
@@ -4196,18 +4324,36 @@ def leaf_errors(got, want) -> dict:
             for k, w in want.items()}
 
 
-def multirank_reference():
-    """Phase 7c's one-rank reference: the f32 loss and gradients (on the
-    host, layer-major) of GPT-2 124M's seed-0 weights on the ramp batch at
-    step 0, on the 1x1x1 mesh."""
-    from mpi_acx_torch import train
+def multirank_config():
+    """7c's configuration: GPT-2 124M at MULTI_LAYERS layers, bf16."""
     from mpi_acx_torch.models import transformer as tfm
-    cfg = dataclasses.replace(tfm.gpt2_small(), dtype=torch.float32)
+    return dataclasses.replace(tfm.gpt2_small(), n_layers=MULTI_LAYERS)
+
+
+def multirank_init():
+    """7c's seed-0 f32 parameters drawn on the card, staged."""
+    from mpi_acx_torch.models import transformer as tfm
+    return staged(tfm.init_params(dataclasses.replace(
+        multirank_config(), dtype=torch.float32), seed=0))
+
+
+def multirank_reference():
+    """Phase 7c's one-rank references on the 1x1x1 mesh: the f32 loss and
+    gradients (on the host, layer-major) of the seed-0 weights on the ramp
+    batch at step 0, and the losses of MULTI_STEPS bf16 AdamW steps (phase
+    5b's kernel run at 7c's depth)."""
+    from mpi_acx_torch import train
+    cfg16 = multirank_config()
+    cfg = dataclasses.replace(cfg16, dtype=torch.float32)
     grad_fn, _ = train.make_loss_and_grads(cfg, one_stage_mesh(), TRAIN_M)
-    loss, grads = grad_fn(gpt2_init(), *ramp_batch(cfg.vocab))
+    loss, grads = grad_fn(multirank_init(), *ramp_batch(cfg.vocab))
     grads = {k: g.cpu() for k, g in layer_major(grads).items()}
+    del grad_fn
     torch.cuda.empty_cache()
-    return loss.item(), grads
+    run = train_run(cfg16, multirank_init(), ramp_batch(cfg.vocab),
+                    steps=MULTI_STEPS, final=False)
+    torch.cuda.empty_cache()
+    return loss.item(), grads, run["losses"]
 
 
 def assembled(label, n_virtual):
@@ -4218,22 +4364,23 @@ def assembled(label, n_virtual):
     from mpi_acx_torch.models import transformer as tfm
     shards = {r: torch.load(MULTI_DIR / f"{label}.rank{r}.pt")
               for r in range(4)}
-    specs = train.step_specs(tfm.gpt2_small(), n_virtual)
+    specs = train.step_specs(multirank_config(), n_virtual)
     return layer_major(train.unshard_params(shards, specs, MULTI_MESH),
                        n_virtual)
 
 
-def phase_multirank(card_str, gpt2_run) -> dict:
+def phase_multirank(card_str) -> dict:
     """Phase 7c (see the module docstring). Returns B10's launches summed
     over the eight ranks."""
     import shutil
-    ref_loss, ref = multirank_reference()
+    ref_loss, ref, ref_losses = multirank_reference()
     shutil.rmtree(MULTI_DIR, ignore_errors=True)
     MULTI_DIR.mkdir(parents=True)
-    label = "7c multi-rank train, GPT-2 124M, dp x pp x tp = 2 x 2 x 2"
+    label = (f"7c multi-rank train, GPT-2 124M at {MULTI_LAYERS} layers, "
+             f"dp x pp x tp = 2 x 2 x 2")
     run_ranks([sys.executable, "tests/torch_rank_worker.py", "smoke",
-               "--device", "cuda", "--backend", MULTI_BACKEND, "--out",
-               MULTI_DIR], label, np_=8,
+               "--device", "cuda", "--backend", MULTI_BACKEND, "--layers",
+               MULTI_LAYERS, "--out", MULTI_DIR], label, np_=8,
               env={"ACX_COORDINATOR": f"file://{MULTI_DIR / 'rdv'}"})
     recs = [r for rank in range(8) for r in torch.load(
         MULTI_DIR / f"smoke.rank{rank}.pt", weights_only=False)["records"]]
@@ -4280,15 +4427,15 @@ def phase_multirank(card_str, gpt2_run) -> dict:
           f"{qmean:.3e} (limit {TOL_QUANT_MEAN})", flush=True)
     if not same or qmax > TOL_QUANT_MAX or qmean > TOL_QUANT_MEAN:
         fail(f"{label}: the quantized dp sync is out of its bounds")
-    # (d) bf16 compute on f32 weights, AdamW: the losses of phase 5b's
+    # (d) bf16 compute on f32 weights, AdamW: the losses of the one-rank
     # kernel run on the same init, batch and learning rate.
     bf16 = runs["bf16_adamw"]
     steps = len(bf16[0]["losses"])
     for r in bf16.values():
         if r["losses"] != bf16[0]["losses"]:
             fail(f"{label}: ranks disagree on the bf16 losses: {r}")
-    hold_losses(f"{label}, bf16 AdamW vs phase 5b's one-rank run",
-                bf16[0]["losses"], gpt2_run["losses"][:steps],
+    hold_losses(f"{label}, bf16 AdamW vs the one-rank run",
+                bf16[0]["losses"], ref_losses[:steps],
                 later=TOL_MULTI_TRAIN_LOSS)
     # B10 launches, per rank and run, from the code.
     total = 0
@@ -4318,6 +4465,63 @@ def phase_multirank(card_str, gpt2_run) -> dict:
                   f"{grade}", flush=True)
     shutil.rmtree(MULTI_DIR, ignore_errors=True)
     return {"flash_attention_lse": total}
+
+
+# --- phase 7d --------------------------------------------------------------
+
+TP_DIR = ROOT / "build" / "smoke_tp"        # 7d's files, removed after
+TP_TIMEOUT_S = 600
+# Per-record numbers phase 7d prints (the rest are held, not printed).
+TP_FIELDS = ("tokens_per_s", "wall_s", "steps", "prefills", "equal", "ties",
+             "launches", "rounds", "accepted", "one_rank_rounds", "matched",
+             "near_ties", "audited", "outside", "sharded", "routed", "loss",
+             "ref_loss", "loss_err", "leaf_err", "step_s", "peak", "errors",
+             "ms", "exchange_ms", "consumer_ms", "pipeline_ms",
+             "exchange_gbps")
+# Fields both ranks must hold equal, bit for bit.
+TP_SAME = ("tokens", "rounds", "accepted", "ties", "equal", "audited",
+           "outside", "sharded", "routed", "loss")
+
+
+def phase_tp(card_str) -> dict:
+    """Phase 7d (see the module docstring): phases 4-4d's one-rank tokens
+    handed to two ranks of tests/torch_rank_worker.py ``tp --full-width``
+    (tests/torch_tp_smoke.py), which check each sub-run and return its
+    records; here the ranks are held to each other. Returns K1's and K2's
+    launches summed over the ranks."""
+    import shutil
+    missing = {"gpt2_bf16", "gpt2_int8", "llama_bf16", "llama_int8",
+               "moe_bf16"} - set(SERVED)
+    if missing:
+        fail(f"7d: the one-rank tokens of {sorted(missing)} were not kept")
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    torch.save(SERVED, TP_DIR / "refs.pt")
+    label = "7d serving and MoE across ranks, tp = 2"
+    run_ranks([sys.executable, "tests/torch_rank_worker.py", "tp",
+               "--full-width", "--device", "cuda", "--backend",
+               MULTI_BACKEND, "--out", TP_DIR], label, np_=2,
+              env={"ACX_COORDINATOR": f"file://{TP_DIR / 'rdv'}"},
+              timeout=TP_TIMEOUT_S)
+    runs = [torch.load(TP_DIR / f"tp.rank{r}.pt", weights_only=False)[
+        "records"] for r in range(2)]
+    if [r["run"] for r in runs[0]] != [r["run"] for r in runs[1]]:
+        fail(f"{label}: the ranks ran different sub-runs")
+    counts = {}
+    for a, b in zip(*runs):
+        for key in TP_SAME:
+            if a.get(key) != b.get(key):
+                fail(f"{a['run']}: the ranks disagree on {key}")
+        for rec in (a, b):
+            add_counts(counts, rec.get("launches", {}))
+        print(f"{a['run']}: " + "; ".join(
+            f"rank {rec['rank']} " + json.dumps(
+                {k: rec[k] for k in TP_FIELDS if k in rec})
+            for rec in (a, b)) + f"; {a['grade']} [{card_str}]", flush=True)
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    print(f"{label}: launches over both ranks {json.dumps(counts)}",
+          flush=True)
+    return counts
 
 
 KERNELS = {
@@ -4435,7 +4639,8 @@ def main() -> int:
     times.update(phase_flag_timing(card_str))
     counts.update(phase_exchange(card_str))
     add_counts(counts, phase_disagg_fleet(card_str))
-    add_counts(counts, phase_multirank(card_str, gpt2_run))
+    add_counts(counts, phase_multirank(card_str))
+    add_counts(counts, phase_tp(card_str))
 
     line = []
     for name, meta in KERNELS.items():

@@ -272,7 +272,8 @@ def _check_family(family) -> None:
 # Paged decode step (transformer family)
 
 
-def paged_decode_step(params, cfg, state, token, page_tokens: int):
+def paged_decode_step(params, cfg, state, token, page_tokens: int,
+                      ffn=None):
     """One autoregressive step against the page pool; ``transformer.
     decode_step``'s math with the cache writes routed through the block
     table: layer i's fresh K/V for slot b lands, in place, at ``pool[i,
@@ -281,10 +282,13 @@ def paged_decode_step(params, cfg, state, token, page_tokens: int):
     device. Idle slots write their parking page, and the page index is
     clipped so a long-idle slot's walking position never indexes past its
     table row. Attention runs through ``select_paged_decode_attend(
-    cfg.decode_flash)``. Returns (logits [B, vocab] f32, state with pos +
-    1)."""
+    cfg.decode_flash)``. ``ffn(cfg, lp, x) -> x`` replaces the
+    feed-forward half (default the dense MLP), as on
+    ``transformer.decode_step``. Returns (logits [B, vocab] f32, state
+    with pos + 1)."""
     from mpi_acx_torch.models import transformer as tfm
 
+    ffn = ffn or tfm._mlp
     table, pos = state["table"], state["pos"]
     max_pages = table.shape[1]
     quant = "ks" in state
@@ -309,7 +313,7 @@ def paged_decode_step(params, cfg, state, token, page_tokens: int):
         if quant:
             kl, vl = (kl, state["ks"][i]), (vl, state["vs"][i])
         o = attend(q, kl, vl, table, pos, page_tokens, 1)
-        x = tfm._mlp(cfg, lp, x + o @ wread(lp, "wo", x.dtype))
+        x = ffn(cfg, lp, x + o @ wread(lp, "wo", x.dtype))
     out = {key: state[key] for key in _POOL_KEYS if key in state}
     out["table"] = table
     out["pos"] = pos + 1
@@ -339,16 +343,20 @@ def make_paged_step_fn(params, cfg, family, chunk: int, page_tokens: int):
 # Prefix-hit suffix prefill
 
 
-def prefill_with_history(params, cfg, suffix, hk, hv, last_index: int):
+def prefill_with_history(params, cfg, suffix, hk, hv, last_index: int,
+                         ffn=None):
     """Prefill only the suffix of a prompt whose first ``P`` tokens' K/V
     are already paged in (a radix prefix hit): ``suffix`` [1, S_suf]
     tokens at absolute positions ``P..P+S_suf-1``, ``hk``/``hv`` [L, P, H,
     Dh] the gathered (dequantized) history. Per layer the suffix queries
     attend ``concat(history, suffix)`` through :func:`dense_decode_attend`
     (pos P: row w sees columns <= P + w). Returns (logits [1, 1, vocab] at
-    ``last_index``, suffix K/V [L, 1, S_suf, H, Dh] in compute dtype)."""
+    ``last_index``, suffix K/V [L, 1, S_suf, H, Dh] in compute dtype).
+    ``ffn`` replaces the feed-forward half as in
+    :func:`paged_decode_step`."""
     from mpi_acx_torch.models import transformer as tfm
 
+    ffn = ffn or tfm._mlp
     Sb = suffix.shape[1]
     P = hk.shape[1]
     x = (params["embed"][suffix] + params["pos"][P:P + Sb]).to(cfg.dtype)
@@ -360,7 +368,7 @@ def prefill_with_history(params, cfg, suffix, hk, hv, last_index: int):
         vcat = torch.cat([hv[i][None].to(x.dtype), v], dim=1)
         o = dense_decode_attend(q, kcat, vcat, P, P + Sb, 1)
         x = x + o @ wread(lp, "wo", x.dtype)
-        x = tfm._mlp(cfg, lp, x)
+        x = ffn(cfg, lp, x)
         ks.append(k)
         vs.append(v)
     x = tfm.layernorm(x, params["lnf_g"], params["lnf_b"])

@@ -10,13 +10,16 @@ expert FFN run in f32 whatever the parameters' dtype, as JAX's promotion
 of bf16 weights against the f32 dispatch queues does: the casts are
 written out here because PyTorch refuses mixed-dtype products.
 
-Expert parallelism over a mesh axis comes in two forms in the JAX
-package. The replicated-token form (``moe_layer_replicated_ep``: every
-rank routes all tokens, runs its local experts, one ``psum``) goes
-through :mod:`mpi_acx_torch.parallel.collective`, on any mesh; the train
-step uses it. The forms that move tokens with ``all_to_all`` (``moe_layer``
-with ``ep_axis``, ``moe_layer_sharded_dispatch``, ``make_moe_train_step``)
-raise ``NotImplementedError`` ('multi-rank training').
+Expert parallelism over a mesh axis (:mod:`mpi_acx_torch.parallel.collective`,
+one process a rank, the rank holding its ``E / ep`` experts): with
+``ep_axis`` :func:`moe_layer` routes this rank's tokens, and
+``all_to_all`` carries each expert's queue to the expert's rank and the
+results back (the dp+ep layout); :func:`moe_layer_sharded_dispatch` does
+the same for tokens every rank holds, each rank routing its exclusive
+slice, and one ``all_gather`` replicates the result;
+``moe_layer_replicated_ep`` has every rank route all tokens, run its
+local experts, and one ``psum`` assemble the output.
+:func:`make_moe_train_step` is the expert-parallel SGD step.
 """
 
 from __future__ import annotations
@@ -29,10 +32,6 @@ import torch.nn.functional as F
 
 from mpi_acx_torch.device import resolve_device
 from mpi_acx_torch.parallel import collective as col
-
-ALL_TO_ALL = ("needs all_to_all across ranks, which is not ported yet "
-              "(ROADMAP.md §A, 'multi-rank training')")
-
 
 @dataclasses.dataclass(frozen=True)
 class MoeConfig:
@@ -138,22 +137,37 @@ def _expert_ffn(xin, params):
 
 
 def _moe_forward(params, x, cfg: MoeConfig, ep_axis):
-    """The single-device forward: (y [T, d] in x's dtype, gates [T, E]
-    f32 logits)."""
-    if ep_axis is not None:
-        raise NotImplementedError(f"moe_layer with ep_axis={ep_axis!r} "
-                                  f"{ALL_TO_ALL}")
-    E = params["w1"].shape[0]
-    gates, dispatch, combine, _ = _route(params, x, cfg, E)
+    """The forward: (y [T, d] in x's dtype, gates [T, E] f32 logits).
+    With ``ep_axis`` the experts of ``params`` are this rank's block and
+    the queues travel by all_to_all."""
+    T, d = x.shape
+    e_local = params["w1"].shape[0]
+    if ep_axis is None:
+        gates, dispatch, combine, _ = _route(params, x, cfg, e_local)
+        xin = torch.einsum("td,tec->ecd", x.float(), dispatch)
+        out = _expert_ffn(xin, params)
+        return torch.einsum("ecd,tec->td", out, combine).to(x.dtype), gates
+    ep = col.axis_size(ep_axis)
+    E = e_local * ep
+    # Capacity is per dispatch group (this rank's T tokens), as in GShard.
+    gates, dispatch, combine, cap = _route(params, x, cfg, E)
     xin = torch.einsum("td,tec->ecd", x.float(), dispatch)
-    out = _expert_ffn(xin, params)
+    # [E, C, d] -> [ep, E_local, C, d]: after the all_to_all part j holds
+    # sender j's queues for this rank's experts.
+    xin = col.all_to_all(xin.reshape(ep, e_local, cap, d), ep_axis)
+    out = col.all_to_all(_expert_ffn(xin, params), ep_axis)
+    out = out.reshape(E, cap, d)
     return torch.einsum("ecd,tec->td", out, combine).to(x.dtype), gates
 
 
 def moe_layer(params: Dict[str, Any], x, cfg: MoeConfig,
               ep_axis: str | None = None):
-    """x [T, d] -> [T, d]. ``ep_axis`` (experts sharded over a mesh axis,
-    tokens moved by all_to_all) raises."""
+    """x [T, d] -> [T, d]. With ``ep_axis`` (under an active mesh) the
+    expert tensors of ``params`` are this rank's [E / ep, ...] block and
+    the dispatched queues [E, C, d] regroup to [ep, E_local, C, d] and
+    travel by all_to_all to their expert's rank and back. ``x`` may be
+    the rank's own token shard (the dp+ep layout) or tokens every rank
+    holds (each rank then routes the same tokens)."""
     return _moe_forward(params, x, cfg, ep_axis)[0]
 
 
@@ -200,14 +214,70 @@ def moe_layer_replicated_ep_and_aux(params: Dict[str, Any], x,
     return y, _aux(gates, cfg)
 
 
-def moe_layer_sharded_dispatch(params, x, cfg: MoeConfig, ep_axis: str):
-    """Each rank routes its exclusive token slice through all_to_all:
-    raises."""
-    raise NotImplementedError(f"moe_layer_sharded_dispatch {ALL_TO_ALL}")
+def moe_layer_sharded_dispatch(params: Dict[str, Any], x, cfg: MoeConfig,
+                               ep_axis: str):
+    """Expert parallelism for tokens every rank holds, with the routing
+    sharded: each rank takes its exclusive T / ep slice of ``x`` [T, d],
+    routes it through :func:`moe_layer` with ``ep_axis`` (all_to_all to
+    the experts and back), and one tiled all_gather replicates the
+    result. Capacity is per rank's slice, so the output equals the
+    single-device layer's where no token drops (``capacity_factor >=
+    n_experts``). Raises ``ValueError`` unless ``T % ep == 0``."""
+    ep = col.axis_size(ep_axis)
+    T = x.shape[0]
+    if T % ep != 0:
+        raise ValueError(
+            f"sharded EP dispatch needs tokens ({T}) % ep ({ep}) == 0; "
+            f"use moe_layer_replicated_ep for indivisible shapes")
+    Tl = T // ep
+    r = col.axis_index(ep_axis)
+    yl = moe_layer(params, x[r * Tl:(r + 1) * Tl], cfg, ep_axis=ep_axis)
+    return col.all_gather(yl, ep_axis, axis=0, tiled=True)
 
 
 def make_moe_train_step(cfg: MoeConfig, mesh, ep_axis: str = "ep",
                         lr: float = 0.1, aux_weight: float = 1e-2,
-                        z_weight: float = 1e-3):
-    """The expert-parallel SGD step over an 'ep' mesh: raises."""
-    raise NotImplementedError(f"make_moe_train_step {ALL_TO_ALL}")
+                        z_weight: float = 1e-3, device=None):
+    """Expert-parallel SGD step over the mesh's ``ep_axis``:
+    ``step(params, x, targets) -> (loss, params)`` run by every rank on
+    its shard: ``params`` with the gate whole and ``w1``/``w2`` this rank's
+    [E / ep, ...] block, ``x``/``targets`` [T / ep, d] this rank's tokens.
+    Loss = the global mean squared error + ``aux_weight`` * load balance +
+    ``z_weight`` * router z (each rank's router terms over its tokens,
+    averaged). The parameters are updated **in place** and returned.
+
+    The gradient is built as the JAX package builds it: each rank's loss
+    terms cover its exclusive tokens and a psum assembles the scalar;
+    the psum's backward seeds every rank's terms with ``ep``, which the
+    division undoes; the gate's gradient is then psummed and the expert
+    blocks' are complete already (their all_to_all backward brought
+    every rank's tokens). ``device=None`` means the GPU."""
+    ep_n = mesh.shape[ep_axis]
+    if cfg.n_experts % ep_n:
+        raise ValueError(f"n_experts ({cfg.n_experts}) must divide by the "
+                         f"{ep_axis!r} mesh axis ({ep_n})")
+    dev = resolve_device(device)
+
+    def step(params, x, tgt):
+        x = torch.as_tensor(x, device=dev)
+        tgt = torch.as_tensor(tgt, device=dev)
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        with mesh, torch.enable_grad():
+            with col.tape(dev) as tape:
+                y, aux = moe_layer_and_aux(leaves, x, cfg, ep_axis=ep_axis)
+                se = (y.float() - tgt.float()).square().sum()
+                raw = (se / (x.shape[1] * x.shape[0] * ep_n)
+                       + (aux_weight * aux["load_balance"]
+                          + z_weight * aux["router_z"]) / ep_n)
+                loss = col.psum(raw, ep_axis)
+                sunk = tape.sink(loss)
+            grads = torch.autograd.grad(sunk, list(leaves.values()))
+            g = {k: gr / ep_n for k, gr in zip(leaves, grads)}
+            g["gate"] = col.psum(g["gate"], ep_axis)
+        with torch.no_grad():
+            for k, p in params.items():
+                p.sub_(lr * g[k])
+        return loss.detach(), params
+
+    return step

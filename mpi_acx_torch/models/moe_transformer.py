@@ -15,8 +15,10 @@ of a decode step (idle slots included). Cached decode reproduces the dense
 computation only where no token is dropped: serve with ``capacity_factor
 >= n_experts``.
 
-Not ported yet: ``param_specs`` and ``make_moe_transformer_train_step``
-(DP+EP over all_to_all: 'multi-rank training'). The framework's train
+With ``ep_axis`` the blocks run expert-parallel: this rank's tokens
+through ``moe_layer_and_aux(ep_axis)``, whose all_to_all carries them to
+their expert's rank. :func:`make_moe_transformer_train_step` is the
+DP+EP step on one mesh axis (:func:`param_specs`); the framework's train
 step (``mpi_acx_torch/train.py``) trains this family on any dp x pp x tp
 mesh, its experts split over 'tp' (``train.moe_param_specs``).
 """
@@ -31,7 +33,7 @@ import torch
 from mpi_acx_torch.device import resolve_device
 from mpi_acx_torch.models import transformer as tfm
 from mpi_acx_torch.models.decoding import greedy_generate, sample_generate
-from mpi_acx_torch.models.moe import (ALL_TO_ALL, MoeConfig, moe_layer,
+from mpi_acx_torch.models.moe import (MoeConfig, moe_layer,
                                       moe_layer_and_aux,
                                       moe_layer_replicated_ep,
                                       moe_layer_replicated_ep_and_aux,
@@ -42,6 +44,8 @@ from mpi_acx_torch.models.transformer import (  # noqa: F401
     check_device, params_from_jax)
 from mpi_acx_torch.ops.wquant import wread
 from mpi_acx_torch.ops.xent import chunked_xent_ll
+from mpi_acx_torch.parallel import collective as col
+from mpi_acx_torch.parallel.mesh import PartitionSpec as P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +139,9 @@ def _experts(lp: Params) -> Params:
 def block(cfg: MoeTransformerConfig, lp: Params, h,
           ep_axis: str | None = None):
     """One block on h [B, S, d]: ``(h, (load_balance, router_z))`` of this
-    block's router. ``ep_axis`` raises (all_to_all)."""
+    block's router. With ``ep_axis`` (under an active mesh) ``lp``'s gate
+    is whole and its w1/w2 this rank's expert block; the tokens travel by
+    all_to_all."""
     B, S, d = h.shape
     _reject_quantized_experts(lp)
     q, k, v = tfm._qkv(cfg, lp, h)
@@ -198,10 +204,17 @@ def _moe_ffn(cfg: MoeTransformerConfig, lp: Params, h,
     """The block's routed FFN half on h [B, S, d] (the token axis
     flattened for the router): ``h + moe(layernorm(h))``, and with
     ``with_aux`` this router's ``(load_balance, router_z)`` too.
-    ``replicated=True`` with ``ep_axis`` is the replicated-token EP form
-    (the train step's blocks); ``sharded_dispatch`` raises (all_to_all)."""
+    With ``ep_axis``: ``replicated=True`` when h is on every rank and each
+    routes all tokens (the train step's blocks: local experts, one psum);
+    ``sharded_dispatch=True`` when h is on every rank and each routes its
+    exclusive 1/ep slice through all_to_all (tensor-parallel serving,
+    ``moe.moe_layer_sharded_dispatch``); neither when the tokens are this
+    rank's own (the all_to_all moves them)."""
     if replicated and sharded_dispatch:
         raise ValueError("replicated and sharded_dispatch exclude each other")
+    if sharded_dispatch and with_aux:
+        raise ValueError("the auxiliaries need the full gates: use "
+                         "replicated")
     _reject_quantized_experts(lp)
     B, S, d = h.shape
     hn = tfm.layernorm(h, lp["ln2_g"], lp["ln2_b"])
@@ -285,16 +298,66 @@ def generate_sample(params: Params, cfg: MoeTransformerConfig, prompt,
         prompt, n_new, cfg.max_seq, key, temperature, top_k, top_p, max_len)
 
 
-def param_specs(ep_axis: str = "dp"):
-    """The DP+EP sharding of the experts: raises."""
-    raise NotImplementedError(f"param_specs (experts sharded over "
-                              f"{ep_axis!r}) {ALL_TO_ALL}")
+def param_specs(ep_axis: str = "dp") -> Dict[str, Any]:
+    """PartitionSpecs of the DP+EP layout: the expert tensors split their
+    [n_experts] dim over ``ep_axis``, everything else replicated."""
+    return {
+        "embed": P(), "pos": P(), "lnf_g": P(), "lnf_b": P(),
+        "layers": {
+            "ln1_g": P(), "ln1_b": P(), "wqkv": P(), "wo": P(),
+            "ln2_g": P(), "ln2_b": P(), "gate": P(),
+            "w1": P(None, ep_axis), "w2": P(None, ep_axis),
+        },
+    }
 
 
 def make_moe_transformer_train_step(cfg: MoeTransformerConfig, mesh,
                                     axis: str = "dp", lr: float = 0.1,
                                     aux_weight: float = 1e-2,
-                                    z_weight: float = 1e-3):
-    """The DP+EP train step: raises."""
-    raise NotImplementedError(f"make_moe_transformer_train_step "
-                              f"{ALL_TO_ALL}")
+                                    z_weight: float = 1e-3, device=None):
+    """The DP+EP SGD step: one mesh axis splits both the batch and the
+    experts (each rank runs the dense parts on its batch shard and hosts
+    E / n experts that serve every rank's tokens through all_to_all).
+
+    ``step(params, tokens, targets) -> (loss, params)`` is run by every
+    rank on its shard: ``params`` laid out by :func:`param_specs`
+    (``train.shard_params(params, param_specs(axis), mesh)``),
+    ``tokens``/``targets`` [B / n, S] this rank's rows. The parameters
+    are updated **in place** and returned. As in the JAX package each
+    rank's loss covers its exclusive rows, a psum assembles the scalar
+    (the division by n undoes its backward's seed), the replicated leaves
+    psum their gradients and the expert blocks keep theirs (the
+    all_to_all backward brought every rank's tokens). ``device=None``
+    means the GPU."""
+    n = mesh.shape[axis]
+    if cfg.n_experts % n:
+        raise ValueError(f"n_experts ({cfg.n_experts}) must divide by the "
+                         f"{axis!r} mesh axis ({n})")
+    dev = resolve_device(device)
+
+    def step(params, tokens, targets):
+        check_device(params, dev)
+        tokens = torch.as_tensor(tokens, device=dev).long()
+        targets = torch.as_tensor(targets, device=dev).long()
+        tree = {k: ({n: w.detach().requires_grad_(True)
+                     for n, w in v.items()} if k == "layers"
+                    else v.detach().requires_grad_(True))
+                for k, v in params.items()}
+        # (the dict of params holding the leaf, its name, its grad leaf)
+        slots = [(params, k, v) for k, v in tree.items() if k != "layers"] \
+            + [(params["layers"], k, v) for k, v in tree["layers"].items()]
+        with mesh, torch.enable_grad():
+            with col.tape(dev) as tape:
+                loss = col.psum(loss_fn(tree, cfg, tokens, targets,
+                                        aux_weight, z_weight,
+                                        ep_axis=axis) / n, axis)
+                sunk = tape.sink(loss)
+            grads = torch.autograd.grad(sunk, [v for _, _, v in slots])
+            grads = [g / n if k in ("w1", "w2") else col.psum(g / n, axis)
+                     for (_, k, _), g in zip(slots, grads)]
+        with torch.no_grad():
+            for (holder, k, _), g in zip(slots, grads):
+                holder[k].sub_(lr * g)
+        return loss.detach(), params
+
+    return step

@@ -148,7 +148,8 @@ def _uniform(shape, key):
     return torch.rand(shape, generator=key, device=key.device)
 
 
-def _make_run(draft_cfg, cfg, S, n_new, k, pick0, draft_pick, decide):
+def _make_run(draft_cfg, cfg, S, n_new, k, pick0, draft_pick, decide,
+              ops=None):
     """The speculative round loop shared by the greedy and sampled
     variants, which differ only in three hooks:
 
@@ -159,7 +160,11 @@ def _make_run(draft_cfg, cfg, S, n_new, k, pick0, draft_pick, decide):
 
     ``g`` is standard Gumbel noise and ``u`` uniform in [0, 1), drawn by
     the loop from each row's generator (``None`` in a greedy run). The
-    family operations follow each config's type. Returns
+    family operations follow each config's type unless ``ops`` = (t_prefill,
+    t_window, d_prefill, d_decode) gives them, with the family signatures
+    (params first): the tensor-parallel builder
+    (``parallel/tp_inference.py``) passes its per-rank operations here.
+    Returns
     ``run(draft_params, params, prompt [B, S], gens)`` -> ``(tokens [B, S +
     n_new], rounds [B], accepted [B])`` (host tensors), ``gens`` one
     generator a row or None.
@@ -174,8 +179,11 @@ def _make_run(draft_cfg, cfg, S, n_new, k, pick0, draft_pick, decide):
         raise ValueError(f"prompt {S} + n_new {n_new} + k {k} = {cap} "
                          f"exceeds max_seq ({cfg.max_seq}, draft "
                          f"{draft_cfg.max_seq})")
-    t_prefill, _, t_window = _family_ops(cfg)
-    d_prefill, d_decode, _ = _family_ops(draft_cfg)
+    if ops is None:
+        t_prefill, _, t_window = _family_ops(cfg)
+        d_prefill, d_decode, _ = _family_ops(draft_cfg)
+    else:
+        t_prefill, t_window, d_prefill, d_decode = ops
 
     def run(draft_params, params, prompt, gens):
         B, dev = prompt.shape[0], prompt.device

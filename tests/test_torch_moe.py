@@ -197,22 +197,3 @@ def test_init_moe_params_draws_the_jax_layout():
         assert torch.equal(got[key], again[key])
     assert abs(got["w1"].std().item() - 0.02) < 2e-3
 
-
-ALL_TO_ALL = {
-    "moe_layer(ep_axis)": lambda p, x, c: tm.moe_layer(p, x, c, ep_axis="ep"),
-    "moe_layer_and_aux(ep_axis)": lambda p, x, c: tm.moe_layer_and_aux(
-        p, x, c, ep_axis="ep"),
-    "moe_layer_sharded_dispatch": lambda p, x, c:
-        tm.moe_layer_sharded_dispatch(p, x, c, "ep"),
-    "make_moe_train_step": lambda p, x, c: tm.make_moe_train_step(c, None),
-    "param_specs": lambda p, x, c: tmt.param_specs(),
-    "make_moe_transformer_train_step": lambda p, x, c:
-        tmt.make_moe_transformer_train_step(tmt.tiny_moe_config(), None),
-}
-
-
-@pytest.mark.parametrize("name", sorted(ALL_TO_ALL))
-def test_all_to_all_entries_refuse_naming_the_item(name):
-    _, tcfg, _, tp, x = _layer(0, 1, 2.0)
-    with pytest.raises(NotImplementedError, match="'multi-rank training'"):
-        ALL_TO_ALL[name](tp, torch.from_numpy(x), tcfg)

@@ -378,3 +378,69 @@ def test_publish_page_stats_never_loads_the_library(monkeypatch):
     monkeypatch.setattr(runtime, "_lib", None)
     assert tkp.publish_page_stats_best_effort(1, 2, 3, 4, 5) is False
     assert runtime._lib is None
+
+
+@pytest.fixture(scope="module")
+def moe_models():
+    """The tiny MoE transformer (drop-free), drawn by the port and carried
+    to JAX as numpy."""
+    from mpi_acx_tpu.models import moe_transformer as jmt
+    from mpi_acx_torch.models import moe_transformer as tmt
+    base = dict(vocab=61, d_model=48, n_heads=4, n_layers=2, d_ff=96,
+                n_experts=4, top_k=2, capacity_factor=4.0, max_seq=96)
+    jcfg = dataclasses.replace(jmt.tiny_moe_config(**base), dtype=jnp.float32)
+    tcfg = dataclasses.replace(tmt.tiny_moe_config(**base),
+                               dtype=torch.float32)
+    tparams = tmt.init_params(tcfg, seed=4, device="cpu")
+    jparams = jax.tree.map(lambda t: jnp.asarray(t.numpy()), tparams)
+    return jcfg, jparams, jmt._moe_ffn, tcfg, tparams, tmt._moe_ffn
+
+
+def _no_ffn(cfg, lp, x):
+    return x
+
+
+@pytest.mark.parametrize("entry", ["paged_decode_step",
+                                   "prefill_with_history"])
+def test_ffn_hook_runs_the_moe_ffn_like_jax(moe_models, entry):
+    """The ``ffn=`` hook of both paged entries with the routed MoE FFN:
+    logits (and the suffix K/V) within 1e-4 of JAX's with its MoE FFN,
+    and apart from those of a hook that skips the FFN."""
+    jcfg, jparams, jffn, tcfg, tparams, tffn = moe_models
+    rng = np.random.default_rng(14)
+    if entry == "paged_decode_step":
+        pt, n_slots = 8, 3
+        jpool = jkp.init_page_pool(jcfg, 9, pt, n_slots)
+        for key in ("k", "v"):
+            jpool[key] = jnp.asarray(rng.standard_normal(jpool[key].shape),
+                                     jnp.float32)
+        table = np.array([[2, 5, 0, 7], [1, 3, 4, 6], [11, 11, 11, 11]],
+                         np.int32)
+        jstate = dict(jpool, table=jnp.asarray(table),
+                      pos=jnp.asarray(np.array([13, 7, 30], np.int32)))
+        tok = rng.integers(0, 61, n_slots).astype(np.int32)
+
+        def tcall(ffn):
+            tstate = {k: _torch(v) for k, v in jstate.items()}
+            return tkp.paged_decode_step(tparams, tcfg, tstate,
+                                         torch.from_numpy(tok), pt,
+                                         ffn=ffn)[0]
+        jl, _ = jkp.paged_decode_step(jparams, jcfg, jstate,
+                                      jnp.asarray(tok), pt, ffn=jffn)
+        tl, skipped = tcall(tffn), tcall(_no_ffn)
+    else:
+        hk, hv = (rng.standard_normal((2, 16, 4, 12)).astype(np.float32)
+                  for _ in range(2))
+        suffix = rng.integers(0, 61, (1, 8)).astype(np.int32)
+        jl, jk, _ = jkp.prefill_with_history(
+            jparams, jcfg, jnp.asarray(suffix), jnp.asarray(hk),
+            jnp.asarray(hv), 5, ffn=jffn)
+        args = (tparams, tcfg, torch.from_numpy(suffix),
+                torch.from_numpy(hk), torch.from_numpy(hv), 5)
+        tl, tk, _ = tkp.prefill_with_history(*args, ffn=tffn)
+        skipped = tkp.prefill_with_history(*args, ffn=_no_ffn)[0]
+        np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-4,
+                                   rtol=1e-4)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                               rtol=1e-4)
+    assert not np.allclose(skipped.numpy(), tl.numpy(), atol=1e-3)

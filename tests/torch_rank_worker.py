@@ -422,8 +422,8 @@ def save_canonical(path, grads, specs, mesh):
 
 
 def case_smoke(rank, n, args):
-    """Phase 7c: GPT-2 124M at full width and depth on the 2x2x2 mesh, one
-    card shared by all ranks. (a) f32 step 0 under GPipe, (b) the same
+    """Phase 7c: GPT-2 124M at full width on the 2x2x2 mesh (``--layers``
+    of its 12 layers, all by default), one card shared by all ranks. (a) f32 step 0 under GPipe, (b) the same
     under 1F1B with n_virtual=2, each rank writing the gradient leaves it
     holds the reading copy of; (c) f32 step 0 with dp_quant_bits=8, its
     gradients held here to (a)'s by the JAX package's bounds for the
@@ -440,6 +440,8 @@ def case_smoke(rank, n, args):
     dev = torch.device(args.device)
     mesh = multihost.global_mesh(MESH3)
     cfg16 = tfm.gpt2_small()
+    if args.layers:
+        cfg16 = dataclasses.replace(cfg16, n_layers=args.layers)
     cfg32 = dataclasses.replace(cfg16, dtype=torch.float32)
     glob = tfm.init_params(cfg32, seed=0, device="cpu")
     tokens, targets = (train.shard_batch(t, mesh).to(dev)
@@ -524,11 +526,369 @@ def case_smoke(rank, n, args):
            wire=wire)
     return dict(records=records)
 
+# -- tensor-parallel inference -----------------------------------------------
+
+# family -> (its module's tiny-config maker, the sizes): the JAX package's
+# tests/test_tp_inference.py configurations, f32.
+TP_SIZES = {
+    "gpt2": ("tiny_config", dict(vocab=128, d_model=32, n_heads=4,
+                                 n_layers=2, d_ff=64, max_seq=64)),
+    "llama": ("tiny_llama", dict(vocab=128, d_model=32, n_heads=8,
+                                 n_kv_heads=4, n_layers=2, d_ff=64,
+                                 max_seq=64)),
+    "moe": ("tiny_moe_config", dict(vocab=128, d_model=32, n_heads=4,
+                                    n_layers=2, d_ff=64, n_experts=8,
+                                    top_k=2, capacity_factor=8.0,
+                                    max_seq=64)),
+}
+TP_NEW = 10
+TP_SAMPLE = dict(temperature=0.8, top_k=20, top_p=0.9)
+MOE_MODES = ("replicated", "sharded", "auto")
+
+
+def tp_model(family, seed=0, **kw):
+    """The tiny f32 configuration of ``family`` (sizes overridden by
+    ``kw``) and its parameters from ``seed`` on the CPU."""
+    make, sizes = TP_SIZES[family]
+    mod = family_module(family)
+    cfg = dataclasses.replace(getattr(mod, make)(**{**sizes, **kw}),
+                              dtype=torch.float32)
+    return cfg, mod.init_params(cfg, seed=seed, device="cpu")
+
+
+def tp_prompt(batch, vocab=128, seed=1, length=8):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, (batch, length)).astype(np.int64))
+
+
+def tp_mesh(n, tp):
+    return mesh_from_devices({"dp": n // tp, "tp": tp})
+
+
+def refusal(fn):
+    """The message of the ValueError or AssertionError ``fn`` raises
+    (None if it returns)."""
+    try:
+        fn()
+    except (ValueError, AssertionError) as e:
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def int8_weights(family, params):
+    from mpi_acx_torch.ops import wquant
+    names = wquant.LLAMA_WEIGHTS if family == "llama" else \
+        wquant.GPT2_WEIGHTS
+    return wquant.quantize_weights_int8(params, names)
+
+
+def case_tp(rank, n, args):
+    """Tensor-parallel generation at tp = 2 and 4 (meshes {"dp": n / tp,
+    "tp": tp} of the same ranks): greedy tokens of the three families,
+    MoE under each dispatch mode (batch 8; the auto fallback and the
+    sharded refusal at batch 2, tp 4), int8 weights, each rank's slice of
+    the laid-out weights, the same tokens from a sliced tree, sampled runs
+    (twice with one key, once with another; every drawn token audited
+    against its step's filter) and the refusals."""
+    from mpi_acx_torch.models.decoding import filter_logits
+    from mpi_acx_torch.parallel import tp_inference as tpi
+    if args.full_width:
+        import torch_tp_smoke
+        return torch_tp_smoke.run(rank, n, args)
+    out = {}
+    builders = {"gpt2": tpi.make_tp_generate,
+                "llama": tpi.make_tp_generate_llama,
+                "moe": tpi.make_tp_generate_moe}
+    rank_params = {
+        "gpt2": lambda c, m, p: tpi._gpt2_rank_params(
+            c, m, "tp", tpi.tp_param_specs(), tpi.tp_shard_params,
+            tpi._gpt2_scale_specs("tp"), "test", torch.device("cpu"))(p),
+        "llama": lambda c, m, p: tpi._llama_rank_params(
+            c, m, "tp", torch.device("cpu"))(p)}
+    for tp in (2, 4):
+        mesh = tp_mesh(n, tp)
+        for fam in ("gpt2", "llama"):
+            cfg, params = tp_model(fam)
+            gen = builders[fam](cfg, mesh, TP_NEW, device="cpu")
+            out[("greedy", fam, tp)] = gen(params, tp_prompt(2))
+            for q in (False, True):
+                p = int8_weights(fam, params) if q else params
+                out[("slice", fam, tp, q)] = rank_params[fam](cfg, mesh, p)
+            out[("from_slice", fam, tp)] = gen(out[("slice", fam, tp, False)],
+                                               tp_prompt(2))
+        cfg, params = tp_model("moe")
+        for mode in MOE_MODES:
+            gen = tpi.make_tp_generate_moe(cfg, mesh, TP_NEW,
+                                           ep_dispatch=mode, device="cpu")
+            out[("moe", mode, tp)] = gen(params, tp_prompt(8))
+        if tp == 4:
+            gen = tpi.make_tp_generate_moe(cfg, mesh, TP_NEW, device="cpu")
+            out[("moe", "auto_fallback", 4)] = gen(params, tp_prompt(2))
+            gen = tpi.make_tp_generate_moe(cfg, mesh, 4,
+                                           ep_dispatch="sharded",
+                                           device="cpu")
+            out[("refusal", "sharded_indivisible")] = refusal(
+                lambda: gen(params, tp_prompt(2)))
+    mesh = tp_mesh(n, 2)
+    for fam in ("gpt2", "llama"):
+        cfg, params = tp_model(fam)
+        gen = builders[fam](cfg, mesh, TP_NEW, device="cpu")
+        out[("int8", fam)] = gen(int8_weights(fam, params), tp_prompt(2))
+    # Sampled runs, every drawn token checked against its filter set.
+    sample = tpi.sample_logits
+    audit = []
+
+    def audited(logits, gen, temperature, top_k, top_p):
+        tok = sample(logits, gen, temperature, top_k, top_p)
+        f = filter_logits(logits, temperature, top_k, top_p)
+        audit.append(bool((f.gather(-1, tok[:, None]) >
+                           torch.finfo(f.dtype).min).all()))
+        return tok
+
+    tpi.sample_logits = audited
+    try:
+        for fam in ("gpt2", "llama"):
+            cfg, params = tp_model(fam)
+            gen = builders[fam](cfg, mesh, 16, device="cpu", **TP_SAMPLE)
+            out[("sampled", fam)] = [gen(params, tp_prompt(2), key)
+                                     for key in (3, 3, 4)]
+    finally:
+        tpi.sample_logits = sample
+    out["audit"] = audit
+    # The refusals of the JAX package's tests, at tp = 4.
+    mesh = tp_mesh(n, 4)
+    moe_cfg, moe_params = tp_model("moe")
+    quant_moe = dict(moe_params, layers=dict(
+        moe_params["layers"], w1_scale=torch.ones(2, 8, 1, 64)))
+    out["refusals"] = {
+        "heads": refusal(lambda: tpi.make_tp_generate(
+            tp_model("gpt2", n_heads=2)[0], mesh, 4, device="cpu")),
+        "kv_groups": refusal(lambda: tpi.make_tp_generate_llama(
+            tp_model("llama", n_heads=4, n_kv_heads=2)[0], mesh, 4,
+            device="cpu")),
+        "experts": refusal(lambda: tpi.make_tp_generate_moe(
+            tp_model("moe", n_experts=6)[0], mesh, 4, device="cpu")),
+        "quantized_experts": refusal(lambda: tpi.make_tp_generate_moe(
+            moe_cfg, mesh, 4, device="cpu")(quant_moe, tp_prompt(2))),
+        "moe_int8_kv": refusal(lambda: tpi.make_tp_server_fns(
+            moe_params, moe_cfg, mesh, family="moe", kv_int8=True,
+            device="cpu")),
+    }
+    return out
+
+
+TP_SERVE_SLOTS, TP_SERVE_MAX_LEN = 2, 32
+
+
+def tp_serve_requests(vocab=128):
+    """Five prompts of 3 to 8 tokens (one JAX prefill bucket) asking for
+    3 to 7 new tokens."""
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, vocab, 3 + i).astype(np.int32)
+               for i in (0, 5, 2, 4, 1)]
+    return prompts, [3 + (i % 5) for i in range(5)]
+
+
+TP_SERVES = [(fam, chunk, int8) for fam in ("gpt2", "llama", "moe")
+             for chunk in (1, 4) for int8 in (False, True)
+             if not (fam == "moe" and int8)]
+
+
+def case_tp_serve(rank, n, args):
+    """make_tp_server_fns under the port's serve_greedy at tp = n, for
+    TP_SERVES (family, chunk, int8 KV)."""
+    from mpi_acx_torch.models import serving
+    from mpi_acx_torch.parallel import tp_inference as tpi
+    mesh = mesh_from_devices({"tp": n})
+    prompts, n_new = tp_serve_requests()
+    out = {}
+    for fam, chunk, int8 in TP_SERVES:
+        cfg, params = tp_model(fam)
+        fns = tpi.make_tp_server_fns(params, cfg, mesh, chunk=chunk,
+                                     family=fam, kv_int8=int8, device="cpu")
+        res = serving.serve_greedy(
+            params, cfg, prompts, n_new, TP_SERVE_SLOTS, TP_SERVE_MAX_LEN,
+            family=family_module(fam), chunk=chunk, server_fns=fns,
+            kv_int8=int8, device="cpu")
+        out[(fam, chunk, int8)] = [np.asarray(o) for o in res]
+    return out
+
+
+TP_SPEC_NEW, TP_SPEC_K = 14, 4
+
+
+def case_tp_spec(rank, n, args):
+    """Greedy make_tp_speculative_generate at tp = n: a GPT-2 target with
+    a 1-layer GPT-2 draft (seed 7) and a Llama target with a 1-layer
+    Llama draft, B = 1 and B = 2 rows; tokens and stats."""
+    from mpi_acx_torch.parallel import tp_inference as tpi
+    mesh = mesh_from_devices({"tp": n})
+    out = {}
+    for fam in ("gpt2", "llama"):
+        cfg, params = tp_model(fam)
+        dcfg, dparams = tp_model(fam, seed=7, n_layers=1)
+        gen = tpi.make_tp_speculative_generate(dcfg, cfg, mesh, TP_SPEC_NEW,
+                                               k=TP_SPEC_K, device="cpu")
+        for b in (1, 2):
+            toks, st = gen(dparams, params, tp_prompt(b))
+            out[(fam, b)] = dict(tokens=toks, rounds=st["rounds"],
+                                 accepted=st["drafted_accepted"])
+    return out
+
+
+# -- expert parallelism --------------------------------------------------------
+
+EP_MESHES = {2: {"b": 2, "ep": 2}, 4: {"ep": 4}}
+EP_CASES = [(ep, k, cf) for ep in (2, 4) for k in (1, 2)
+            for cf in (2.0, 8.0)]
+EP_T, EP_LR = 32, 0.1
+
+
+def ep_layer(k, cf):
+    from mpi_acx_torch.models import moe
+    cfg = moe.MoeConfig(d_model=16, d_ff=32, n_experts=8,
+                        capacity_factor=cf, top_k=k)
+    return cfg, moe.init_moe_params(cfg, seed=3, device="cpu")
+
+
+def ep_tokens(seed, d=16):
+    return rng_array(seed, (EP_T, d))
+
+
+def ep_block(tree, mesh, specs):
+    from mpi_acx_torch import train
+    return train.shard_params(tree, specs, mesh)
+
+
+def case_ep(rank, n, args):
+    """The all_to_all MoE entries at ep = 2 and 4, top-1 and top-2,
+    capacity factors 2.0 (tokens drop per group) and 8.0: ``moe_layer``
+    and ``moe_layer_and_aux`` on this rank's token shard,
+    ``moe_layer_sharded_dispatch`` on tokens every rank holds, one
+    ``make_moe_train_step`` step (the new shard), and one
+    ``make_moe_transformer_train_step`` step of the tiny MoE model."""
+    from mpi_acx_torch.models import moe, moe_transformer as mtf
+    from mpi_acx_torch.parallel.mesh import PartitionSpec as P
+    if args.full_width:
+        import torch_tp_smoke
+        return torch_tp_smoke.run_ep(rank, n, args)
+    out = {"specs": mtf.param_specs("dp")}
+    lspecs = {"gate": P(), "w1": P("ep"), "w2": P("ep")}
+    for ep, k, cf in EP_CASES:
+        mesh = mesh_from_devices(EP_MESHES[ep])
+        cfg, params = ep_layer(k, cf)
+        local = ep_block(params, mesh, lspecs)
+        r, T = mesh.coords["ep"], EP_T // ep
+        x = torch.from_numpy(ep_tokens(11))
+        xs = x[r * T:(r + 1) * T]
+        tgt = torch.from_numpy(ep_tokens(12))[r * T:(r + 1) * T]
+        with mesh:
+            y, aux = moe.moe_layer_and_aux(local, xs, cfg, ep_axis="ep")
+            y2 = moe.moe_layer(local, xs, cfg, ep_axis="ep")
+            ys = moe.moe_layer_sharded_dispatch(local, x, cfg, "ep")
+        step = moe.make_moe_train_step(cfg, mesh, "ep", lr=EP_LR,
+                                       device="cpu")
+        old = {key: v.clone() for key, v in local.items()}
+        loss, new = step(local, xs, tgt)
+        out[("layer", ep, k, cf)] = dict(
+            y=y, y2=y2, aux=aux, sharded=ys, loss=loss.item(),
+            grads={key: (old[key] - new[key]) / EP_LR for key in old})
+    for ep in (2, 4):
+        mesh = mesh_from_devices(EP_MESHES[ep])
+        cfg, params = ep_model()
+        local = ep_block(params, mesh, mtf.param_specs("ep"))
+        old = ep_block(params, mesh, mtf.param_specs("ep"))
+        tokens, targets = ep_batch(cfg)
+        r, b = mesh.coords["ep"], EP_BATCH // ep
+        step = mtf.make_moe_transformer_train_step(cfg, mesh, axis="ep",
+                                                   lr=EP_LR, device="cpu")
+        loss, new = step(local, tokens[r * b:(r + 1) * b],
+                         targets[r * b:(r + 1) * b])
+        grads = {key: (old[key] - new[key]) / EP_LR
+                 for key in old if key != "layers"}
+        grads["layers"] = {key: (old["layers"][key] - new["layers"][key])
+                           / EP_LR for key in old["layers"]}
+        out[("model", ep)] = dict(loss=loss.item(), grads=grads)
+    return out
+
+
+EP_BATCH = 4
+
+
+def ep_model():
+    """The tiny MoE transformer of the EP train step (top-2, capacity
+    factor 2.0: tokens drop per rank group)."""
+    return tp_model("moe", top_k=2, capacity_factor=2.0, max_seq=16)
+
+
+def ep_batch(cfg, S=8):
+    tokens = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab, (EP_BATCH, S)).astype(np.int64))
+    return tokens, torch.roll(tokens, -1, dims=-1)
+
+
+# -- Ulysses and the partitioned exchange --------------------------------------
+
+ULYSSES_MESHES = {2: {"b": 2, "x": 2}, 4: {"x": 4}}
+ULYSSES_SHAPE = (64, 8, 16)           # global [S, H, D]
+
+
+def ulysses_qkv(ring):
+    return [rng_array(700 + 10 * ring + j, ULYSSES_SHAPE) for j in range(3)]
+
+
+def case_ulysses(rank, n, args):
+    """ulysses_attention_sharded at 2 and 4 ranks, causal and not, on this
+    rank's sequence block; the refusal of heads not divisible by the
+    axis."""
+    from mpi_acx_torch.parallel import ulysses
+    if args.full_width:
+        import torch_tp_smoke
+        return torch_tp_smoke.run_ulysses(rank, n, args)
+    out = {}
+    for ring, shape in ULYSSES_MESHES.items():
+        mesh = mesh_from_devices(shape)
+        r, sq = mesh.coords["x"], ULYSSES_SHAPE[0] // ring
+        qkv = [torch.from_numpy(t[r * sq:(r + 1) * sq])
+               for t in ulysses_qkv(ring)]
+        for causal in (True, False):
+            out[(ring, causal)] = ulysses.ulysses_attention_sharded(
+                *qkv, mesh, "x", causal=causal)
+    mesh = mesh_from_devices(ULYSSES_MESHES[4])
+    x = torch.zeros(4, 2, 16)
+    out["refusal"] = refusal(
+        lambda: ulysses.ulysses_attention_sharded(x, x, x, mesh, "x"))
+    return out
+
+
+def case_partitioned(rank, n, args):
+    """tests/test_partitioned.py's three cases on an n-ring: the
+    exchange's identity, with a consumer, and the pipeline."""
+    from mpi_acx_torch.parallel import partitioned as pt
+    if args.full_width:
+        import torch_tp_smoke
+        return torch_tp_smoke.run_partitioned(rank, n, args)
+    mesh = make_mesh()
+    x = torch.arange(12 * n, dtype=torch.float32).reshape(12 * n, 1)
+    ones = torch.ones(4 * n, 2)
+    with mesh:
+        ident = pt.partitioned_ring_exchange(x[rank * 12:(rank + 1) * 12],
+                                             "x", partitions=4)
+        cons = pt.partitioned_ring_exchange(
+            ones[rank * 4:(rank + 1) * 4], "x", partitions=2,
+            consume=lambda c: c * 3.0)
+        acc = pt.partitioned_pipeline(
+            lambda k: torch.full((3,), rank * 100.0 + k),
+            lambda a, p: a + p, torch.zeros(3), 5, "x")
+    return dict(identity=ident, consumer=cons, pipeline=acc)
+
 
 CASES = {"collectives": case_collectives, "mesh": case_mesh,
          "ring": case_ring, "quantized": case_quantized,
          "train": case_train, "multihost": case_multihost,
-         "smoke": case_smoke}
+         "smoke": case_smoke, "tp": case_tp, "tp_serve": case_tp_serve,
+         "tp_spec": case_tp_spec, "ep": case_ep, "ulysses": case_ulysses,
+         "partitioned": case_partitioned}
 
 
 def main():
@@ -538,6 +898,11 @@ def main():
     ap.add_argument("--device", default="cpu")
     ap.add_argument("--backend", default="gloo")
     ap.add_argument("--family", default="gpt2")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="smoke: GPT-2 124M cut to this many layers")
+    ap.add_argument("--full-width", action="store_true",
+                    help="the full-width form of a case (chip_smoke.py's "
+                    "phase 7d; tests/torch_tp_smoke.py)")
     ap.add_argument("--dump-after", type=float, default=0,
                     help="print every thread's stack and exit after this "
                     "many seconds (a hang's evidence)")
