@@ -72,7 +72,7 @@ from mpi_acx_torch.models.serving import (
     RequestTelemetry, RollingSLO, ServedBatch, ServingMetrics,
     _bucket, _flight_dump_best_effort, _normalize_requests, _pct,
     _peer_dead, _span_app_begin_best_effort, _span_app_end_best_effort,
-    _tseries_annotate_best_effort, make_server_fns)
+    _tseries_annotate_best_effort, _tseries_lib, make_server_fns)
 from mpi_acx_torch.parallel.kv_ship import (DESC_FIN_TAG, DESC_HDR_TAG,
                                             KvReceiver, KvShipper)
 
@@ -456,6 +456,9 @@ def _serve_disagg_loopback(params, cfg, prompts, n_new, n_slots, max_len,
     ttft = [None] * len(prompts)
     finish = [None] * len(prompts)
     slo = RollingSLO()
+    # The rolling SLOs feed only the telemetry sampler: kept when it is
+    # armed as the call starts.
+    feed_slo = _tseries_lib() is not None
     itl_samples: List[float] = []
     qd_samples: List[int] = []
     occ_samples: List[float] = []
@@ -540,7 +543,8 @@ def _serve_disagg_loopback(params, cfg, prompts, n_new, n_slots, max_len,
         last_tok[b] = int(fin[2])
         n_prefills += 1
         ttft[rid] = time.perf_counter() - t0
-        slo.note_ttft(ttft[rid])
+        if feed_slo:
+            slo.note_ttft(ttft[rid])
         reqlog.emit("stream", rid, n=1, ttft_s=ttft[rid])
         handoffs.append(HandoffTelemetry(
             rid=rid, layers=cfg.n_layers,
@@ -576,8 +580,9 @@ def _serve_disagg_loopback(params, cfg, prompts, n_new, n_slots, max_len,
     while any(o >= 0 for o in owner) or queue:
         qd_samples.append(len(queue))
         occ_samples.append(sum(o >= 0 for o in owner) / n_slots)
-        slo.note_gauges(qd_samples[-1], occ_samples[-1])
-        _tseries_annotate_best_effort(slo.live_slos())
+        if feed_slo:
+            slo.note_gauges(qd_samples[-1], occ_samples[-1])
+            _tseries_annotate_best_effort(slo)
         if not any(o >= 0 for o in owner):
             seed_idle_slots()
             continue
@@ -612,7 +617,8 @@ def _serve_disagg_loopback(params, cfg, prompts, n_new, n_slots, max_len,
                     break
                 emitted[owner[b]].append(int(block[c, b]))
                 itl_samples.append(step_dt / chunk)
-                slo.note_itl(step_dt / chunk)
+                if feed_slo:
+                    slo.note_itl(step_dt / chunk)
                 got += 1
             if got:
                 reqlog.emit("stream", owner[b], n=got, itl_s=step_dt / chunk)

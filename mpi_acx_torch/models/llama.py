@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from mpi_acx_torch import profiling
 from mpi_acx_torch.device import resolve_device
 from mpi_acx_torch.models.decoding import (fill_kv_cache, greedy_generate,
                                            grouped_decode_attend,
@@ -293,28 +294,29 @@ def prefill(params: Params, cfg: LlamaConfig, tokens, max_len: int,
     entries are quantized. With ``last_only`` the unembedding runs on the
     final position alone; ``last_index`` picks that position instead (for
     bucket-padded serving prompts, models/serving.py)."""
-    B, S = tokens.shape
-    _check_len(S, cfg, max_len)
-    x = params["embed"][tokens].to(cfg.dtype)
-    positions = torch.arange(S, device=x.device)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        q, k, v = _qkv(cfg, lp, x, positions)
-        x = x + _attend(cfg, q, k, v) @ wread(lp, "wo", x.dtype)
-        x = _mlp(cfg, lp, x)
-        ks.append(k)
-        vs.append(v)
-    x = rmsnorm(x, params["final_norm"])
-    if last_index is not None:
-        x = x[:, last_index:last_index + 1]
-    elif last_only:
-        x = x[:, -1:]
-    logits = _unembed(x, params["unembed"])
-    cache = fill_kv_cache(
-        init_kv_cache(cfg, B, max_len, kv_int8=kv_int8, device=x.device),
-        torch.stack(ks), torch.stack(vs), S)
-    return logits, cache
+    with profiling.annotate("acx.model.prefill"):
+        B, S = tokens.shape
+        _check_len(S, cfg, max_len)
+        x = params["embed"][tokens].to(cfg.dtype)
+        positions = torch.arange(S, device=x.device)
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            lp = _layer(params, i)
+            q, k, v = _qkv(cfg, lp, x, positions)
+            x = x + _attend(cfg, q, k, v) @ wread(lp, "wo", x.dtype)
+            x = _mlp(cfg, lp, x)
+            ks.append(k)
+            vs.append(v)
+        x = rmsnorm(x, params["final_norm"])
+        if last_index is not None:
+            x = x[:, last_index:last_index + 1]
+        elif last_only:
+            x = x[:, -1:]
+        logits = _unembed(x, params["unembed"])
+        cache = fill_kv_cache(
+            init_kv_cache(cfg, B, max_len, kv_int8=kv_int8, device=x.device),
+            torch.stack(ks), torch.stack(vs), S)
+        return logits, cache
 
 
 def decode_step(params: Params, cfg: LlamaConfig, cache, token):
@@ -323,24 +325,28 @@ def decode_step(params: Params, cfg: LlamaConfig, cache, token):
     models/decoding.py). ``cache['pos']`` is a scalar (one position for
     every row) or [B] (continuous-batching serving): RoPE then rotates each
     slot by its own position ([B, 1] positions)."""
-    pos = cache["pos"]
-    max_len = cache["k"].shape[2]
-    n_rep = cfg.n_heads // cfg.n_kv_heads
-    x = params["embed"][token][:, None, :].to(cfg.dtype)
-    positions = pos[:, None] if pos.ndim else pos.reshape(1)
+    with profiling.annotate("acx.model.decode"):
+        pos = cache["pos"]
+        max_len = cache["k"].shape[2]
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        x = params["embed"][token][:, None, :].to(cfg.dtype)
+        positions = pos[:, None] if pos.ndim else pos.reshape(1)
 
-    def qkv_fn(lp, x, pos):
-        return _qkv(cfg, lp, x, positions)         # k, v [B, 1, Hkv, Dh]
+        def qkv_fn(lp, x, pos):
+            return _qkv(cfg, lp, x, positions)         # k, v [B, 1, Hkv, Dh]
 
-    def attend_fn(lp, x, q, kc, vc, pos):
-        o = grouped_decode_attend(q, kc, vc, pos, max_len, n_rep,
-                                  flash=cfg.decode_flash)
-        return _mlp(cfg, lp, x + o @ wread(lp, "wo", x.dtype))
+        def attend_fn(lp, x, q, kc, vc, pos):
+            o = grouped_decode_attend(q, kc, vc, pos, max_len, n_rep,
+                                      flash=cfg.decode_flash)
+            return _mlp(cfg, lp, x + o @ wread(lp, "wo", x.dtype))
 
-    x, out_cache = run_decode_layers(params["layers"], x, cache, qkv_fn,
-                                     attend_fn)
-    x = rmsnorm(x, params["final_norm"])
-    return _unembed(x, params["unembed"])[:, 0], out_cache
+        with profiling.annotate("acx.model.layers"):
+            x, out_cache = run_decode_layers(params["layers"], x, cache,
+                                             qkv_fn, attend_fn)
+        with profiling.annotate("acx.model.head"):
+            x = rmsnorm(x, params["final_norm"])
+            logits = _unembed(x, params["unembed"])[:, 0]
+        return logits, out_cache
 
 
 def generate(params: Params, cfg: LlamaConfig, prompt, n_new: int,

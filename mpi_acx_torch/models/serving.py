@@ -48,7 +48,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from mpi_acx_torch import reqlog
+from mpi_acx_torch import profiling, reqlog
 from mpi_acx_torch.device import resolve_device
 from mpi_acx_torch.models.decoding import (filter_logits, fold_in, gumbel,
                                            key_generator, sample_logits)
@@ -209,18 +209,27 @@ def _flight_dump_best_effort() -> bool:
     return lib is not None and lib.acx_flight_dump(None) == 0
 
 
-def _tseries_annotate_best_effort(fragment: dict) -> bool:
-    """Hand ``fragment`` to the native telemetry sampler (it rides under
-    ``"app"`` in every later ``ACX_TSERIES`` sample) when the library is
-    loaded and sampling is armed; the JSON is not even encoded otherwise.
-    Returns True iff the sampler took it."""
+def _tseries_lib():
+    """The native library when ``ACX_TSERIES`` sampling is armed in it,
+    else None."""
     if not os.environ.get("ACX_TSERIES"):
-        return False
+        return None
     lib = _loaded_lib()
     if lib is None or not lib.acx_tseries_enabled():
+        return None
+    return lib
+
+
+def _tseries_annotate_best_effort(slo: "RollingSLO") -> bool:
+    """Hand ``slo``'s live SLOs to the native telemetry sampler (they ride
+    under ``"app"`` in every later ``ACX_TSERIES`` sample) when the library
+    is loaded and sampling is armed; they are not even computed otherwise.
+    Returns True iff the sampler took them."""
+    lib = _tseries_lib()
+    if lib is None:
         return False
     lib.acx_tseries_annotate(
-        json.dumps(fragment, separators=(",", ":")).encode())
+        json.dumps(slo.live_slos(), separators=(",", ":")).encode())
     return True
 
 
@@ -511,13 +520,14 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
     keys: List[Optional[torch.Generator]] = [None] * n_slots
     attempts = [0] * len(prompts)
 
-    # All requests arrive at entry, so queue wait counts toward TTFT.
-    t0 = time.perf_counter()
     ttft = [None] * len(prompts)      # type: List[Optional[float]]
     finish = [None] * len(prompts)    # type: List[Optional[float]]
     slo = RollingSLO()
     for rej in rejected.values():
         slo.note_reject(rej.reason)
+    # The rolling SLOs feed only the telemetry sampler: kept when it is
+    # armed as the call starts.
+    feed_slo = _tseries_lib() is not None
     itl_samples: List[float] = []
     qd_samples: List[int] = []
     occ_samples: List[float] = []
@@ -547,40 +557,45 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
         re-queues the request instead of killing the server."""
         nonlocal slots, n_prefills
         rid, prompt = queue.popleft()
-        S = len(prompt)
-        # Bucket capped at max_len (the scatter must fit the slot) and at
-        # the model's position ceiling.
-        padded = np.zeros((1, min(_bucket(S), max_len, cfg.max_seq)),
-                          np.int32)
-        padded[0, :S] = prompt
-        spanned = _span_app_begin_best_effort(rid)
-        reqlog.emit("prefill_start", rid, prompt_len=S,
-                    bucket=padded.shape[1])
-        try:
-            logits, one = prefill_fn(torch.from_numpy(padded).to(dev), S - 1)
-            if sample_cfg is None:
-                first = int(logits[0, 0].argmax())
-            else:
-                keys[b] = key_generator(fold_in(key, rid), dev)
-                first = int(sample_logits(logits[0, 0][None].float(),
-                                          keys[b], *sample_cfg)[0])
-            slots = scatter_fn(slots, one, b, S)
-        except Exception as exc:  # noqa: BLE001 — any device failure
-            _requeue(rid, prompt, exc, charge=not _peer_dead(exc))
-            return False
-        finally:
-            if spanned:
-                _span_app_end_best_effort()
-        owner[b] = rid
-        emitted[rid].append(first)
-        last_tok[b] = first
-        n_prefills += 1
-        reqlog.emit("prefill_end", rid, first_token=first)
-        reqlog.emit("seat", rid, slot=b, pos=S)
-        ttft[rid] = time.perf_counter() - t0
-        slo.note_ttft(ttft[rid])
-        reqlog.emit("stream", rid, n=1, ttft_s=ttft[rid])
-        return True
+        with profiling.annotate("acx.serve.refill"):
+            S = len(prompt)
+            # Bucket capped at max_len (the scatter must fit the slot) and
+            # at the model's position ceiling.
+            padded = np.zeros((1, min(_bucket(S), max_len, cfg.max_seq)),
+                              np.int32)
+            padded[0, :S] = prompt
+            spanned = _span_app_begin_best_effort(rid)
+            reqlog.emit("prefill_start", rid, prompt_len=S,
+                        bucket=padded.shape[1])
+            try:
+                logits, one = prefill_fn(torch.from_numpy(padded).to(dev),
+                                         S - 1)
+                with profiling.annotate("acx.serve.first_token"):
+                    if sample_cfg is None:
+                        first = int(logits[0, 0].argmax())
+                    else:
+                        keys[b] = key_generator(fold_in(key, rid), dev)
+                        first = int(sample_logits(
+                            logits[0, 0][None].float(), keys[b],
+                            *sample_cfg)[0])
+                slots = scatter_fn(slots, one, b, S)
+            except Exception as exc:  # noqa: BLE001 — any device failure
+                _requeue(rid, prompt, exc, charge=not _peer_dead(exc))
+                return False
+            finally:
+                if spanned:
+                    _span_app_end_best_effort()
+            owner[b] = rid
+            emitted[rid].append(first)
+            last_tok[b] = first
+            n_prefills += 1
+            reqlog.emit("prefill_end", rid, first_token=first)
+            reqlog.emit("seat", rid, slot=b, pos=S)
+            ttft[rid] = time.perf_counter() - t0
+            if feed_slo:
+                slo.note_ttft(ttft[rid])
+            reqlog.emit("stream", rid, n=1, ttft_s=ttft[rid])
+            return True
 
     def retire(b):
         rid = owner[b]
@@ -610,87 +625,99 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
             if refill(b) and slot_finished(b):
                 retire(b)
 
-    qd_samples.append(len(queue))
-    seed_idle_slots()
-
-    while any(o >= 0 for o in owner) or queue:
+    # All requests arrive at entry, so queue wait counts toward TTFT.
+    with profiling.annotate("acx.serve.call"):
+        t0 = time.perf_counter()
         qd_samples.append(len(queue))
-        occ_samples.append(sum(o >= 0 for o in owner) / n_slots)
-        slo.note_gauges(qd_samples[-1], occ_samples[-1])
-        _tseries_annotate_best_effort(slo.live_slos())
-        if queue:
-            # Capacity may have returned (a replacement rank joined):
-            # revive shed slots and refill exactly those.
-            for b in fleet.check_rejoin():
-                if queue and refill(b) and slot_finished(b):
-                    retire(b)
-        if not any(o >= 0 for o in owner):
-            # All slots idle with requests queued: only reachable after a
-            # failure re-queued them — reseed and keep serving.
-            seed_idle_slots()
-            continue
-        step_t0 = time.perf_counter()
-        try:
-            slots, toks = step_fn(slots, torch.from_numpy(last_tok).to(dev),
-                                  keys)
-            block = toks.cpu().numpy()               # [chunk, B]; syncs
-        except Exception as exc:  # noqa: BLE001 — any device failure
-            # The slot cache is updated in place, so after a failed step it
-            # cannot be trusted: re-queue every active request (bit-equal
-            # restart, bounded by max_request_retries) and rebuild it. Peer
-            # loss charges no victim and sheds a slot (the job shrank).
-            lost_peer = _peer_dead(exc)
-            # The flight dump records the comm plane as the failure left it.
-            if _flight_dump_best_effort():
-                n_hang_dumps += 1
-            for b in range(n_slots):
-                if owner[b] >= 0:
-                    rid = owner[b]
-                    owner[b] = -1
-                    _requeue(rid, np.asarray(prompts[rid], np.int32), exc,
-                             charge=not lost_peer)
-            if lost_peer:
-                fleet.shed_one()
-            slots = fresh_slots()
-            keys = [None] * n_slots
-            last_tok = np.zeros((n_slots,), np.int32)
-            continue
-        # The copy to the host waited for the device, so this dt covers
-        # the device step; the chunk's tokens share it evenly.
-        step_dt = time.perf_counter() - step_t0
-        n_steps += 1
-        reqlog.emit("decode_step", step=n_steps, dt_s=step_dt,
-                    active=sum(o >= 0 for o in owner))
-        for b in range(n_slots):
-            last_tok[b] = block[-1, b]
-            if owner[b] < 0:
-                continue
-            got = 0
-            for c in range(block.shape[0]):
-                # A slot that finishes mid-chunk idles; its further tokens
-                # are dropped.
-                if slot_finished(b):
-                    break
-                emitted[owner[b]].append(int(block[c, b]))
-                itl_samples.append(step_dt / chunk)
-                slo.note_itl(step_dt / chunk)
-                got += 1
-            if got:
-                reqlog.emit("stream", owner[b], n=got, itl_s=step_dt / chunk)
-        for b in range(n_slots):
-            while owner[b] >= 0 and slot_finished(b):
-                retire(b)
+        seed_idle_slots()
+        while any(o >= 0 for o in owner) or queue:
+            with profiling.annotate("acx.serve.round"):
+                qd_samples.append(len(queue))
+                occ_samples.append(sum(o >= 0 for o in owner) / n_slots)
+                if feed_slo:
+                    slo.note_gauges(qd_samples[-1], occ_samples[-1])
+                    _tseries_annotate_best_effort(slo)
                 if queue:
-                    refill(b)
+                    # Capacity may have returned (a replacement rank joined):
+                    # revive shed slots and refill exactly those.
+                    for b in fleet.check_rejoin():
+                        if queue and refill(b) and slot_finished(b):
+                            retire(b)
+                if not any(o >= 0 for o in owner):
+                    # All slots idle with requests queued: only reachable
+                    # after a failure re-queued them — reseed and keep
+                    # serving.
+                    seed_idle_slots()
+                    continue
+                step_t0 = time.perf_counter()
+                try:
+                    with profiling.annotate("acx.serve.issue"):
+                        slots, toks = step_fn(
+                            slots, torch.from_numpy(last_tok).to(dev), keys)
+                    with profiling.annotate("acx.serve.wait"):
+                        block = toks.cpu().numpy()   # [chunk, B]; syncs
+                except Exception as exc:  # noqa: BLE001 — any device failure
+                    # The slot cache is updated in place, so after a failed
+                    # step it cannot be trusted: re-queue every active
+                    # request (bit-equal restart, bounded by
+                    # max_request_retries) and rebuild it. Peer loss charges
+                    # no victim and sheds a slot (the job shrank).
+                    lost_peer = _peer_dead(exc)
+                    # The flight dump records the comm plane as the
+                    # failure left it.
+                    if _flight_dump_best_effort():
+                        n_hang_dumps += 1
+                    for b in range(n_slots):
+                        if owner[b] >= 0:
+                            rid = owner[b]
+                            owner[b] = -1
+                            _requeue(rid, np.asarray(prompts[rid], np.int32),
+                                     exc, charge=not lost_peer)
+                    if lost_peer:
+                        fleet.shed_one()
+                    slots = fresh_slots()
+                    keys = [None] * n_slots
+                    last_tok = np.zeros((n_slots,), np.int32)
+                    continue
+                # The copy to the host waited for the device, so this dt
+                # covers the device step; the chunk's tokens share it
+                # evenly.
+                step_dt = time.perf_counter() - step_t0
+                n_steps += 1
+                reqlog.emit("decode_step", step=n_steps, dt_s=step_dt,
+                            active=sum(o >= 0 for o in owner))
+                for b in range(n_slots):
+                    last_tok[b] = block[-1, b]
+                    if owner[b] < 0:
+                        continue
+                    got = 0
+                    for c in range(block.shape[0]):
+                        # A slot that finishes mid-chunk idles; its further
+                        # tokens are dropped.
+                        if slot_finished(b):
+                            break
+                        emitted[owner[b]].append(int(block[c, b]))
+                        itl_samples.append(step_dt / chunk)
+                        if feed_slo:
+                            slo.note_itl(step_dt / chunk)
+                        got += 1
+                    if got:
+                        reqlog.emit("stream", owner[b], n=got,
+                                    itl_s=step_dt / chunk)
+                for b in range(n_slots):
+                    while owner[b] >= 0 and slot_finished(b):
+                        retire(b)
+                        if queue:
+                            refill(b)
 
-    if any(d is None for d in done):
-        raise RuntimeError("scheduler exited with unfinished requests")
-    return ServedBatch(done, _batch_metrics(
-        prompts, rejected, emitted, ttft, finish, attempts, t0, itl_samples,
-        qd_samples, occ_samples, steps=n_steps, prefills=n_prefills,
-        requeues=n_requeues, peer_requeues=n_peer_requeues,
-        slots_shed=fleet.shed, slots_revived=fleet.revived,
-        hang_dumps=n_hang_dumps))
+        if any(d is None for d in done):
+            raise RuntimeError("scheduler exited with unfinished requests")
+        return ServedBatch(done, _batch_metrics(
+            prompts, rejected, emitted, ttft, finish, attempts, t0,
+            itl_samples, qd_samples, occ_samples, steps=n_steps,
+            prefills=n_prefills, requeues=n_requeues,
+            peer_requeues=n_peer_requeues, slots_shed=fleet.shed,
+            slots_revived=fleet.revived, hang_dumps=n_hang_dumps))
 
 
 def _batch_metrics(prompts, rejected, emitted, ttft, finish, attempts, t0,
@@ -913,6 +940,10 @@ def serve_paged_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
     slo = RollingSLO()
     for rej in rejected.values():
         slo.note_reject(rej.reason)
+    # The rolling SLOs feed the refill gate and the telemetry sampler:
+    # kept when either is on as the call starts.
+    feed_slo = (ttft_target is not None or itl_target is not None
+                or _tseries_lib() is not None)
     itl_samples: List[float] = []
     qd_samples: List[int] = []
     occ_samples: List[float] = []
@@ -1032,7 +1063,8 @@ def serve_paged_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
         last_tok[b] = first
         n_prefills += 1
         ttft[rid] = time.perf_counter() - t0
-        slo.note_ttft(ttft[rid])
+        if feed_slo:
+            slo.note_ttft(ttft[rid])
         reqlog.emit("stream", rid, n=1, ttft_s=ttft[rid])
         return True
 
@@ -1115,8 +1147,9 @@ def serve_paged_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
     while any(o >= 0 for o in owner) or queue:
         qd_samples.append(len(queue))
         occ_samples.append(sum(o >= 0 for o in owner) / n_slots)
-        slo.note_gauges(qd_samples[-1], occ_samples[-1])
-        _tseries_annotate_best_effort(slo.live_slos())
+        if feed_slo:
+            slo.note_gauges(qd_samples[-1], occ_samples[-1])
+            _tseries_annotate_best_effort(slo)
         publish()
         if queue:
             for b in fleet.check_rejoin():
@@ -1187,7 +1220,8 @@ def serve_paged_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
                 if on_token is not None:
                     on_token(owner[b], tok)
                 itl_samples.append(step_dt / chunk)
-                slo.note_itl(step_dt / chunk)
+                if feed_slo:
+                    slo.note_itl(step_dt / chunk)
                 got += 1
             if got:
                 reqlog.emit("stream", owner[b], n=got, itl_s=step_dt / chunk)

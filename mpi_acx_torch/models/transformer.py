@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mpi_acx_torch import profiling
 from mpi_acx_torch.device import on_device, resolve_device
 from mpi_acx_torch.models.decoding import (fill_kv_cache, greedy_generate,
                                            grouped_decode_attend,
@@ -266,30 +267,31 @@ def prefill(params: Params, cfg: TransformerConfig, tokens, max_len: int,
     (models/moe_transformer.py). ``kv_int8`` selects the int8 cache:
     attention runs on the exact K/V and only the cache entries are
     quantized."""
-    ffn = ffn or _mlp
-    B, S = tokens.shape
-    if S > max_len or S > cfg.max_seq:
-        raise ValueError(f"prompt length {S} exceeds max_len {max_len} or "
-                         f"max_seq {cfg.max_seq}")
-    x = (params["embed"][tokens] + params["pos"][:S]).to(cfg.dtype)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params, i)
-        q, k, v = _qkv(cfg, lp, x)
-        x = x + _attend(cfg, q, k, v) @ wread(lp, "wo", x.dtype)
-        x = ffn(cfg, lp, x)
-        ks.append(k)
-        vs.append(v)
-    x = layernorm(x, params["lnf_g"], params["lnf_b"])
-    if last_index is not None:
-        x = x[:, last_index:last_index + 1]
-    elif last_only:
-        x = x[:, -1:]
-    logits = _unembed(x, params["embed"])
-    cache = fill_kv_cache(
-        init_kv_cache(cfg, B, max_len, kv_int8=kv_int8, device=x.device),
-        torch.stack(ks), torch.stack(vs), S)
-    return logits, cache
+    with profiling.annotate("acx.model.prefill"):
+        ffn = ffn or _mlp
+        B, S = tokens.shape
+        if S > max_len or S > cfg.max_seq:
+            raise ValueError(f"prompt length {S} exceeds max_len {max_len} or "
+                             f"max_seq {cfg.max_seq}")
+        x = (params["embed"][tokens] + params["pos"][:S]).to(cfg.dtype)
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            lp = _layer(params, i)
+            q, k, v = _qkv(cfg, lp, x)
+            x = x + _attend(cfg, q, k, v) @ wread(lp, "wo", x.dtype)
+            x = ffn(cfg, lp, x)
+            ks.append(k)
+            vs.append(v)
+        x = layernorm(x, params["lnf_g"], params["lnf_b"])
+        if last_index is not None:
+            x = x[:, last_index:last_index + 1]
+        elif last_only:
+            x = x[:, -1:]
+        logits = _unembed(x, params["embed"])
+        cache = fill_kv_cache(
+            init_kv_cache(cfg, B, max_len, kv_int8=kv_int8, device=x.device),
+            torch.stack(ks), torch.stack(vs), S)
+        return logits, cache
 
 
 def decode_step(params: Params, cfg: TransformerConfig, cache, token,
@@ -299,26 +301,30 @@ def decode_step(params: Params, cfg: TransformerConfig, cache, token,
     models/decoding.py); ``cache['pos']`` is a scalar, or [B] with one
     position per slot (continuous-batching serving). ``ffn`` replaces the
     feed-forward half as in :func:`prefill`."""
-    ffn = ffn or _mlp
-    pos = cache["pos"]
-    max_len = cache["k"].shape[2]
-    # Like JAX's gather, a position past the table reads its last row.
-    pe = params["pos"][pos.clamp(0, cfg.max_seq - 1)]
-    pe = pe[:, None, :] if pos.ndim else pe[None, None, :]
-    x = (params["embed"][token][:, None, :] + pe).to(cfg.dtype)
+    with profiling.annotate("acx.model.decode"):
+        ffn = ffn or _mlp
+        pos = cache["pos"]
+        max_len = cache["k"].shape[2]
+        # Like JAX's gather, a position past the table reads its last row.
+        pe = params["pos"][pos.clamp(0, cfg.max_seq - 1)]
+        pe = pe[:, None, :] if pos.ndim else pe[None, None, :]
+        x = (params["embed"][token][:, None, :] + pe).to(cfg.dtype)
 
-    def qkv_fn(lp, x, pos):
-        return _qkv(cfg, lp, x)                        # [B, 1, H, Dh]
+        def qkv_fn(lp, x, pos):
+            return _qkv(cfg, lp, x)                        # [B, 1, H, Dh]
 
-    def attend_fn(lp, x, q, kc, vc, pos):
-        o = grouped_decode_attend(q, kc, vc, pos, max_len, n_rep=1,
-                                  flash=cfg.decode_flash)
-        return ffn(cfg, lp, x + o @ wread(lp, "wo", x.dtype))
+        def attend_fn(lp, x, q, kc, vc, pos):
+            o = grouped_decode_attend(q, kc, vc, pos, max_len, n_rep=1,
+                                      flash=cfg.decode_flash)
+            return ffn(cfg, lp, x + o @ wread(lp, "wo", x.dtype))
 
-    x, out_cache = run_decode_layers(params["layers"], x, cache, qkv_fn,
-                                     attend_fn)
-    x = layernorm(x, params["lnf_g"], params["lnf_b"])
-    return _unembed(x, params["embed"])[:, 0], out_cache
+        with profiling.annotate("acx.model.layers"):
+            x, out_cache = run_decode_layers(params["layers"], x, cache,
+                                             qkv_fn, attend_fn)
+        with profiling.annotate("acx.model.head"):
+            x = layernorm(x, params["lnf_g"], params["lnf_b"])
+            logits = _unembed(x, params["embed"])[:, 0]
+        return logits, out_cache
 
 
 def stage_slice(params: Params, n_stages: int) -> Params:

@@ -40,6 +40,7 @@ import math
 
 import torch
 
+from mpi_acx_torch import profiling
 from mpi_acx_torch.ops import _build
 
 _NEG_INF = -1e30
@@ -325,7 +326,9 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
-        grads = _flash_bwd_blockwise(*_to_bhsd(q, k, v, o, do), *ctx.blocks)
+        with profiling.annotate("acx.ops.attn_bwd"):
+            grads = _flash_bwd_blockwise(*_to_bhsd(q, k, v, o, do),
+                                         *ctx.blocks)
         return (*_to_bhsd(*grads), None, None, None, None)
 
 
@@ -352,11 +355,12 @@ class _FlashLse(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        if do is None:
-            do = torch.zeros_like(o)
-        qt, kt, vt, ot, dot = _to_bhsd(q, k, v, o, do)
-        grads = _flash_bwd_blockwise(qt, kt, vt, ot, dot, *ctx.blocks,
-                                     lse=lse, dlse=dlse)
+        with profiling.annotate("acx.ops.attn_bwd"):
+            if do is None:
+                do = torch.zeros_like(o)
+            qt, kt, vt, ot, dot = _to_bhsd(q, k, v, o, do)
+            grads = _flash_bwd_blockwise(qt, kt, vt, ot, dot, *ctx.blocks,
+                                         lse=lse, dlse=dlse)
         return (*_to_bhsd(*grads), None, None, None)
 
 

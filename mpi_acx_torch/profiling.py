@@ -5,7 +5,8 @@
   CUDA device, the card's kernels) into a directory, as a Chrome trace
   file.
 * :func:`annotate` — a named span inside a trace: a ``record_function``,
-  plus an NVTX range when a CUDA device is present.
+  plus an NVTX range when a CUDA device is present; nothing at all when
+  no profiler runs.
 * :class:`StepTimer` — wall-clock step statistics where each sample ends
   in a synchronize of the device the step's value lies on, so a sample
   covers the device's work and not only its dispatch.
@@ -50,13 +51,27 @@ def trace(logdir: str):
             logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
-@contextlib.contextmanager
 def annotate(name: str):
-    """Named sub-region inside a trace (a span in the viewer):
+    """Named sub-region inside a trace (a span in the viewer): a
+    ``record_function`` range, plus an NVTX range on a CUDA device.
 
         with profiling.annotate("attention"):
             o = flash_attention(q, k, v)
-    """
+
+    Free when no profiler runs: it reads the profiler's module-level flag,
+    which holds for every thread (autograd runs the CUDA backward on one
+    of its own), and builds no range. The program's own spans are named
+    ``acx.<layer>.<what>``."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _OFF
+    return _range(name)
+
+
+_OFF = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _range(name: str):
     nvtx = torch.cuda.is_available()
     with torch.autograd.profiler.record_function(name):
         if nvtx:

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
+from mpi_acx_torch import profiling
 from mpi_acx_torch.device import resolve_device
 from mpi_acx_torch.models import llama as lm
 from mpi_acx_torch.models import moe_transformer as mtf
@@ -471,16 +472,17 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
                                   with_aux=fam.has_aux)
         if fam.has_aux:
             ys, aux = ys
-        ys = fam.final(params, ys)
         tpn = col.axis_size("tp")
         ti = col.axis_index("tp")
         si = col.axis_index("pp")
         blk = S // tpn
-        ys_blk = ys[:, :, ti * blk:(ti + 1) * blk]
-        tg_blk = targets[:, :, ti * blk:(ti + 1) * blk]
-        contrib = (ll_sum(fam.head(params), ys_blk, tg_blk)
-                   if si == n_stages - 1
-                   else ys.new_zeros((), dtype=torch.float32))
+        with profiling.annotate("acx.train.head"):
+            ys = fam.final(params, ys)
+            ys_blk = ys[:, :, ti * blk:(ti + 1) * blk]
+            tg_blk = targets[:, :, ti * blk:(ti + 1) * blk]
+            contrib = (ll_sum(fam.head(params), ys_blk, tg_blk)
+                       if si == n_stages - 1
+                       else ys.new_zeros((), dtype=torch.float32))
         total = col.psum(contrib, ("pp", "tp"))
         if not fam.has_aux:
             return -total / tokens.numel()
@@ -510,10 +512,12 @@ def make_loss_and_grads(cfg, mesh, n_micro: int, n_virtual: int = 1,
         # (collective.tape); a leaf this rank's stage does not read (the
         # embedding past stage 0, the head before the last) gets zeros.
         with col.tape(tokens.device) as tp:
-            loss = tp.sink(loss_fn(live, tokens, targets))
-        flat = torch.autograd.grad(
-            loss, param_leaves(live) + [tp.leaf], allow_unused=True,
-            materialize_grads=True)[:-1]
+            with profiling.annotate("acx.train.forward"):
+                loss = tp.sink(loss_fn(live, tokens, targets))
+        with profiling.annotate("acx.train.backward"):
+            flat = torch.autograd.grad(
+                loss, param_leaves(live) + [tp.leaf], allow_unused=True,
+                materialize_grads=True)[:-1]
         # The JAX step undoes the pp*tp scaling that its loss-assembly
         # psum puts on every cotangent; kept for the same structure.
         group = col.axis_size("pp") * col.axis_size("tp")
@@ -659,7 +663,8 @@ def make_train_step_optim(cfg, mesh, n_micro: int,
         loss, grads = grad_fn(params, tokens, targets)
         for p, g in zip(leaves, param_leaves(grads)):
             p.grad = g
-        optimizer.step()
+        with profiling.annotate("acx.train.optimizer"):
+            optimizer.step()
         for p in leaves:
             p.grad = None
         return loss, params

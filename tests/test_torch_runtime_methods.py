@@ -114,7 +114,7 @@ rt = runtime.Runtime()
 assert ts._fleet_active() == 1
 assert ts._span_app_begin_best_effort(4)
 ts._span_app_end_best_effort()
-assert ts._tseries_annotate_best_effort({{"a": 1}}) is False  # not armed
+assert ts._tseries_annotate_best_effort(ts.RollingSLO()) is False  # unarmed
 cfg = dataclasses.replace(tt.tiny_config(), dtype=torch.float32)
 params = tt.init_params(cfg, seed=0, device="cpu")
 pf, step, sc, ch, k8, sm = ts.make_server_fns(params, cfg, tt)

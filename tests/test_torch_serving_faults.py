@@ -154,7 +154,7 @@ def test_hooks_stay_off_without_the_library(monkeypatch):
         monkeypatch.setenv(knob, "1")
     assert ts._fleet_active() is None
     assert ts._flight_dump_best_effort() is False
-    assert ts._tseries_annotate_best_effort({"a": 1}) is False
+    assert ts._tseries_annotate_best_effort(ts.RollingSLO()) is False
     assert ts._span_app_begin_best_effort(3) is False
     ts._span_app_end_best_effort()
     assert trt._lib is None
