@@ -161,6 +161,28 @@ in the repository. Phases, each of which exits non-zero on failure:
              issued against its device time and profiled into router with
              dispatch and combine, the experts' upcasts, their products,
              K2 and the rest.
+4f. deepseek — (after 4d, its weights freed) DeepSeek-V2-Lite's kernels
+             (ops/mla.py, ops/moe_experts.py; Triton) at the served path's
+             shapes, each held to its plain version: the MLA decode kernel
+             over 64 slots of 4096 (16 heads of 512 + 64, one slot at
+             position 0, one full, ~34k live rows), the MLA prefill kernel
+             (K1 at q/k 192, v 128; S = 161, 1000 and 1024, and B = 2 at
+             S = 333) within TOL_ROW_F32 of their plain versions in f32,
+             and the routed experts
+             (64 tokens, top-6 of 64 experts of 1408) within
+             TOL_EXPERTS_ROW; each timed beside its plain version, SDPA
+             where one call does the same, and its bound. Then the model
+             at its published widths and full depth (15.7 B parameters,
+             seed-0 bf16 weights drawn on the card) serves 64 requests
+             (phase 4's mix, 64 slots of 4096, chunk 4) through
+             serve_greedy after a warm-up call on the same
+             make_server_fns result: every decode step replayed from the
+             captured step, the launches exactly the prefills x 27 (MLA
+             prefill), the steps x 27 (MLA decode) and the prefills x 26
+             (routed experts; a replayed step issues them inside its
+             graph), K1 none, 384 pairs a MoE layer a step (the device
+             counter: none dropped); four requests held to generate's
+             tokens (ties within TIE_DEEPSEEK).
 5. timing  — each kernel, its plain version, the equivalent PyTorch
              library call (where one call computes the same function) and
              the roofline bound at the phase-4 and 4b shapes
@@ -3157,6 +3179,311 @@ def phase_moe(card_str, k2_ms) -> dict:
     return counts
 
 
+# --- phase 4f --------------------------------------------------------------
+
+# The routed experts against their plain version (ops/moe_experts.py): both
+# multiply bf16 operands into f32 sums and round the SwiGLU's h to bf16;
+# the kernel's tensor-core sums run in another order, so some h values
+# round the other way. The row error is the largest |kernel - plain| in a
+# token's output over the plain row's RMS. On the CPU at these widths (16
+# experts), relative noise of 1e-6 and 1e-5 in the gate and up products
+# moves the plain rows by 1.2e-3 and 2.4e-3, and the rounding of h itself
+# moves them by 7.5e-3 from an unrounded f64 run; an H100 reads 3.7e-3.
+# The limit is that rounding's own size, rounded up; a pair dropped or sent
+# to the wrong expert moves its token's row by about 1 / sqrt(k) of its
+# RMS or more.
+TOL_EXPERTS_ROW = 1e-2
+# A served DeepSeek-V2-Lite token that differs from generate's is a tie
+# when the forward pass's logits of the two tokens over the common prefix
+# lie within this: the deepseek-v2-lite.serve-chat cell's max_logit_gap
+# limit (acxbench/workloads), set between bf16's largest gap to an f32
+# reference and float8's smallest.
+TIE_DEEPSEEK = 1.0
+# The MLA kernels are held to their plain version computed in f32 on the
+# same bf16 inputs, within TOL_ROW_F32. Their plain version in bf16 rounds
+# the logits, dot products over 576 (decode) or 192 (prefill) dims, to
+# bf16: at the decode case it strays from f32 by a row error of 8.2e-2
+# itself, farther than the kernel, which keeps them in f32 (1.4e-2; H100).
+# The comparison with it is printed, not held. A dropped key tile reads
+# 0.86-2.1 (phase 2).
+
+
+def check_f32(name, desc, e) -> None:
+    print(f"kernel {name} bfloat16 {desc}: row err {e['row_f32']:.3e} vs f32 "
+          f"plain (tol {TOL_ROW_F32[torch.bfloat16]}); vs bf16 plain: "
+          f"max_abs_err {e['abs']:.3e}, row err {e['row']:.3e}, whose own "
+          f"row err vs f32 is {e['plain_row_f32']:.3e}", flush=True)
+    if not e["row_f32"] <= TOL_ROW_F32[torch.bfloat16]:
+        fail(f"{name} disagrees with its plain version")
+DS_SLOTS, DS_MAX_LEN, DS_CHUNK = 64, 4096, 4
+
+
+def event_ms(fn, iters: int = 5) -> float:
+    """Mean time of one ``fn`` call between two CUDA events, after a warm
+    call: for plain versions that read values back to the host, which a
+    CUDA graph cannot hold."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def ds_kernel_row(name, card_str, desc, t_k, t_p, t_l, flops, nbytes,
+                  library) -> dict:
+    b_ms, b_by = bound_ms(flops, nbytes, torch.bfloat16)
+    print(f"time {name} bf16 {desc}: kernel {t_k:.5f} ms, plain "
+          f"{t_p:.5f} ms, library {library} "
+          f"{'—' if t_l is None else f'{t_l:.5f} ms'}, bound {b_ms:.5f} ms "
+          f"({b_by}) [{card_str}]", flush=True)
+    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def ds_mla_decode(gen, card_str):
+    """The MLA decode kernel at the cell's decode batch: 64 slots of 4096,
+    16 heads of 512 + 64, one slot at position 0, one full, the rest at
+    0-1069 (about 34k live rows)."""
+    import torch.nn.functional as F
+    from mpi_acx_torch.ops import mla
+    B, T, Hs, r, dr = DS_SLOTS, DS_MAX_LEN, 16, 512, 64
+    scale = mla.softmax_scale(192, 40.0, 0.707)
+    q = randn((B, 1, Hs, r + dr), torch.bfloat16, gen)
+    cache = randn((B, T, 1, r + dr), torch.bfloat16, gen)
+    pos = torch.randint(0, 1070, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pos[0], pos[1] = 0, T - 1
+    live = int((pos + 1).sum())
+    out = torch.empty((B, 1, Hs, r), dtype=torch.bfloat16, device="cuda")
+    got = mla.mla_decode_attend(q, cache, pos, scale, r, out=out).clone()
+    want = mla.mla_decode_reference(q, cache, pos, scale, r)
+    want32 = mla.mla_decode_reference(q.float(), cache.float(), pos, scale,
+                                      r)
+    e = errors(got, want, want32, head_dim=r)
+    desc = f"B={B} max_len={T} H={Hs} D={r}+{dr} live={live}"
+    check_f32("mla_decode_attend", desc, e)
+    mask = (torch.arange(T, device="cuda")[None, :]
+            <= pos[:, None])[:, None, None, :]
+    k = cache.transpose(1, 2)
+    t = ds_kernel_row(
+        "mla_decode_attend", card_str, desc,
+        time_ms(lambda: mla.mla_decode_attend(q, cache, pos, scale, r,
+                                              out=out)),
+        time_ms(lambda: mla.mla_decode_reference(q, cache, pos, scale, r),
+                iters=10),
+        time_ms(lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k, k[..., :r], attn_mask=mask, scale=scale),
+            iters=10),
+        2 * Hs * live * (r + dr + r),
+        live * (r + dr) * 2 + B * Hs * (r + dr + r) * 2,
+        "(sdpa over the whole cache, length mask)")
+    return e, t
+
+
+def ds_mla_prefill(gen, card_str):
+    """The MLA prefill kernel (K1 at 192/128) at the cell's prompts: 16
+    heads, B = 1 at S = 161, 1000 and 1024, and B = 2 at S = 333; timed at
+    161 and 1024 (the row's figures are their means)."""
+    import torch.nn.functional as F
+    from mpi_acx_torch.ops import mla
+    Hs, dqk, dv = 16, 192, 128
+    scale = mla.softmax_scale(dqk, 40.0, 0.707)
+    worst, rows = None, []
+    for B, S in ((1, 161), (1, 1000), (1, 1024), (2, 333)):
+        q, k = (randn((B, S, Hs, dqk), torch.bfloat16, gen)
+                for _ in range(2))
+        v = randn((B, S, Hs, dv), torch.bfloat16, gen)
+        got = mla.mla_flash_attention(q, k, v, scale)
+        want = mla.mla_attention_reference(q, k, v, scale)
+        want32 = mla.mla_attention_reference(q.float(), k.float(),
+                                             v.float(), scale)
+        e = errors(got, want, want32, head_dim=dv)
+        desc = f"B={B} S={S} H={Hs} D={dqk}/{dv} causal"
+        check_f32("mla_flash_attention", desc, e)
+        worst = e if worst is None else {
+            key: max(worst[key], e[key]) for key in e}
+        if B > 1 or S == 1000:
+            continue
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        pairs = B * S * (S + 1) // 2
+        rows.append((
+            time_ms(lambda: mla.mla_flash_attention(q, k, v, scale)),
+            time_ms(lambda: mla.mla_attention_reference(q, k, v, scale),
+                    iters=20),
+            time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale), iters=20),
+            2 * Hs * pairs * (dqk + dv),
+            B * S * Hs * (2 * dqk + 2 * dv) * 2))
+        ds_kernel_row("mla_flash_attention", card_str, desc, *rows[-1],
+                      "(sdpa, causal)")
+    mean = np.mean(rows, axis=0)
+    t = ds_kernel_row("mla_flash_attention", card_str, "mean of S = 161 "
+                      "and 1024", *mean, "(sdpa, causal)")
+    return worst, t
+
+
+def ds_routed_experts(gen, card_str):
+    """The routed experts at the cell's decode batch: 64 tokens, top-6 of
+    64 experts of 2048 x 1408, routed by ops/moe_experts.route."""
+    from mpi_acx_torch.ops import moe_experts as mx
+    T, d, E, I, K = DS_SLOTS, 2048, 64, 1408, 6
+    x = randn((T, d), torch.bfloat16, gen)
+    wg, wu = (randn((E, d, I), torch.float32, gen).mul_(0.02).bfloat16()
+              for _ in range(2))
+    wd = randn((E, I, d), torch.float32, gen).mul_(0.02).bfloat16()
+    router = randn((d, E), torch.float32, gen).mul_(0.02).bfloat16()
+    ids, w = mx.route(x, router, K)
+    n = mx.expert_counts(ids, E)
+    got = mx.routed_experts(x, ids, w, n, wg, wu, wd)
+    want = mx.routed_experts_reference(x, ids, w, wg, wu, wd)
+    rms = want.square().mean(-1).sqrt()
+    e = {"abs": (got - want).abs().max().item(),
+         "row": ((got - want).abs().amax(-1) / rms).max().item()}
+    touched = int((n > 0).sum())
+    desc = f"T={T} d={d} E={E} I={I} k={K} touched={touched}"
+    print(f"kernel routed_experts bf16 {desc}: max_abs_err {e['abs']:.3e}, "
+          f"row err {e['row']:.3e} vs plain (tol {TOL_EXPERTS_ROW})",
+          flush=True)
+    if not e["row"] <= TOL_EXPERTS_ROW:
+        fail("routed_experts disagrees with its plain version")
+    t = ds_kernel_row(
+        "routed_experts", card_str, desc,
+        time_ms(lambda: mx.routed_experts(x, ids, w, mx.expert_counts(
+            ids, E), wg, wu, wd)),
+        event_ms(lambda: mx.routed_experts_reference(x, ids, w, wg, wu,
+                                                     wd)),
+        None, T * K * 3 * 2 * d * I, touched * 3 * d * I * 2 + T * d * 2 * 2,
+        "none: no one PyTorch call")
+    return e, t
+
+
+def ds_counts():
+    from mpi_acx_torch.ops import mla, moe_experts as mx
+    return {"mla_flash_attention": mla.mla_flash_attention.launches,
+            "mla_decode_attend": mla.mla_decode_attend.launches,
+            "routed_experts": mx.routed_experts.launches}
+
+
+def ds_reset_counts():
+    from mpi_acx_torch.ops import mla, moe_experts as mx
+    mla.mla_flash_attention.launches = 0
+    mla.mla_decode_attend.launches = 0
+    mx.routed_experts.launches = 0
+    reset_counts()
+
+
+def ds_requests(vocab):
+    """64 requests, one a slot: prompts of 32/128/256/512 tokens asking
+    for 16/64/128/32 new ones (phase 4's mix, four times over)."""
+    rng = np.random.default_rng(5)
+    lens, news = [32, 128, 256, 512], [16, 64, 128, 32]
+    prompts = [rng.integers(0, vocab, lens[i % 4]).astype(np.int32)
+               for i in range(DS_SLOTS)]
+    return prompts, [news[i % 4] for i in range(DS_SLOTS)]
+
+
+def phase_deepseek(card_str):
+    """Phase 4f: DeepSeek-V2-Lite's kernels at the served path's shapes,
+    each held to its plain version, then the model at its published widths
+    and full depth served through serve_greedy. Returns (launch counts,
+    errors, timings) for the kernels line."""
+    from mpi_acx_torch.models import deepseek_v2 as ds, serving
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    bf = torch.bfloat16
+    errs, times = {}, {}
+    for name, fn in (("mla_decode_attend", ds_mla_decode),
+                     ("mla_flash_attention", ds_mla_prefill),
+                     ("routed_experts", ds_routed_experts)):
+        errs[(name, bf)], times[name] = fn(gen, card_str)
+    torch.cuda.empty_cache()
+
+    cfg = ds.deepseek_v2_lite()
+    t0 = time.perf_counter()
+    params = ds.init_params(cfg, seed=0, device="cuda", dtype=bf)
+    torch.cuda.synchronize()
+    def leaves(tree):
+        return ([t for v in tree.values() for t in leaves(v)]
+                if isinstance(tree, dict) else [tree])
+    n_params = sum(t.numel() for t in leaves(params))
+    print(f"params: DeepSeek-V2-Lite, {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.q_head}/"
+          f"{cfg.v_head} over a {cfg.latent}-wide latent row, "
+          f"{cfg.n_experts} experts of {cfg.d_expert} (top-{cfg.top_k}) and "
+          f"{cfg.n_shared} shared, vocab {cfg.vocab}: {n_params / 1e9:.3f} B "
+          f"parameters, {2 * n_params / 1e9:.2f} GB in bf16, drawn on the "
+          f"card from seed 0 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    prompts, n_new = ds_requests(cfg.vocab)
+    kw = dict(n_slots=DS_SLOTS, max_len=DS_MAX_LEN, chunk=DS_CHUNK,
+              family=ds)
+    fns = serving.make_server_fns(params, cfg, ds, chunk=DS_CHUNK)
+    serving.serve_greedy(params, cfg, prompts[:2], 4, server_fns=fns,
+                         **kw)                                 # warm-up
+    gr = fns.slots.cache.graphs
+    before = (gr.captures, gr.eager, gr.replayed)
+    torch.cuda.synchronize()
+    ds_reset_counts()
+    res = serving.serve_greedy(params, cfg, prompts, n_new, server_fns=fns,
+                               **kw)
+    torch.cuda.synchronize()
+    got = ds_counts()
+    got["flash_attention"] = read_counts(("flash_attention",))[
+        "flash_attention"]
+    label = "DeepSeek-V2-Lite serve"
+    check_served(label, res, prompts, n_new, cfg.vocab)
+    captures, eager, replayed = (a - b for a, b in zip(
+        (gr.captures, gr.eager, gr.replayed), before))
+    rc = np.asarray(res.round_counters, dtype=np.int64)  # [rounds+1, Lm, 2]
+    steps = DS_CHUNK * (len(rc) - 1)
+    moe = (rc[-1] - rc[0])
+    print(f"serve {label}: {len(prompts)} requests, {DS_SLOTS} slots, "
+          f"max_len {DS_MAX_LEN}, chunk {DS_CHUNK}: "
+          f"{served_figures(res.metrics)}; decode steps {steps}: replayed "
+          f"{replayed}, eager {eager}, captures {captures}; experts touched "
+          f"{moe[:, 0].sum() / max(steps, 1) / cfg.n_moe:.2f} of "
+          f"{cfg.n_experts} a layer a step, pairs {moe[:, 1].sum()}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"[{card_str}]", flush=True)
+    print(f"launches during {label}: {json.dumps(got)}", flush=True)
+    want = dict(mla_flash_attention=res.metrics.prefills * cfg.n_layers,
+                mla_decode_attend=steps * cfg.n_layers,
+                routed_experts=res.metrics.prefills * cfg.n_moe,
+                flash_attention=0)
+    if (got != want or replayed != steps or eager or captures
+            or (moe[:, 1] != steps * DS_SLOTS * cfg.top_k).any()):
+        fail(f"{label}: launches {got} (want {want}: the prefills x layers, "
+             f"the decode steps x layers, the prefills x MoE layers: a "
+             f"replayed step issues the experts inside its graph), "
+             f"{replayed} of {steps} steps replayed, {eager} eager, "
+             f"{captures} captures, pairs per MoE layer "
+             f"{moe[:, 1].tolist()} (want {steps * DS_SLOTS * cfg.top_k})")
+    # Served tokens against generate's for one request of each length.
+    for rid in range(4):
+        p, o = prompts[rid], np.asarray(res[rid])
+        ref = ds.generate(params, cfg, torch.tensor(p)[None], n_new[rid],
+                          max_len=DS_MAX_LEN)[0].cpu().numpy()
+        if np.array_equal(o, ref):
+            continue
+        i = int(np.argmax(o != ref))
+        lg = ds.forward(params, cfg, torch.tensor(
+            ref[:i], device="cuda")[None])[0, -1]
+        margin = float((lg[ref[i]] - lg[o[i]]).abs())
+        print(f"{label} request {rid}: served and generate part at position "
+              f"{i}, logits {margin:.3e} apart (tie within {TIE_DEEPSEEK})",
+              flush=True)
+        if margin > TIE_DEEPSEEK:
+            fail(f"{label} request {rid}: token {o[i]} against generate's "
+                 f"{ref[i]} at position {i}, logits {margin:.3e} apart")
+    del fns, res, params
+    torch.cuda.empty_cache()
+    return got, errs, times
+
+
 # --- phase 5b --------------------------------------------------------------
 
 TRAIN_M, TRAIN_STEPS, TRAIN_LR = 2, 5, 1e-3
@@ -4561,6 +4888,15 @@ KERNELS = {
     "flash_attention_stream_d128": dict(
         source="mpi_acx_torch/csrc/flash_attention.cu",
         replaces="mpi_acx_tpu/ops/attention.py:269"),
+    "mla_flash_attention": dict(
+        source="mpi_acx_torch/ops/mla.py", route="triton",
+        replaces="none: new for models/deepseek_v2.py"),
+    "mla_decode_attend": dict(
+        source="mpi_acx_torch/ops/mla.py", route="triton",
+        replaces="none: new for models/deepseek_v2.py"),
+    "routed_experts": dict(
+        source="mpi_acx_torch/ops/moe_experts.py", route="triton",
+        replaces="none: new for models/deepseek_v2.py"),
     "pready": dict(source="mpi_acx_torch/csrc/flags.cu",
                    replaces="mpi_acx_tpu/ops/flags.py:76"),
     "pready_many": dict(source="mpi_acx_torch/csrc/flags.cu",
@@ -4622,6 +4958,10 @@ def main() -> int:
     add_counts(counts, llama_counts)
     times.update(llama_times)
     add_counts(counts, phase_moe(card_str, k2["ms"]))
+    c, e, t = phase_deepseek(card_str)
+    add_counts(counts, c)
+    errs.update(e)
+    times.update(t)
 
     c, gpt2_run = phase_train(card_str)
     counts.update(c)
@@ -4645,7 +4985,8 @@ def main() -> int:
     line = []
     for name, meta in KERNELS.items():
         t = times[name]
-        entry = {"name": name, "route": "cuda", "source": meta["source"],
+        entry = {"name": name, "route": meta.get("route", "cuda"),
+                 "source": meta["source"],
                  "replaces": meta["replaces"], "launches": counts[name]}
         if name in flag_errs:
             entry.update(max_abs_err=flag_errs[name]["abs"],

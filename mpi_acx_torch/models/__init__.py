@@ -1,11 +1,13 @@
 """The GPT-2 family (forward, loss, stage slicing), the Llama family's
 serving path (``models.llama``), the MoE family (``models.moe``, the
-layer; ``models.moe_transformer``, the model), the continuous-batching
+layer; ``models.moe_transformer``, the model), the DeepSeek-V2 family
+(``models.deepseek_v2``: latent attention, dropless DeepSeekMoE), the
+continuous-batching
 servers (fixed-slot and paged KV caches, greedy and sampled),
 disaggregated prefill/decode serving (``models.disagg``) and speculative
 decoding (``models.speculative``), in PyTorch. The package-level
-names ``init_params``, ``forward``, ``prefill``... are GPT-2's; the Llama
-and MoE ones live in their modules, which the servers take as
+names ``init_params``, ``forward``, ``prefill``... are GPT-2's; the Llama,
+MoE and DeepSeek-V2 ones live in their modules, which the servers take as
 ``family``.
 
 Exports resolve lazily, so importing the package loads no model module.
@@ -41,11 +43,14 @@ _EXPORTS = {
     "MoeConfig": "moe",
     "MoeTransformerConfig": "moe_transformer",
     "tiny_moe_config": "moe_transformer",
+    "DeepseekV2Config": "deepseek_v2",
+    "deepseek_v2_lite": "deepseek_v2",
+    "tiny_deepseek_v2": "deepseek_v2",
     "speculative_generate": "speculative",
     "speculative_sample": "speculative",
 }
-_SUBMODULES = ("decoding", "disagg", "kvpage", "llama", "moe", "moe_transformer",
-               "serving", "speculative", "transformer")
+_SUBMODULES = ("decoding", "deepseek_v2", "disagg", "kvpage", "llama", "moe",
+               "moe_transformer", "serving", "speculative", "transformer")
 
 
 def __getattr__(name):

@@ -1,8 +1,9 @@
 """Shared decode scaffold (the JAX package's ``models/decoding.py``).
 
 ``transformer.generate`` is :func:`greedy_generate` closed over the
-model's prefill and decode step, and every decode step runs its layers
-through :func:`run_decode_layers`. JAX's ``lax.scan`` loops are Python
+model's prefill and decode step; a family's decode step runs its layers
+through :func:`run_decode_step`, the tp steps through
+:func:`run_decode_layers`. JAX's ``lax.scan`` loops are Python
 loops here, and the KV cache is updated IN PLACE: where the JAX functions
 return new cache arrays, these write the fresh K/V rows into the caller's
 cache tensors with indexed copies and return the same tensors. An int8
@@ -82,10 +83,16 @@ def _write_rows(i, k, v, kc_all, vc_all, ksc_all, vsc_all, pos, slots):
     """Layer i's fresh K/V rows (k/v [B, W, H, D]) written in place at
     each slot's position (clamped to ``max_len - W``), quantized when the
     cache is int8 (``ksc_all`` given). Returns layer i's cache as the
-    decode attention takes it: tensors, or ``(codes, scales)`` pairs."""
+    decode attention takes it: tensors, or ``(codes, scales)`` pairs. A
+    latent cache (``vc_all`` None: one row a token that every head
+    shares, models/deepseek_v2.py) takes ``k`` alone and returns
+    ``(kc_all[i], None)``."""
     B, max_len, W = kc_all.shape[1], kc_all.shape[2], k.shape[1]
     rows = (pos.clamp(0, max_len - W).reshape(-1, 1).expand(B, 1)
             + torch.arange(W, device=k.device))            # [B, W]
+    if vc_all is None:
+        kc_all[i][slots, rows] = k
+        return kc_all[i], None
     if ksc_all is not None:
         k, ks = kv_quant(k)
         v, vs = kv_quant(v)
@@ -139,13 +146,23 @@ class StepParts(NamedTuple):
     * ``attend(q, kc, vc, pos, out=None) -> o``: the decode attention, K2
       on a CUDA tensor, as the family looks it up when called;
     * ``post(lp, x, o) -> x``: the output projection, residual and FFN;
-    * ``head(x) -> logits [B, vocab]`` (f32)."""
+    * ``head(x) -> logits [B, vocab]`` (f32);
+    * ``layers() -> [dict]``: the per-layer parameter dicts the step
+      walks, where the family's layers are not one stacked
+      ``params['layers']`` (layers of more than one kind,
+      models/deepseek_v2.py); ``None`` otherwise. Called only when the
+      step runs eagerly or captures, so a replayed step builds none.
+
+    A latent cache (no ``'v'``: one row a token that every head shares)
+    has ``qkv`` return ``(q, row, None)`` and ``attend`` take ``vc``
+    None."""
 
     embed: Callable
     qkv: Callable
     attend: Callable
     post: Callable
     head: Callable
+    layers: Optional[Callable] = None
 
 
 def run_decode_step(params, cache, token, parts: StepParts, key):
@@ -153,22 +170,15 @@ def run_decode_step(params, cache, token, parts: StepParts, key):
     vocab], cache')``. A slot cache seated by the serve loop
     (:class:`SlotCache`) steps through its :class:`DecodeGraphs`, which
     advances ``pos`` in place and returns that cache; any other cache runs
-    :func:`run_decode_layers` and gets a new dict with ``pos + 1``. ``key``
-    names what a capture rests on besides tensors (the config, the FFN)."""
+    the same segments eagerly and gets a new dict that shares the updated
+    tensors and carries ``pos + 1``. ``key`` names what a capture rests
+    on besides tensors (the config, the FFN)."""
     graphs = getattr(cache, "graphs", None)
     if graphs is not None:
         return graphs.step(params, cache, token, parts, key)
-    x = parts.embed(token, cache["pos"])
-
-    def attend_fn(lp, x, q, kc, vc, pos):
-        return parts.post(lp, x, parts.attend(q, kc, vc, pos))
-
-    with profiling.annotate("acx.model.layers"):
-        x, out = run_decode_layers(params["layers"], x, cache, parts.qkv,
-                                   attend_fn)
-    with profiling.annotate("acx.model.head"):
-        logits = parts.head(x)
-    return logits, out
+    out = dict(cache)
+    out["pos"] = cache["pos"].clone()
+    return _eager(_step_layers(params, parts), out, token, parts)[0], out
 
 
 class SlotCache(dict):
@@ -187,6 +197,26 @@ def _layers(layers):
     return [{name: a[i] for name, a in layers.items()} for i in range(n)]
 
 
+def _step_layers(params, parts):
+    """The per-layer parameter dicts a step walks."""
+    if parts.layers is not None:
+        return parts.layers()
+    return _layers(params["layers"])
+
+
+def _eager(lps, cache, tok, parts):
+    """The segments of :class:`DecodeGraphs` and their K2 calls in order,
+    eagerly: (logits, the last K2 output); advances ``pos`` in place."""
+    x = o = None
+    with profiling.annotate("acx.model.layers"):
+        for i in range(len(lps)):
+            x, q = _segment(parts, lps, cache, i, tok, x, o)
+            o = parts.attend(q, *_layer_cache(cache, i), cache["pos"])
+    with profiling.annotate("acx.model.head"):
+        logits = _segment(parts, lps, cache, len(lps), tok, x, o)[1]
+    return logits, o
+
+
 def _ptrs(tree):
     """The data pointers of a dict tree of tensors, in its order."""
     if isinstance(tree, dict):
@@ -196,6 +226,8 @@ def _ptrs(tree):
 
 def _layer_cache(cache, i):
     """Layer i of a cache dict as the decode attention takes it."""
+    if "v" not in cache:
+        return cache["k"][i], None
     if "ks" in cache:
         return ((cache["k"][i], cache["ks"][i]),
                 (cache["v"][i], cache["vs"][i]))
@@ -214,7 +246,7 @@ def _segment(parts, lps, cache, i, tok, x, o):
         return x, logits
     q, k, v = parts.qkv(lps[i], x, pos)
     slots = torch.arange(cache["k"].shape[1], device=x.device)[:, None]
-    _write_rows(i, k, v, cache["k"], cache["v"], cache.get("ks"),
+    _write_rows(i, k, v, cache["k"], cache.get("v"), cache.get("ks"),
                 cache.get("vs"), pos, slots)
     return x, q
 
@@ -258,8 +290,8 @@ class DecodeGraphs:
         with torch.no_grad():
             if not cache["k"].is_cuda:
                 self.eager += 1
-                return self._eager(_layers(params["layers"]), cache, token,
-                                   parts)[0], cache
+                return _eager(_step_layers(params, parts), cache, token,
+                              parts)[0], cache
             key = (key, _ptrs(params), _ptrs(cache), token.shape,
                    token.dtype)
             if key != self._key:
@@ -277,30 +309,18 @@ class DecodeGraphs:
             self.replayed += 1
             return io.y[-1], cache
 
-    def _eager(self, lps, cache, tok, parts):
-        """The segments and K2 calls in order: (logits, the last K2
-        output)."""
-        x = o = None
-        with profiling.annotate("acx.model.layers"):
-            for i in range(len(lps)):
-                x, q = _segment(parts, lps, cache, i, tok, x, o)
-                o = parts.attend(q, *_layer_cache(cache, i), cache["pos"])
-        with profiling.annotate("acx.model.head"):
-            logits = _segment(parts, lps, cache, len(lps), tok, x, o)[1]
-        return logits, o
-
     def _warm_and_capture(self, params, cache, token, parts, key):
         """The warm step, then the capture of every segment; returns the
         warm step's logits."""
         self.drop()
-        lps = _layers(params["layers"])
+        lps = _step_layers(params, parts)
         dev = token.device
         cur = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             try:
-                logits, o = self._eager(lps, cache, token, parts)
+                logits, o = _eager(lps, cache, token, parts)
                 self.eager += 1
                 io = SimpleNamespace(
                     tok=token.clone(), o=torch.empty_like(o), y=[],

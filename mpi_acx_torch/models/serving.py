@@ -164,7 +164,12 @@ def _count_reasons(rejections) -> Dict[str, int]:
 
 class ServedBatch(list):
     """serve_greedy result: a plain list of per-request ``prompt +
-    generated`` arrays carrying the batch telemetry as ``.metrics``."""
+    generated`` arrays carrying the batch telemetry as ``.metrics``. A
+    call over a slot cache that keeps device-side step counters
+    (``'counts'``, cumulative; models/deepseek_v2.py: per MoE layer, the
+    experts touched and the pairs routed) also carries
+    ``.round_counters``: their value at the call's start and after each
+    decode round, read back once at the call's end."""
 
     def __init__(self, outputs, metrics: ServingMetrics):
         super().__init__(outputs)
@@ -390,7 +395,8 @@ def make_server_fns(params, cfg, family, chunk: int = 1,
     module (models.transformer, models.llama or models.moe_transformer, or
     any module exposing prefill/decode_step/init_kv_cache with the shared
     cache layout: [L, B, max_len, heads, Dh] per key, where Llama's heads
-    are its KV groups).
+    are its KV groups, or a latent cache whose 'k' [L, B, max_len, 1,
+    row] stands alone, as models.deepseek_v2's).
 
     ``chunk`` > 1 runs that many decode steps per host round trip,
     returning the [chunk, B] token block; the scheduler then reacts every
@@ -559,6 +565,8 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
                                                kv_int8=kv_int8, device=dev))
 
     slots = fresh_slots()
+    counter_log = ([slots["counts"].clone()] if "counts" in slots
+                   else None)
     queue = deque((rid, np.asarray(p, np.int32))
                   for rid, p in enumerate(prompts) if rid not in rejected)
     for depth, (rid, _p) in enumerate(queue):
@@ -710,6 +718,8 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
                     with profiling.annotate("acx.serve.issue"):
                         slots, toks = step_fn(
                             slots, torch.from_numpy(last_tok).to(dev), keys)
+                        if counter_log is not None:
+                            counter_log.append(slots["counts"].clone())
                     with profiling.annotate("acx.serve.wait"):
                         block = toks.cpu().numpy()   # [chunk, B]; syncs
                 except Exception as exc:  # noqa: BLE001 — any device failure
@@ -769,12 +779,15 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
 
         if any(d is None for d in done):
             raise RuntimeError("scheduler exited with unfinished requests")
-        return ServedBatch(done, _batch_metrics(
+        batch = ServedBatch(done, _batch_metrics(
             prompts, rejected, emitted, ttft, finish, attempts, t0,
             itl_samples, qd_samples, occ_samples, steps=n_steps,
             prefills=n_prefills, requeues=n_requeues,
             peer_requeues=n_peer_requeues, slots_shed=fleet.shed,
             slots_revived=fleet.revived, hang_dumps=n_hang_dumps))
+        if counter_log is not None:
+            batch.round_counters = torch.stack(counter_log).tolist()
+        return batch
 
 
 def _batch_metrics(prompts, rejected, emitted, ttft, finish, attempts, t0,
@@ -828,7 +841,8 @@ def serve_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
     the parameters must already be there). Each request decodes greedily
     for ``n_new`` tokens (an int, or one per request) or until ``eos``.
     ``family`` is the model module (``None`` means models.transformer;
-    models.llama and models.moe_transformer serve their families; keep an
+    models.llama, models.moe_transformer and models.deepseek_v2 serve
+    their families; keep an
     MoE config's ``capacity_factor >= n_experts``, or a decode step may
     drop a token its solo run seats). Returns, per request, ``prompt +
     generated`` as a numpy array — equal to that request's solo
@@ -956,6 +970,9 @@ def serve_paged_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
     dev = resolve_device(device)
     if family is None:
         from mpi_acx_torch.models import transformer as family  # noqa: N813
+    if getattr(family, "LATENT_CACHE", False):
+        raise ValueError(f"serve_paged_greedy: {family.__name__} keeps a "
+                         f"latent cache, which is not served from pages")
     family.check_device(params, dev)
     n_new = _normalize_requests(prompts, n_new)
     pt = page_tokens or kvpage.default_page_tokens(max_len)
