@@ -66,9 +66,12 @@ in the repository. Phases, each of which exits non-zero on failure:
              call, K1's wrapper must copy no operand.
 4. serve   — GPT-2 124M in bf16, 16 requests through 8 slots (max_len
              1024, chunk 8): every request gets its tokens, tokens/s, TTFT
-             and ITL are printed, and both kernels must have launched. The
-             same requests then go through the plain versions, held to the
-             kernel path's tokens and logits as in phase 3.
+             and ITL are printed, and both kernels must have launched;
+             every prefill seated in its slot, replayed from the captured
+             pass of its bucket, the first of the call run eagerly, one
+             capture a bucket (PREFILL_COUNTS). The same requests then go
+             through the plain versions, held to the kernel path's tokens
+             and logits as in phase 3.
 4b. paged  — the same requests through serve_paged_greedy (128-token
              pages): (a) tokens equal to phase 4's exactly, through B9;
              (b) int8 caches, fixed-slot through K2's int8 form and paged
@@ -114,8 +117,8 @@ in the repository. Phases, each of which exits non-zero on failure:
              same requests through the plain versions (ties within
              TIE_LLAMA; with bf16 KV the kernel path's logits no farther
              from an f32 forward of the same weights than the plain
-             path's), K1's launches exactly the prefills x 32 layers;
-             tokens/s, TTFT, ITL, the D = 128 kernels timed at the path's
+             path's), K1's launches exactly the prefills x 32 layers, the
+             prefills counted as phase 4's; tokens/s, TTFT, ITL, the D = 128 kernels timed at the path's
              shapes (with the split rule's A/B and K1's CTA sizes there),
              and a decode step issued against its device time. In the f32
              run also speculative decoding (k = 4, 4 rows of 128 tokens, 64
@@ -156,7 +159,8 @@ in the repository. Phases, each of which exits non-zero on failure:
              decisions apart counted and the kernel path's logits no
              farther from an f32 forward of the same weights than the
              plain path's), K1's launches exactly the prefills x 12
-             layers, K2 launched in the cache's form alone; tokens/s,
+             layers, K2 launched in the cache's form alone, the prefills
+             counted as phase 4's; tokens/s,
              TTFT, ITL, and a decode step
              issued against its device time and profiled into router with
              dispatch and combine, the experts' upcasts, their products,
@@ -176,11 +180,13 @@ in the repository. Phases, each of which exits non-zero on failure:
              seed-0 bf16 weights drawn on the card) serves 64 requests
              (phase 4's mix, 64 slots of 4096, chunk 4) through
              serve_greedy after a warm-up call on the same
-             make_server_fns result: every decode step replayed from the
-             captured step, the launches exactly the prefills x 27 (MLA
-             prefill), the steps x 27 (MLA decode) and the prefills x 26
-             (routed experts; a replayed step issues them inside its
-             graph), K1 none, 384 pairs a MoE layer a step (the device
+             make_server_fns result that serves one prompt of each length:
+             every decode step and every prefill replayed from the
+             captured ones, none captured or run eagerly, the launches
+             exactly the prefills x 27 (MLA prefill), the steps x 27 (MLA
+             decode) and the prefills run eagerly or captured in the call
+             x 26 (routed experts, here 0: a replayed step or prefill
+             issues them inside its graph), K1 none, 384 pairs a MoE layer a step (the device
              counter: none dropped); four requests held to generate's
              tokens (ties within TIE_DEEPSEEK).
 5. timing  — each kernel, its plain version, the equivalent PyTorch
@@ -1415,6 +1421,33 @@ def read_counts(names=None):
             if names is None or name in names}
 
 
+def prefill_counts(fns):
+    """The counters of the prefills served through ``fns``' slot cache
+    (decoding.PrefillGraphs): (replayed, eager, captures)."""
+    pg = fns.slots.cache.prefills
+    return pg.replayed, pg.eager, pg.captures
+
+
+def check_prefills(label, fns, prefills, before=(0, 0, 0), warm=False):
+    """The prefills of a serve call through ``fns``, whose counters read
+    ``before`` as it started: every one seated and replayed from its
+    bucket's capture; with a fresh slot cache the first run eagerly, one
+    capture a bucket; after a warm-up (``warm``) that served every bucket,
+    none run eagerly or captured. Returns (replayed, eager, captures) in
+    the call."""
+    pg = fns.slots.cache.prefills
+    got = tuple(a - b for a, b in zip(prefill_counts(fns), before))
+    print(f"{label}: prefills {prefills}: replayed {got[0]}, eager "
+          f"{got[1]}, captures {got[2]}; by bucket since the slot cache was "
+          f"drawn {json.dumps(pg.buckets)}", flush=True)
+    want = ((prefills, 0, 0) if warm else
+            (prefills - 1, 1, len(pg.buckets)))
+    if got != want:
+        fail(f"{label}: prefills replayed, eager, captured {got}, want "
+             f"{want}")
+    return got
+
+
 def forward_logits(fam, params, cfg, toks):
     """The family's forward logits (the MoE family's forward also returns
     its router losses)."""
@@ -1666,14 +1699,16 @@ def phase_serve(params16, card_str):
     # Warm-up: library load, cuBLAS handles and allocator pools.
     serving.serve_greedy(params16, cfg, prompts[:2], 4, n_slots=8,
                          max_len=1024, chunk=8)
+    fns = serving.make_server_fns(params16, cfg, tfm, chunk=8)
     torch.cuda.synchronize()
     reset_counts()
     res = serving.serve_greedy(params16, cfg, prompts, n_new, n_slots=8,
-                               max_len=1024, chunk=8)
+                               max_len=1024, chunk=8, server_fns=fns)
     torch.cuda.synchronize()
     counts = read_counts(("flash_attention", "flash_decode_attend"))
     check_no_copies("bf16 serve")
     check_served("bf16 serve", res, prompts, n_new, cfg.vocab)
+    check_prefills("bf16 serve", fns, res.metrics.prefills)
     print(f"serve bf16 GPT-2 124M: 16 requests, 8 slots, max_len 1024, "
           f"chunk 8: {served_figures(res.metrics)} [{card_str}]", flush=True)
     print(f"launches during serve: {json.dumps(counts)}", flush=True)
@@ -2345,14 +2380,18 @@ def phase_llama(card_str):
     counts, greedy = {}, {}
     for int8 in (False, True):
         label = f"Llama-3-8B serve {'int8' if int8 else 'bf16'} KV"
+        fns = serving.make_server_fns(params, cfg, llama, chunk=8,
+                                      kv_int8=int8)
         torch.cuda.synchronize()
         reset_counts()
         res = serving.serve_greedy(params, cfg, prompts, n_new,
-                                   kv_int8=int8, **kw)
+                                   kv_int8=int8, server_fns=fns, **kw)
         torch.cuda.synchronize()
         got = read_counts(names)
         check_no_copies(label)
         check_served(label, res, prompts, n_new, cfg.vocab)
+        check_prefills(label, fns, res.metrics.prefills)
+        del fns
         print(f"serve {label}: 16 requests, 8 slots, max_len 1024, chunk 8: "
               f"{served_figures(res.metrics)} [{card_str}]", flush=True)
         print(f"launches during {label}: {json.dumps(got)}", flush=True)
@@ -3138,14 +3177,18 @@ def phase_moe(card_str, k2_ms) -> dict:
         label = f"MoE serve {'int8' if int8 else 'bf16'} KV"
         forms = ("flash_decode_attend", "flash_decode_attend_int8")
         k2, other = forms[::-1] if int8 else forms
+        fns = serving.make_server_fns(params, cfg, mtf, chunk=8,
+                                      kv_int8=int8)
         torch.cuda.synchronize()
         reset_counts()
         res = serving.serve_greedy(params, cfg, prompts, n_new,
-                                   kv_int8=int8, **kw)
+                                   kv_int8=int8, server_fns=fns, **kw)
         torch.cuda.synchronize()
         got = read_counts(("flash_attention", k2, other))
         check_no_copies(label)
         check_served(label, res, prompts, n_new, cfg.vocab)
+        check_prefills(label, fns, res.metrics.prefills)
+        del fns
         print(f"serve {label}: 16 requests, 8 slots, max_len 1024, chunk 8: "
               f"{served_figures(res.metrics)} [{card_str}]", flush=True)
         print(f"launches during {label}: {json.dumps(got)}", flush=True)
@@ -3422,10 +3465,12 @@ def phase_deepseek(card_str):
     kw = dict(n_slots=DS_SLOTS, max_len=DS_MAX_LEN, chunk=DS_CHUNK,
               family=ds)
     fns = serving.make_server_fns(params, cfg, ds, chunk=DS_CHUNK)
-    serving.serve_greedy(params, cfg, prompts[:2], 4, server_fns=fns,
-                         **kw)                                 # warm-up
+    # Warm-up: one prompt of each length, so every bucket is captured.
+    serving.serve_greedy(params, cfg, prompts[:4], [4] * 4, server_fns=fns,
+                         **kw)
     gr = fns.slots.cache.graphs
     before = (gr.captures, gr.eager, gr.replayed)
+    before_prefills = prefill_counts(fns)
     torch.cuda.synchronize()
     ds_reset_counts()
     res = serving.serve_greedy(params, cfg, prompts, n_new, server_fns=fns,
@@ -3436,6 +3481,8 @@ def phase_deepseek(card_str):
         "flash_attention"]
     label = "DeepSeek-V2-Lite serve"
     check_served(label, res, prompts, n_new, cfg.vocab)
+    _, p_eager, p_captures = check_prefills(
+        label, fns, res.metrics.prefills, before_prefills, warm=True)
     captures, eager, replayed = (a - b for a, b in zip(
         (gr.captures, gr.eager, gr.replayed), before))
     rc = np.asarray(res.round_counters, dtype=np.int64)  # [rounds+1, Lm, 2]
@@ -3452,13 +3499,14 @@ def phase_deepseek(card_str):
     print(f"launches during {label}: {json.dumps(got)}", flush=True)
     want = dict(mla_flash_attention=res.metrics.prefills * cfg.n_layers,
                 mla_decode_attend=steps * cfg.n_layers,
-                routed_experts=res.metrics.prefills * cfg.n_moe,
+                routed_experts=(p_eager + p_captures) * cfg.n_moe,
                 flash_attention=0)
     if (got != want or replayed != steps or eager or captures
             or (moe[:, 1] != steps * DS_SLOTS * cfg.top_k).any()):
         fail(f"{label}: launches {got} (want {want}: the prefills x layers, "
-             f"the decode steps x layers, the prefills x MoE layers: a "
-             f"replayed step issues the experts inside its graph), "
+             f"the decode steps x layers, the prefills run eagerly or "
+             f"captured x MoE layers: a replayed step or prefill issues the "
+             f"experts inside its graph), "
              f"{replayed} of {steps} steps replayed, {eager} eager, "
              f"{captures} captures, pairs per MoE layer "
              f"{moe[:, 1].tolist()} (want {steps * DS_SLOTS * cfg.top_k})")

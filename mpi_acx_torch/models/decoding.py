@@ -22,6 +22,7 @@ forms it.
 
 from __future__ import annotations
 
+import contextlib
 from types import SimpleNamespace
 from typing import Callable, NamedTuple, Optional
 
@@ -90,6 +91,12 @@ def _write_rows(i, k, v, kc_all, vc_all, ksc_all, vsc_all, pos, slots):
     B, max_len, W = kc_all.shape[1], kc_all.shape[2], k.shape[1]
     rows = (pos.clamp(0, max_len - W).reshape(-1, 1).expand(B, 1)
             + torch.arange(W, device=k.device))            # [B, W]
+    return _put_rows(i, k, v, kc_all, vc_all, ksc_all, vsc_all, slots, rows)
+
+
+def _put_rows(i, k, v, kc_all, vc_all, ksc_all, vsc_all, slots, rows):
+    """:func:`_write_rows` at given rows: k/v [B, W, H, D] land in layer
+    i at ``[slots, rows]`` (index tensors broadcasting to [B, W])."""
     if vc_all is None:
         kc_all[i][slots, rows] = k
         return kc_all[i], None
@@ -183,13 +190,20 @@ def run_decode_step(params, cache, token, parts: StepParts, key):
 
 class SlotCache(dict):
     """A dense slot cache as the serve loop seats it (models/serving.py):
-    the cache dict, ``pos`` [B] one position a slot, and ``graphs``, the
-    capture state of the decode step over it. Any other cache is a plain
-    dict and decodes eagerly."""
+    the cache dict, ``pos`` [B] one position a slot, ``graphs``, the
+    capture state of the decode step over it, and ``prefills``, that of
+    the prompt passes into its slots. Any other cache is a plain dict and
+    decodes eagerly."""
 
     def __init__(self, cache):
         super().__init__(cache)
         self.graphs = DecodeGraphs()
+        self.prefills = PrefillGraphs()
+
+    def drop_captures(self) -> None:
+        """Forget the decode and prefill captures (after a failure)."""
+        self.graphs.drop()
+        self.prefills.drop()
 
 
 def _layers(layers):
@@ -251,7 +265,59 @@ def _segment(parts, lps, cache, i, tok, x, o):
     return x, q
 
 
-class DecodeGraphs:
+class _Captures:
+    """What :class:`DecodeGraphs` and :class:`PrefillGraphs` share: the
+    counters ``replayed``, ``eager`` and ``captures``, the key a capture
+    rests on, and the capture of a pass's segments on a side stream."""
+
+    def __init__(self):
+        self.replayed = self.eager = self.captures = 0
+        self._side = None
+        self.drop()
+
+    @staticmethod
+    def _key_of(key, params, cache, t):
+        """What a capture rests on: the family's ``key``, the parameters'
+        and the cache's pointers and the input's dtype."""
+        return (key, _ptrs(params), _ptrs(cache), t.dtype)
+
+    @contextlib.contextmanager
+    def _on_side(self, dev):
+        """The block on the side stream, after what the current stream
+        holds, and the current stream after the block; yields the current
+        stream."""
+        cur = torch.cuda.current_stream(dev)
+        if self._side is None:
+            self._side = torch.cuda.Stream(dev)
+        self._side.wait_stream(cur)
+        try:
+            with torch.cuda.stream(self._side):
+                yield cur
+        finally:
+            cur.wait_stream(self._side)
+
+    @staticmethod
+    def _capture_segments(n, segment):
+        """CUDA graphs of ``segment(i, x) -> (x, y)`` for i = 0..n-1, each
+        fed the x of the one before, in a memory pool of their own:
+        (graphs, the y of each)."""
+        # The graphs replay in the order they were captured, so one may
+        # reuse pool memory an earlier one is done with.
+        pool = torch.cuda.graph_pool_handle()
+        graphs, ys, x = [], [], None
+        for i in range(n):
+            g = torch.cuda.CUDAGraph()
+            g.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                x, y = segment(i, x)
+            finally:
+                g.capture_end()
+            graphs.append(g)
+            ys.append(y)
+        return graphs, ys
+
+
+class DecodeGraphs(_Captures):
     """The decode step over one served slot cache, replayed from CUDA
     graphs between its K2 calls, and how often that engaged.
 
@@ -276,10 +342,6 @@ class DecodeGraphs:
     ``captures`` count the steps replayed, the steps run eagerly and the
     captures made."""
 
-    def __init__(self):
-        self.replayed = self.eager = self.captures = 0
-        self.drop()
-
     def drop(self) -> None:
         """Forget the capture: the next step on CUDA captures anew."""
         self._key = None
@@ -292,8 +354,7 @@ class DecodeGraphs:
                 self.eager += 1
                 return _eager(_step_layers(params, parts), cache, token,
                               parts)[0], cache
-            key = (key, _ptrs(params), _ptrs(cache), token.shape,
-                   token.dtype)
+            key = self._key_of((key, token.shape), params, cache, token)
             if key != self._key:
                 return self._warm_and_capture(params, cache, token, parts,
                                               key), cache
@@ -314,39 +375,244 @@ class DecodeGraphs:
         warm step's logits."""
         self.drop()
         lps = _step_layers(params, parts)
-        dev = token.device
-        cur = torch.cuda.current_stream(dev)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            try:
-                logits, o = _eager(lps, cache, token, parts)
-                self.eager += 1
-                io = SimpleNamespace(
-                    tok=token.clone(), o=torch.empty_like(o), y=[],
-                    kv=[_layer_cache(cache, i) for i in range(len(lps))])
-                # The graphs replay in the order they were captured, so
-                # one may reuse pool memory an earlier one is done with.
-                pool = torch.cuda.graph_pool_handle()
-                graphs, x = [], None
-                for i in range(len(lps) + 1):
-                    g = torch.cuda.CUDAGraph()
-                    g.capture_begin(pool=pool,
-                                    capture_error_mode="thread_local")
-                    try:
-                        x, y = _segment(parts, lps, cache, i, io.tok, x,
-                                        io.o)
-                    finally:
-                        g.capture_end()
-                    graphs.append(g)
-                    io.y.append(y)
-            finally:
-                cur.wait_stream(side)
+        with self._on_side(token.device) as cur:
+            logits, o = _eager(lps, cache, token, parts)
+            self.eager += 1
+            io = SimpleNamespace(
+                tok=token.clone(), o=torch.empty_like(o),
+                kv=[_layer_cache(cache, i) for i in range(len(lps))])
+            graphs, io.y = self._capture_segments(
+                len(lps) + 1, lambda i, x: _segment(parts, lps, cache, i,
+                                                    io.tok, x, io.o))
         for t in (logits, io.tok, io.o):
             t.record_stream(cur)
         self._graphs, self._io, self._key = graphs, io, key
         self.captures += 1
         return logits
+
+
+# -- the prompt pass ---------------------------------------------------------
+
+
+class PrefillParts(NamedTuple):
+    """A family's prompt pass in the pieces :func:`run_prefill` runs:
+
+    * ``embed(tokens [B, S]) -> x [B, S, d]``;
+    * ``qkv(lp, x) -> ((q, k, v), (k_row, v_row))``: the prefill
+      attention's operands and the layer's cache rows ``[B, S, Hkv, D]``
+      (``v_row`` None for a latent cache, whose rows are ``[B, S, 1,
+      row]``);
+    * ``attend(q, k, v, out=None) -> o [B, S, H, Dv]``: the prefill
+      attention, K1 on a CUDA tensor, as the family looks it up when
+      called;
+    * ``post(lp, x, o) -> x``: the output projection, residual and FFN;
+    * ``head(x, last) -> logits [B, *, vocab]`` (f32): the final norm,
+      then :func:`last_rows`, then the unembedding;
+    * ``layers``: as :class:`StepParts`'."""
+
+    embed: Callable
+    qkv: Callable
+    attend: Callable
+    post: Callable
+    head: Callable
+    layers: Optional[Callable] = None
+
+
+def run_prefill(params, tokens, parts: PrefillParts, key, init_cache,
+                last_only: bool = False, last_index: Optional[int] = None,
+                seat=None):
+    """A family's prompt pass from its ``parts``: tokens [B, S] ->
+    (logits [B, S, vocab] f32, cache). ``last_only`` unembeds the final
+    row alone, ``last_index`` that row instead.
+
+    Without ``seat`` the rows land at positions 0..S-1 of a fresh cache,
+    ``init_cache()``, whose ``pos`` becomes S. ``seat = (slot cache, b)``
+    (B = 1) lands them in slot b of the serve loop's cache instead,
+    leaving its ``pos`` to the caller, unembeds one row (the final one
+    unless ``last_index``) and returns that cache; a :class:`SlotCache`
+    runs the pass through its :class:`PrefillGraphs`, which replays it
+    on the GPU. ``key`` names what a capture rests on besides tensors
+    (the config, the FFN)."""
+    S, dev = tokens.shape[1], tokens.device
+    last = last_index if last_index is not None else (
+        S - 1 if last_only or seat is not None else None)
+    if seat is None:
+        cache = init_cache()
+        slots = torch.arange(tokens.shape[0], device=dev)[:, None]
+    else:
+        cache, b = seat
+        graphs = getattr(cache, "prefills", None)
+        if graphs is not None:
+            return graphs.run(params, cache, b, tokens, last, parts,
+                              key), cache
+        slots = torch.full((1, 1), b, device=dev)
+    with torch.no_grad():
+        logits = _prefill_eager(_step_layers(params, parts), cache, slots,
+                                tokens, last, parts)[0]
+    if seat is None:
+        cache["pos"] = torch.full((), S, dtype=torch.int32, device=dev)
+    return logits, cache
+
+
+def last_rows(x, last):
+    """The rows of x [B, S, d] a prompt pass unembeds: row ``last`` (an
+    int, or a [1] int64 tensor, as a replayed pass holds it) or every row
+    (None) -> [B, 1 or S, d]. (The tensor indexes as the embedding
+    lookup does, a kernel already loaded.)"""
+    if last is None:
+        return x
+    if isinstance(last, int):
+        return x[:, last:last + 1]
+    return x[:, last]
+
+
+def _prefill_eager(lps, cache, slots, tokens, last, parts):
+    """The segments of :class:`PrefillGraphs` and their attention calls in
+    order, eagerly: (logits, the last attention's operands, its
+    output)."""
+    x = o = None
+    for i in range(len(lps)):
+        x, ops = _prefill_segment(parts, lps, cache, i, tokens, x, o, slots,
+                                  last)
+        o = parts.attend(*ops)
+    logits = _prefill_segment(parts, lps, cache, len(lps), tokens, x, o,
+                              slots, last)[1]
+    return logits, ops, o
+
+
+def _prefill_segment(parts, lps, cache, i, tokens, x, o, slots, last,
+                     ops_out=None):
+    """Segment i of the prompt pass: from layer i-1's attention output
+    ``o`` (or the tokens, for i = 0) to ``(x, (q, k, v))``, layer i's
+    attention operands (copied into ``ops_out`` when given), its cache
+    rows written at positions 0..S-1 of ``slots`` ([B, 1]); or ``(x,
+    logits)`` for i = L."""
+    x = parts.embed(tokens) if i == 0 else parts.post(lps[i - 1], x, o)
+    if i == len(lps):
+        return x, parts.head(x, last)
+    ops, (k, v) = parts.qkv(lps[i], x)
+    rows = torch.arange(k.shape[1], device=k.device)[None]
+    _put_rows(i, k, v, cache["k"], cache.get("v"), cache.get("ks"),
+              cache.get("vs"), slots, rows)
+    if ops_out is not None:
+        for buf, t in zip(ops_out, ops):
+            buf.copy_(t)
+        ops = ops_out
+    return x, ops
+
+
+class PrefillGraphs(_Captures):
+    """The prompt passes into one served slot cache, replayed from CUDA
+    graphs between their prefill-attention calls, one capture per prompt
+    length (the serve loop's power-of-two bucket), and how often that
+    engaged.
+
+    A pass splits at its L attention calls into L + 1 segments as the
+    decode step does (:class:`DecodeGraphs`): segment 0 is the embedding
+    and layer 0's norm, QKV and cache write; segment i (0 < i < L) is
+    layer i-1's output projection, residual and FFN, then layer i's; the
+    last is the final norm and the unembedding of the row ``last``. Each
+    layer's rows land straight in the seated slot, positions 0..S-1
+    (rows past the prompt lie past the slot's ``pos`` and are never
+    attended). The attention (K1) runs eagerly between the segments on
+    static operand buffers, through the family's ``attend`` as it is
+    looked up at each call, into the static buffer the next segment
+    reads.
+
+    On a CUDA cache the first pass of a length captures each segment
+    into a CUDA graph on a side stream, in a memory pool of the length's
+    own (never the decode step's), and replays them; later passes copy
+    the tokens in, fill the one-element buffers of the row ``last`` and
+    the slot, and replay. The first capture since :meth:`drop` follows a
+    warm pass, the segments run eagerly on the side stream (whose
+    results are the pass's): it makes what the libraries make at their
+    first call on a stream, and gives the operands' shapes, which then
+    scale with the length. The returned logits are a buffer the next
+    pass overwrites. Captures hold while the parameters, the cache and
+    the family's ``key`` stay the same; :meth:`drop` forgets them. On a
+    CPU cache every pass runs the segments eagerly, in the same order.
+    ``replayed``, ``eager`` and ``captures`` count the passes replayed,
+    run eagerly and the lengths captured; ``buckets`` the same by prompt
+    length."""
+
+    def __init__(self):
+        self.buckets = {}
+        super().__init__()
+
+    def drop(self) -> None:
+        """Forget every capture: the next pass of each length on CUDA
+        captures anew, the first after a warm pass."""
+        self._key = None
+        self._caps = {}
+        self._shapes = None
+
+    def _count(self, bucket, what):
+        setattr(self, what, getattr(self, what) + 1)
+        n = self.buckets.setdefault(
+            bucket, dict(replayed=0, eager=0, captures=0))
+        n[what] += 1
+
+    def run(self, params, cache, slot, tokens, last, parts: PrefillParts,
+            key):
+        """The pass of ``tokens`` [1, S] into slot ``slot``: logits [1, 1,
+        vocab] of row ``last``."""
+        S, dev = tokens.shape[1], tokens.device
+        with torch.no_grad():
+            if not cache["k"].is_cuda:
+                self._count(S, "eager")
+                return _prefill_eager(
+                    _step_layers(params, parts), cache,
+                    torch.full((1, 1), slot, device=dev), tokens, last,
+                    parts)[0]
+            key = self._key_of(key, params, cache, tokens)
+            if key != self._key:
+                self.drop()
+                self._key = key
+            io = self._caps.get(S)
+            if io is None:
+                io, logits = self._capture(params, cache, slot, tokens, last,
+                                           parts)
+                if logits is not None:
+                    return logits
+            io.tok.copy_(tokens)
+            io.slot.fill_(slot)
+            io.last.fill_(last)
+            for g in io.graphs[:-1]:
+                g.replay()
+                parts.attend(*io.ops, out=io.o)
+            io.graphs[-1].replay()
+            self._count(S, "replayed")
+            return io.logits
+
+    def _capture(self, params, cache, slot, tokens, last, parts):
+        """The capture of every segment of a pass of this length, after
+        the warm pass where one is due: ``(io, the warm pass's logits or
+        None)``."""
+        S, dev = tokens.shape[1], tokens.device
+        lps = _step_layers(params, parts)
+        logits = None
+        with self._on_side(dev) as cur:
+            io = SimpleNamespace(tok=tokens.clone(),
+                                 slot=torch.full((1, 1), slot, device=dev),
+                                 last=torch.full((1,), last, device=dev))
+            if self._shapes is None:
+                logits, ops, o = _prefill_eager(lps, cache, io.slot, io.tok,
+                                                io.last, parts)
+                self._count(S, "eager")
+                self._shapes = [(t.shape[2:], t.dtype) for t in (*ops, o)]
+            *io.ops, io.o = (torch.empty((1, S) + tail, dtype=dt, device=dev)
+                             for tail, dt in self._shapes)
+            io.graphs, ys = self._capture_segments(
+                len(lps) + 1, lambda i, x: _prefill_segment(
+                    parts, lps, cache, i, io.tok, x, io.o, io.slot, io.last,
+                    io.ops))
+            io.logits = ys[-1]
+        for t in (io.tok, io.slot, io.last, io.o, *io.ops) + (
+                () if logits is None else (logits,)):
+            t.record_stream(cur)
+        self._caps[S] = io
+        self._count(S, "captures")
+        return io, logits
 
 
 def _decode_loop(prefill_fn, decode_fn, prompt, n_new, max_seq, max_len,

@@ -64,8 +64,9 @@ import torch.nn.functional as F
 
 from mpi_acx_torch import profiling
 from mpi_acx_torch.device import resolve_device
-from mpi_acx_torch.models.decoding import (StepParts, greedy_generate,
-                                           run_decode_step)
+from mpi_acx_torch.models.decoding import (PrefillParts, StepParts,
+                                           greedy_generate, last_rows,
+                                           run_decode_step, run_prefill)
 from mpi_acx_torch.models.llama import rmsnorm
 from mpi_acx_torch.models.transformer import _unembed, check_device
 from mpi_acx_torch.ops.mla import mla_decode_attend, softmax_scale
@@ -291,20 +292,27 @@ def _q_and_row(cfg: DeepseekV2Config, lp: Params, x, positions):
     return q, torch.cat([c, k_pe], dim=-1)
 
 
-def _attend_prefill(cfg: DeepseekV2Config, lp: Params, q, row):
-    """The non-absorbed form: per-head K ``[k_nope, k_pe]`` (192) and V
-    (128) from the rows, causal attention through ``select_attention``
-    (looked up at the call) -> ``[B, S, H * v_head]``."""
-    B, S = q.shape[:2]
+def _prefill_kv(cfg: DeepseekV2Config, lp: Params, row):
+    """The non-absorbed form's per-head K ``[k_nope, k_pe]`` (192) and V
+    (128) from the rows ``[B, S, 576]``."""
+    B, S = row.shape[:2]
     H = cfg.n_heads
+    kv = (row[..., :cfg.kv_lora] @ lp["w_kv_b"].to(row.dtype)).reshape(
+        B, S, H, cfg.qk_nope + cfg.v_head)
+    k_pe = row[..., None, cfg.kv_lora:].expand(B, S, H, cfg.qk_rope)
+    return (torch.cat([kv[..., :cfg.qk_nope], k_pe], dim=-1),
+            kv[..., cfg.qk_nope:])
+
+
+def _attend_prefill(cfg: DeepseekV2Config, lp: Params, q, row):
+    """The non-absorbed form (:func:`_prefill_kv`), causal attention
+    through ``select_attention`` (looked up at the call) -> ``[B, S, H *
+    v_head]``."""
+    B, S = q.shape[:2]
     with profiling.annotate("acx.model.mla"):
-        kv = (row[..., :cfg.kv_lora] @ lp["w_kv_b"].to(q.dtype)).reshape(
-            B, S, H, cfg.qk_nope + cfg.v_head)
-        k_pe = row[..., None, cfg.kv_lora:].expand(B, S, H, cfg.qk_rope)
-        k = torch.cat([kv[..., :cfg.qk_nope], k_pe], dim=-1)
-        v = kv[..., cfg.qk_nope:]
+        k, v = _prefill_kv(cfg, lp, row)
         o = select_attention(None)(q, k, v, cfg.scale)
-    return o.reshape(B, S, H * cfg.v_head)
+    return o.reshape(B, S, cfg.n_heads * cfg.v_head)
 
 
 def _absorbed(cfg: DeepseekV2Config, lp: Params):
@@ -381,10 +389,9 @@ def _check_len(S, cfg: DeepseekV2Config, max_len=None):
                                              f" or max_len {max_len}"))
 
 
-def _trunk(params: Params, cfg: DeepseekV2Config, tokens, rows=None):
+def _trunk(params: Params, cfg: DeepseekV2Config, tokens):
     """tokens ``[B, S]`` -> final-normed hidden states ``[B, S, d]`` in
-    ``cfg.dtype``; each layer's cached rows appended to ``rows`` when
-    given."""
+    ``cfg.dtype``."""
     S = tokens.shape[1]
     x = params["embed"][tokens].to(cfg.dtype)
     positions = torch.arange(S, device=x.device)
@@ -393,8 +400,6 @@ def _trunk(params: Params, cfg: DeepseekV2Config, tokens, rows=None):
         q, row = _q_and_row(cfg, lp, x, positions)
         x = x + _attend_prefill(cfg, lp, q, row) @ lp["wo"].to(x.dtype)
         x = _ffn(cfg, lp, x)
-        if rows is not None:
-            rows.append(row)
     return rmsnorm(x, params["final_norm"], cfg.rms_eps)
 
 
@@ -428,27 +433,53 @@ def init_kv_cache(cfg: DeepseekV2Config, batch: int, max_len: int,
 
 def prefill(params: Params, cfg: DeepseekV2Config, tokens, max_len: int,
             last_only: bool = False, kv_int8: bool = False,
-            last_index: Optional[int] = None):
+            last_index: Optional[int] = None, seat=None):
     """Prompt pass filling a fresh latent cache (:func:`init_kv_cache`):
     tokens ``[B, S]`` -> (logits ``[B, S, vocab]`` f32, cache with pos =
     S). ``last_only`` unembeds the final position alone, ``last_index``
-    that position instead (bucket-padded serving prompts)."""
+    that position instead (bucket-padded serving prompts). ``seat`` lands
+    the rows in a slot of the serve loop's cache, the pass replayed from
+    CUDA graphs between its attention calls on the GPU
+    (``decoding.run_prefill``)."""
     with profiling.annotate("acx.model.prefill"):
         B, S = tokens.shape
         _check_len(S, cfg, max_len)
-        cache = init_kv_cache(cfg, B, max_len, kv_int8=kv_int8,
-                              device=tokens.device)
-        rows = []
-        x = _trunk(params, cfg, tokens, rows)
-        if last_index is not None:
-            x = x[:, last_index:last_index + 1]
-        elif last_only:
-            x = x[:, -1:]
-        logits = _unembed(x, params["unembed"])
-        cache["k"][:, :, :S, 0] = torch.stack(rows)
-        cache["pos"] = torch.full((), S, dtype=torch.int32,
-                                  device=tokens.device)
-        return logits, cache
+        return run_prefill(
+            params, tokens, _prefill_parts(params, cfg), cfg,
+            lambda: init_kv_cache(cfg, B, max_len, kv_int8,
+                                  device=tokens.device),
+            last_only, last_index, seat)
+
+
+def _prefill_parts(params: Params, cfg: DeepseekV2Config) -> PrefillParts:
+    """The prompt pass's pieces (``decoding.PrefillParts``): the
+    non-absorbed form's operands and one latent row a token to cache."""
+    def embed(tokens):
+        return params["embed"][tokens].to(cfg.dtype)
+
+    def qkv(lp, x):
+        positions = torch.arange(x.shape[1], device=x.device)
+        q, row = _q_and_row(cfg, lp, x, positions)
+        with profiling.annotate("acx.model.mla"):
+            k, v = _prefill_kv(cfg, lp, row)
+        return (q, k, v), (row[:, :, None, :], None)
+
+    def attend(q, k, v, out=None):
+        return select_attention(None)(q, k, v, cfg.scale, out=out)
+
+    def post(lp, x, o):
+        B, S = x.shape[:2]
+        o = o.reshape(B, S, cfg.n_heads * cfg.v_head)
+        return _ffn(cfg, lp, x + o @ lp["wo"].to(x.dtype))
+
+    def head(x, last):
+        x = rmsnorm(x, params["final_norm"], cfg.rms_eps)
+        return _unembed(last_rows(x, last), params["unembed"])
+
+    def layers():
+        return [_layer(params, cfg, i) for i in range(cfg.n_layers)]
+
+    return PrefillParts(embed, qkv, attend, post, head, layers)
 
 
 def grouped_decode_attend(q, kc, pos, scale: float, kv_lora: int,

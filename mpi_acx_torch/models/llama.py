@@ -31,10 +31,11 @@ import torch.nn.functional as F
 
 from mpi_acx_torch import profiling
 from mpi_acx_torch.device import resolve_device
-from mpi_acx_torch.models.decoding import (StepParts, fill_kv_cache,
+from mpi_acx_torch.models.decoding import (PrefillParts, StepParts,
                                            greedy_generate,
-                                           grouped_decode_attend,
-                                           run_decode_step, sample_generate)
+                                           grouped_decode_attend, last_rows,
+                                           run_decode_step, run_prefill,
+                                           sample_generate)
 # The JAX tree's converter and the device check are GPT-2's, leaf for leaf
 # (re-exported under the JAX package's names).
 from mpi_acx_torch.models.transformer import (  # noqa: F401
@@ -286,37 +287,53 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
 
 def prefill(params: Params, cfg: LlamaConfig, tokens, max_len: int,
             last_only: bool = False, kv_int8: bool = False,
-            last_index: Optional[int] = None):
+            last_index: Optional[int] = None, seat=None):
     """Prompt pass filling a fresh KV cache (layout: :func:`init_kv_cache`).
 
     tokens [B, S] -> (logits [B, S, vocab] f32, cache with pos=S). Prefill
     attention runs on the exact K/V; with ``kv_int8`` only the cache
     entries are quantized. With ``last_only`` the unembedding runs on the
     final position alone; ``last_index`` picks that position instead (for
-    bucket-padded serving prompts, models/serving.py)."""
+    bucket-padded serving prompts, models/serving.py). ``seat`` lands the
+    rows in a slot of the serve loop's cache, the pass replayed from CUDA
+    graphs between its K1 calls on the GPU, as ``transformer.prefill``
+    says."""
     with profiling.annotate("acx.model.prefill"):
         B, S = tokens.shape
         _check_len(S, cfg, max_len)
-        x = params["embed"][tokens].to(cfg.dtype)
-        positions = torch.arange(S, device=x.device)
-        ks, vs = [], []
-        for i in range(cfg.n_layers):
-            lp = _layer(params, i)
-            q, k, v = _qkv(cfg, lp, x, positions)
-            x = x + _attend(cfg, q, k, v) @ wread(lp, "wo", x.dtype)
-            x = _mlp(cfg, lp, x)
-            ks.append(k)
-            vs.append(v)
+        return run_prefill(
+            params, tokens, _prefill_parts(params, cfg), cfg,
+            lambda: init_kv_cache(cfg, B, max_len, kv_int8,
+                                  device=tokens.device),
+            last_only, last_index, seat)
+
+
+def _prefill_parts(params: Params, cfg: LlamaConfig) -> PrefillParts:
+    """The prompt pass's pieces (``decoding.PrefillParts``): K/V cached as
+    their KV groups, broadcast to the query heads for K1."""
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+
+    def embed(tokens):
+        return params["embed"][tokens].to(cfg.dtype)
+
+    def qkv(lp, x):
+        positions = torch.arange(x.shape[1], device=x.device)
+        q, k, v = _qkv(cfg, lp, x, positions)
+        return (q, _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)), (k, v)
+
+    def attend(q, k, v, out=None):
+        return select_attention(cfg.use_flash)(q, k, v, out=out)
+
+    def post(lp, x, o):
+        B, S = x.shape[:2]
+        o = o.reshape(B, S, cfg.n_heads * cfg.head_dim)
+        return _mlp(cfg, lp, x + o @ wread(lp, "wo", x.dtype))
+
+    def head(x, last):
         x = rmsnorm(x, params["final_norm"])
-        if last_index is not None:
-            x = x[:, last_index:last_index + 1]
-        elif last_only:
-            x = x[:, -1:]
-        logits = _unembed(x, params["unembed"])
-        cache = fill_kv_cache(
-            init_kv_cache(cfg, B, max_len, kv_int8=kv_int8, device=x.device),
-            torch.stack(ks), torch.stack(vs), S)
-        return logits, cache
+        return _unembed(last_rows(x, last), params["unembed"])
+
+    return PrefillParts(embed, qkv, attend, post, head)
 
 
 def _step_parts(params: Params, cfg: LlamaConfig, max_len: int

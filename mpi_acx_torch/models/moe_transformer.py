@@ -248,11 +248,13 @@ def init_kv_cache(cfg: MoeTransformerConfig, batch: int, max_len: int,
 
 def prefill(params: Params, cfg: MoeTransformerConfig, tokens,
             max_len: int, last_only: bool = False, kv_int8: bool = False,
-            last_index: Optional[int] = None):
-    """GPT-2's prefill with the routed FFN: the router's dispatch group is
-    the B * S prompt rows, padding included, as in :func:`forward`."""
+            last_index: Optional[int] = None, seat=None):
+    """GPT-2's prefill with the routed FFN (``seat`` as there): the
+    router's dispatch group is the B * S prompt rows, padding included, as
+    in :func:`forward`."""
     return tfm.prefill(params, cfg, tokens, max_len, last_only,
-                       ffn=_moe_ffn, kv_int8=kv_int8, last_index=last_index)
+                       ffn=_moe_ffn, kv_int8=kv_int8, last_index=last_index,
+                       seat=seat)
 
 
 def decode_step(params: Params, cfg: MoeTransformerConfig, cache, token):

@@ -14,8 +14,11 @@ them).
 Slot caches are bf16/f32 or int8 (``kv_int8``, ops/kvquant.py), seated
 as ``decoding.SlotCache``: on the GPU the decode step over one replays
 from CUDA graphs between its K2 calls, captured once per slot cache
-(``decoding.DecodeGraphs``), and a :func:`make_server_fns` result reused
-across calls keeps the cache and the capture.
+(``decoding.DecodeGraphs``), and the prefill of a :func:`make_server_fns`
+result writes a prompt's rows straight into its slot, replayed from CUDA
+graphs between its K1 calls, captured once per bucket
+(``decoding.PrefillGraphs``); a result reused across calls keeps the cache
+and the captures.
 :func:`serve_sample` samples (temperature / top-k / top-p) where
 :func:`serve_greedy` takes the argmax: request ``rid`` draws from its own
 generator, seeded ``decoding.fold_in(key, rid)``, so its tokens equal its
@@ -393,10 +396,11 @@ def make_server_fns(params, cfg, family, chunk: int = 1,
     step; the trailing values let the serve call refuse a tuple built for
     another chunk, cache type or sampling setting. ``family`` is the model
     module (models.transformer, models.llama or models.moe_transformer, or
-    any module exposing prefill/decode_step/init_kv_cache with the shared
-    cache layout: [L, B, max_len, heads, Dh] per key, where Llama's heads
-    are its KV groups, or a latent cache whose 'k' [L, B, max_len, 1,
-    row] stands alone, as models.deepseek_v2's).
+    any module exposing prefill (with ``seat``, ``decoding.run_prefill``),
+    decode_step and init_kv_cache with the shared cache layout: [L, B,
+    max_len, heads, Dh] per key, where Llama's heads are its KV groups, or
+    a latent cache whose 'k' [L, B, max_len, 1, row] stands alone, as
+    models.deepseek_v2's).
 
     ``chunk`` > 1 runs that many decode steps per host round trip,
     returning the [chunk, B] token block; the scheduler then reacts every
@@ -411,11 +415,13 @@ def make_server_fns(params, cfg, family, chunk: int = 1,
     every step, as a solo ``sample_generate`` run with that generator
     does."""
 
-    def prefill_fn(tokens, last):
+    def prefill_fn(tokens, last, seat=None):
         """[1, S_bucket], real last index -> (logits [1, 1, vocab],
-        cache); the unembedding runs on the real prompt's final row."""
+        cache); the unembedding runs on the real prompt's final row. With
+        ``seat = (slot cache, b)`` the rows land in slot b of the serve
+        loop's cache, which is the cache returned."""
         return family.prefill(params, cfg, tokens, tokens.shape[1],
-                              kv_int8=kv_int8, last_index=last)
+                              kv_int8=kv_int8, last_index=last, seat=seat)
 
     if sample_cfg is None:
         def pick(logits, keys):
@@ -461,7 +467,9 @@ def make_server_fns(params, cfg, family, chunk: int = 1,
 class ServerFns(tuple):
     """:func:`make_server_fns`' result: the tuple ``(prefill_fn, step_fn,
     scatter_fn, chunk, kv_int8, sample_cfg)``, with ``slots``, the
-    :class:`OwnedSlots` its serve calls decode in (one call at a time)."""
+    :class:`OwnedSlots` its serve calls decode in (one call at a time).
+    The serve loop hands its ``prefill_fn`` the target slot (``seat=``);
+    a plain tuple's gets the tokens and the last index alone."""
 
 
 class OwnedSlots:
@@ -469,7 +477,7 @@ class OwnedSlots:
     first serve call for its ``(n_slots, max_len, device)``, then handed to
     each later call with ``pos`` reset to 0, neither drawn anew nor zeroed
     (rows past a slot's position are never read), and with it the decode
-    step's capture state (``decoding.SlotCache``)."""
+    step's and the prefills' capture state (``decoding.SlotCache``)."""
 
     def __init__(self, family, cfg, kv_int8: bool):
         self.family, self.cfg, self.kv_int8 = family, cfg, kv_int8
@@ -479,7 +487,7 @@ class OwnedSlots:
     def seat(self, n_slots: int, max_len: int, dev,
              rebuild: bool = False) -> SlotCache:
         """The slot cache for a call, ``pos`` at 0; ``rebuild`` drops its
-        capture (after a failed step)."""
+        captures (after a failed step)."""
         if self._shape != (n_slots, max_len, dev):
             self.cache = None       # free the old cache before the new one
             self.cache = seat_slots(self.family.init_kv_cache(
@@ -487,7 +495,7 @@ class OwnedSlots:
                 device=dev))
             self._shape = (n_slots, max_len, dev)
         elif rebuild:
-            self.cache.graphs.drop()
+            self.cache.drop_captures()
         self.cache["pos"].zero_()
         return self.cache
 
@@ -557,6 +565,7 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
                          f"({fns_sample} vs {sample_cfg})")
 
     owned = getattr(server_fns, "slots", None)
+    seated = isinstance(server_fns, ServerFns)
 
     def fresh_slots(rebuild=False):
         if owned is not None:
@@ -632,8 +641,14 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
             reqlog.emit("prefill_start", rid, prompt_len=S,
                         bucket=padded.shape[1])
             try:
-                logits, one = prefill_fn(torch.from_numpy(padded).to(dev),
-                                         S - 1)
+                tokens = torch.from_numpy(padded).to(dev)
+                if seated:      # the pass writes its rows into slot b
+                    logits, one = prefill_fn(tokens, S - 1, seat=(slots, b))
+                    if one is not slots:
+                        raise TypeError("a seated prefill returned another "
+                                        "cache than the slot cache")
+                else:
+                    logits, one = prefill_fn(tokens, S - 1)
                 with profiling.annotate("acx.serve.first_token"):
                     if sample_cfg is None:
                         first = int(logits[0, 0].argmax())
@@ -642,8 +657,14 @@ def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
                         first = int(sample_logits(
                             logits[0, 0][None].float(), keys[b],
                             *sample_cfg)[0])
-                slots = scatter_fn(slots, one, b, S)
+                if seated:
+                    slots["pos"][b] = S
+                else:
+                    slots = scatter_fn(slots, one, b, S)
             except Exception as exc:  # noqa: BLE001 — any device failure
+                # A failed pass may have left a capture half made.
+                if isinstance(slots, SlotCache):
+                    slots.drop_captures()
                 _requeue(rid, prompt, exc, charge=not _peer_dead(exc))
                 return False
             finally:

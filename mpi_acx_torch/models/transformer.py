@@ -26,10 +26,11 @@ import torch.nn.functional as F
 
 from mpi_acx_torch import profiling
 from mpi_acx_torch.device import on_device, resolve_device
-from mpi_acx_torch.models.decoding import (StepParts, fill_kv_cache,
+from mpi_acx_torch.models.decoding import (PrefillParts, StepParts,
                                            greedy_generate,
-                                           grouped_decode_attend,
-                                           run_decode_step, sample_generate)
+                                           grouped_decode_attend, last_rows,
+                                           run_decode_step, run_prefill,
+                                           sample_generate)
 from mpi_acx_torch.ops.attention import select_attention
 from mpi_acx_torch.ops.wquant import wread
 from mpi_acx_torch.ops.xent import chunked_xent_ll
@@ -255,7 +256,7 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
 
 def prefill(params: Params, cfg: TransformerConfig, tokens, max_len: int,
             last_only: bool = False, ffn=None, kv_int8: bool = False,
-            last_index: Optional[int] = None):
+            last_index: Optional[int] = None, seat=None):
     """Run the prompt through the model, filling a fresh KV cache.
 
     tokens [B, S] -> (logits [B, S, vocab] f32, cache with pos=S). With
@@ -266,32 +267,46 @@ def prefill(params: Params, cfg: TransformerConfig, tokens, max_len: int,
     family runs this scaffold with its routed FFN
     (models/moe_transformer.py). ``kv_int8`` selects the int8 cache:
     attention runs on the exact K/V and only the cache entries are
-    quantized."""
+    quantized. ``seat = (slot cache, b)``, the serve loop's, writes the
+    rows into slot b of that cache instead and returns it, the pass
+    replayed from CUDA graphs between its K1 calls on the GPU
+    (``decoding.run_prefill``, ``decoding.PrefillGraphs``)."""
     with profiling.annotate("acx.model.prefill"):
-        ffn = ffn or _mlp
         B, S = tokens.shape
         if S > max_len or S > cfg.max_seq:
             raise ValueError(f"prompt length {S} exceeds max_len {max_len} or "
                              f"max_seq {cfg.max_seq}")
-        x = (params["embed"][tokens] + params["pos"][:S]).to(cfg.dtype)
-        ks, vs = [], []
-        for i in range(cfg.n_layers):
-            lp = _layer(params, i)
-            q, k, v = _qkv(cfg, lp, x)
-            x = x + _attend(cfg, q, k, v) @ wread(lp, "wo", x.dtype)
-            x = ffn(cfg, lp, x)
-            ks.append(k)
-            vs.append(v)
+        return run_prefill(
+            params, tokens, _prefill_parts(params, cfg, ffn or _mlp),
+            (cfg, ffn), lambda: init_kv_cache(cfg, B, max_len, kv_int8,
+                                              device=tokens.device),
+            last_only, last_index, seat)
+
+
+def _prefill_parts(params: Params, cfg: TransformerConfig,
+                   ffn) -> PrefillParts:
+    """The prompt pass's pieces (``decoding.PrefillParts``)."""
+    def embed(tokens):
+        S = tokens.shape[1]
+        return (params["embed"][tokens] + params["pos"][:S]).to(cfg.dtype)
+
+    def qkv(lp, x):
+        q, k, v = _qkv(cfg, lp, x)
+        return (q, k, v), (k, v)
+
+    def attend(q, k, v, out=None):
+        return select_attention(cfg.use_flash)(q, k, v, out=out)
+
+    def post(lp, x, o):
+        B, S = x.shape[:2]
+        o = o.reshape(B, S, cfg.d_model)
+        return ffn(cfg, lp, x + o @ wread(lp, "wo", x.dtype))
+
+    def head(x, last):
         x = layernorm(x, params["lnf_g"], params["lnf_b"])
-        if last_index is not None:
-            x = x[:, last_index:last_index + 1]
-        elif last_only:
-            x = x[:, -1:]
-        logits = _unembed(x, params["embed"])
-        cache = fill_kv_cache(
-            init_kv_cache(cfg, B, max_len, kv_int8=kv_int8, device=x.device),
-            torch.stack(ks), torch.stack(vs), S)
-        return logits, cache
+        return _unembed(last_rows(x, last), params["embed"])
+
+    return PrefillParts(embed, qkv, attend, post, head)
 
 
 def _step_parts(params: Params, cfg: TransformerConfig, max_len: int,

@@ -51,10 +51,10 @@ STREAM_MIN_SK = 16384   # streaming=None turns the streaming entry on here
 TMA_ALIGN = 16      # bytes: TMA's granule for base addresses and strides
 
 
-def attention_reference(q, k, v, causal: bool = True):
+def attention_reference(q, k, v, causal: bool = True, out=None):
     """Dense-mask attention, [B, S, H, D] layout; f32 softmax. Ground
     truth for the kernel's numerics (and the CPU path of
-    :func:`flash_attention`)."""
+    :func:`flash_attention`). Written into ``out`` when given."""
     d = q.shape[-1]
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(d)
     if causal:
@@ -62,7 +62,8 @@ def attention_reference(q, k, v, causal: bool = True):
         mask = torch.ones(s_q, s_k, dtype=torch.bool, device=q.device).tril()
         logits = logits.masked_fill(~mask, _NEG_INF)
     p = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v)
+    return o if out is None else out.copy_(o)
 
 
 def _reference_lse(q, k, v, causal: bool = True):
@@ -241,14 +242,15 @@ def check_head_dim(name, D):
                          f"{', '.join(map(str, HEAD_DIMS))}, got {D}")
 
 
-def _launch(q, k, v, causal, emit_lse, name="flash_attention"):
+def _launch(q, k, v, causal, emit_lse, name="flash_attention", out=None):
     """One launch of K1 on CUDA tensors: ``o``, and with ``emit_lse`` the
     row logsumexp (B10) -> ``(o, lse)``. The bf16 kernel reads q, k, v by
     TMA: an operand that :func:`tma_ready` refuses is copied to a fresh
     contiguous tensor first, counted in ``flash_attention.copies`` (over
     all three entry points). ``name`` is the entry point, named in what
-    :func:`check_head_dim` raises. Raises on what the kernel does not take
-    and on a failed launch."""
+    :func:`check_head_dim` raises; ``o`` is ``out`` when given ([B, S, H,
+    D] in q's dtype, rows of H * D contiguous elements). Raises on what
+    the kernel does not take and on a failed launch."""
     B, S, H, D = q.shape
     Sk = k.shape[1]
     check_head_dim(name, D)
@@ -270,7 +272,14 @@ def _launch(q, k, v, causal, emit_lse, name="flash_attention"):
                 flash_attention.copies += 1
             ops.append(x)
         q, k, v = ops
-    out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    if out is None:
+        out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    elif (out.shape != (B, S, H, D) or out.dtype != q.dtype
+          or out.device != q.device or out.stride()[2:] != (D, 1)):
+        raise ValueError(f"flash_attention: out {tuple(out.shape)} "
+                         f"{out.dtype} with "
+                         f"strides {tuple(out.stride())} is no [B, S, H, D] "
+                         f"{q.dtype} tensor with contiguous rows")
     st = _build.strides(*tma_strides(q), *tma_strides(k), *tma_strides(v),
                         out.stride(0), out.stride(1))
     stream = _build.stream_handle(q.device)
@@ -298,27 +307,34 @@ def _to_bhsd(*xs):
     return tuple(x.transpose(1, 2) for x in xs)
 
 
+def _flash_forward(q, k, v, causal, streaming, out=None):
+    """B6/B7's forward: K1 on a CUDA tensor, counted by entry and head
+    dim, its plain version on a CPU tensor; into ``out`` when given."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, causal=causal, out=out)
+    if streaming:
+        o, _ = _launch(q, k, v, causal, False,
+                       "flash_attention(streaming=True)", out=out)
+        if q.shape[-1] == 128:
+            flash_attention.launches_stream_d128 += 1
+        else:
+            flash_attention.launches_stream += 1
+    else:
+        o, _ = _launch(q, k, v, causal, emit_lse=False, out=out)
+        if q.shape[-1] == 128:
+            flash_attention.launches_d128 += 1
+        else:
+            flash_attention.launches += 1
+    return o
+
+
 class _Flash(torch.autograd.Function):
     """B6/B7 forward (K1, or the plain version on the CPU) and the
     blockwise backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, block_q, block_k, streaming):
-        if q.device.type == "cpu":
-            o = attention_reference(q, k, v, causal=causal)
-        elif streaming:
-            o, _ = _launch(q, k, v, causal, False,
-                           "flash_attention(streaming=True)")
-            if q.shape[-1] == 128:
-                flash_attention.launches_stream_d128 += 1
-            else:
-                flash_attention.launches_stream += 1
-        else:
-            o, _ = _launch(q, k, v, causal, emit_lse=False)
-            if q.shape[-1] == 128:
-                flash_attention.launches_d128 += 1
-            else:
-                flash_attention.launches += 1
+        o = _flash_forward(q, k, v, causal, streaming)
         ctx.save_for_backward(q, k, v, o)
         ctx.blocks = (causal, block_q, block_k)
         return o
@@ -365,7 +381,8 @@ class _FlashLse(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
-                    block_k: int = 512, streaming: bool | None = None):
+                    block_k: int = 512, streaming: bool | None = None,
+                    out=None):
     """Flash attention, [B, S, H, D] in and out; differentiable.
 
     On a CUDA tensor K1 runs: B6, or with ``streaming`` the streaming
@@ -376,10 +393,18 @@ def flash_attention(q, k, v, causal: bool = True, block_q: int = 512,
     takes any Sk. Any S works (the kernel masks the ragged tails).
     float32 runs in true f32, bfloat16 with f32 softmax state. On a CPU
     tensor this is :func:`attention_reference`. The gradient is the
-    blockwise backward over ``block_q``/``block_k``."""
+    blockwise backward over ``block_q``/``block_k``. ``out`` (a [B, S, H,
+    D] tensor in q's dtype with contiguous rows) receives the result of a
+    call that takes no gradient: the captured prefill
+    (models/decoding.py) hands each layer's call one static buffer."""
     _check_inputs(q, k, v, causal)
     if streaming is None:
         streaming = k.shape[1] >= STREAM_MIN_SK
+    if out is not None:
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise ValueError("flash_attention: out= takes no gradient")
+        return _flash_forward(q, k, v, causal, bool(streaming), out)
     bq, bk = _backward_blocks(q.shape[1], k.shape[1], block_q, block_k)
     return _Flash.apply(q, k, v, causal, bq, bk, bool(streaming))
 

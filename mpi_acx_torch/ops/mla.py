@@ -181,26 +181,31 @@ def _kernels():
 # -- prefill: the non-absorbed form -----------------------------------------
 
 
-def mla_attention_reference(q, k, v, scale: float, causal: bool = True):
+def mla_attention_reference(q, k, v, scale: float, causal: bool = True,
+                            out=None):
     """Plain causal attention with a value width of its own: q, k ``[B, S,
     H, Dqk]``, v ``[B, S, H, Dv]`` -> ``[B, S, H, Dv]`` in q's dtype; the
-    logits times ``scale`` and the softmax in f32."""
+    logits times ``scale`` and the softmax in f32. Written into ``out``
+    when given."""
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
     if causal:
         S, Sk = q.shape[1], k.shape[1]
         mask = torch.ones(S, Sk, dtype=torch.bool, device=q.device).tril()
         logits = logits.masked_fill(~mask, float("-inf"))
     p = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v)
+    return o if out is None else out.copy_(o)
 
 
-def mla_flash_attention(q, k, v, scale: float, causal: bool = True):
+def mla_flash_attention(q, k, v, scale: float, causal: bool = True,
+                        out=None):
     """Causal attention of the non-absorbed form (K1 at 192/128): q, k
     ``[B, S, H, 192]``, v ``[B, S, H, 128]``, bf16, each with unit stride
-    in its last dimension -> ``[B, S, H, 128]``. On a CPU tensor this is
-    :func:`mla_attention_reference`."""
+    in its last dimension -> ``[B, S, H, 128]``, written into ``out`` when
+    given (the captured prefill's static buffer, models/decoding.py). On a
+    CPU tensor this is :func:`mla_attention_reference`."""
     if q.device.type == "cpu":
-        return mla_attention_reference(q, k, v, scale, causal)
+        return mla_attention_reference(q, k, v, scale, causal, out=out)
     B, S, H, D = q.shape
     if not causal:
         raise ValueError("mla_flash_attention: the kernel is causal")
@@ -216,7 +221,13 @@ def mla_flash_attention(q, k, v, scale: float, causal: bool = True):
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("mla_flash_attention: the last dimension must have "
                          "unit stride")
-    out = torch.empty((B, S, H, DV), dtype=q.dtype, device=q.device)
+    if out is None:
+        out = torch.empty((B, S, H, DV), dtype=q.dtype, device=q.device)
+    elif (out.shape != (B, S, H, DV) or out.dtype != q.dtype
+          or out.device != q.device or out.stride(-1) != 1):
+        raise ValueError(f"mla_flash_attention: out {tuple(out.shape)} "
+                         f"{out.dtype} is no [B, S, H, {DV}] bf16 tensor "
+                         f"with unit stride in its last dimension")
     kern = _kernels()["prefill"]
     grid = (_cdiv(S, 64), B * H)
     kern[grid](q, k, v, out, *q.stride()[:3], *k.stride()[:3],
