@@ -59,20 +59,18 @@ from __future__ import annotations
 import atexit
 import os
 import time
-from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from mpi_acx_torch import reqlog
-from mpi_acx_torch.device import resolve_device
+from mpi_acx_torch import profiling, reqlog
 from mpi_acx_torch.models.serving import (
-    RequestTelemetry, RollingSLO, ServedBatch, ServingMetrics,
-    _bucket, _flight_dump_best_effort, _normalize_requests, _pct,
-    _peer_dead, _span_app_begin_best_effort, _span_app_end_best_effort,
-    _tseries_annotate_best_effort, _tseries_lib, make_server_fns)
+    ServedBatch, ServingMetrics, _family_on, _FixedSlots, _Loop,
+    _PagedSlots, _flight_dump_best_effort, _padded, _pct, _peer_dead,
+    _server_fns, _span_app_begin_best_effort, _span_app_end_best_effort,
+    seat_slots)
 from mpi_acx_torch.parallel.kv_ship import (DESC_FIN_TAG, DESC_HDR_TAG,
                                             KvReceiver, KvShipper)
 
@@ -143,36 +141,14 @@ class DisaggMetrics(ServingMetrics):
     handoff_pickup_p50_s: float = 0.0
 
 
-def _finish_handoff_metrics(m: DisaggMetrics) -> DisaggMetrics:
-    m.handoff_prefill_p50_s = _pct([h.prefill_s for h in m.handoffs], 0.5)
-    m.handoff_ship_p50_s = _pct([h.ship_s for h in m.handoffs], 0.5)
-    m.handoff_pickup_p50_s = _pct([h.pickup_s for h in m.handoffs], 0.5)
-    return m
-
-
-def _disagg_metrics(rids, emitted, ttft, finish, attempts, t0, itl_samples,
-                    handoffs, **counters) -> DisaggMetrics:
-    """The metrics of the requests ``rids`` (the per-request records are
-    indexed by rid)."""
-    wall = time.perf_counter() - t0
-    per_request = []
-    for rid in rids:
-        nt = len(emitted[rid])
-        lat = finish[rid] if finish[rid] is not None else wall
-        per_request.append(RequestTelemetry(
-            rid=rid, ttft_s=ttft[rid] if ttft[rid] is not None else lat,
-            latency_s=lat, new_tokens=nt,
-            tokens_per_s=nt / lat if lat > 0 else 0.0,
-            retries=attempts[rid]))
-    total_new = sum(r.new_tokens for r in per_request)
-    return _finish_handoff_metrics(DisaggMetrics(
-        requests=len(rids), wall_s=wall, new_tokens=total_new,
-        tokens_per_s=total_new / wall if wall > 0 else 0.0,
-        ttft_p50_s=_pct([r.ttft_s for r in per_request], 0.50),
-        ttft_p99_s=_pct([r.ttft_s for r in per_request], 0.99),
-        itl_p50_s=_pct(itl_samples, 0.50),
-        itl_p99_s=_pct(itl_samples, 0.99),
-        per_request=per_request, handoffs=handoffs, **counters))
+def _disagg_metrics(fields: dict, hs: List[HandoffTelemetry]):
+    """The serve loop's metrics fields with the handoff rows and their
+    medians."""
+    return DisaggMetrics(
+        **fields, handoffs=hs,
+        handoff_prefill_p50_s=_pct([h.prefill_s for h in hs], 0.5),
+        handoff_ship_p50_s=_pct([h.ship_s for h in hs], 0.5),
+        handoff_pickup_p50_s=_pct([h.pickup_s for h in hs], 0.5))
 
 
 def _check_dense(family) -> None:
@@ -228,11 +204,13 @@ def _to_host(codes):
     return tuple(a.cpu() for a in codes)
 
 
-def _prefill_ship(ch, pfns, cfg, padded, last_index, overlap,
-                  prefill_kv_int8, ship_fault=None, rid=0):
-    """Run the layerwise prompt pass, publishing layer l's partition as it
+def _prefill_ship(rt, ch, dst, rid, padded, S, pfns, cfg, overlap,
+                  prefill_kv_int8, ship_fault=None, recv_ch=None):
+    """The prefill side of one handoff to rank ``dst`` over channel ``ch``:
+    the HDR descriptor, the channel round and the FIN descriptor around
+    the layerwise prompt pass, which publishes layer l's partition as it
     completes (``overlap``) or all of them after the head (the
-    ship-after-prefill baseline). The caller has begun the channel round.
+    ship-after-prefill baseline).
 
     ``prefill_kv_int8`` picks the prefill-side cache variant:
     quantize-at-compute (the prefill holds int8 codes, as a prefill rank
@@ -243,10 +221,34 @@ def _prefill_ship(ch, pfns, cfg, padded, last_index, overlap,
     ``layer``'s publish: raising from it models a prefill rank dying
     mid-handoff.
 
+    With ``recv_ch`` (loopback: ``dst`` is this rank) this rank takes the
+    descriptors and the round too: each descriptor's receive is posted
+    before its send and both are waited, so a later failure never leaves
+    a dangling descriptor in the stream.
+
     Returns ``(first_token, prefill_s, expose_s)``; ``expose_s`` is the
     publish time left after the head finished (~0 with per-layer overlap,
     the serialized pack and publish without it)."""
     embed_fn, layer_fn, head_fn, quant_fn = pfns
+    reqlog.emit("prefill_start", rid, prompt_len=S, bucket=padded.shape[1])
+    side = ({"side": "send", "dst": dst} if recv_ch is None
+            else {"side": "loopback"})
+
+    def descriptor(wire, tag):
+        if recv_ch is None:
+            rt.wait(rt.isend_enqueue(wire, dest=dst, tag=tag))
+            return
+        got = np.zeros_like(wire)
+        req = rt.irecv_enqueue(got, source=dst, tag=tag)
+        rt.wait(rt.isend_enqueue(wire, dest=dst, tag=tag))
+        rt.wait(req)
+        assert got[0] == wire[0] and got[1] == rid, got
+
+    descriptor(_hdr_wire(rid, S, padded.shape[1]), DESC_HDR_TAG)
+    reqlog.emit("ship_hdr", rid, bucket=padded.shape[1], **side)
+    if recv_ch is not None:
+        recv_ch.begin()
+    ch.begin()
     t0 = time.perf_counter()
     x = embed_fn(padded)
     staged = []
@@ -262,14 +264,20 @@ def _prefill_ship(ch, pfns, cfg, padded, last_index, overlap,
             reqlog.emit("ship_pready", rid, part=layer, overlap=True)
         else:
             staged.append(codes or (k, v))
-    first = int(head_fn(x, last_index)[0, 0].argmax())
+    with profiling.annotate("acx.serve.first_token"):
+        first = int(head_fn(x, S - 1)[0, 0].argmax())
     t_head = time.perf_counter()
     for layer, st in enumerate(staged):
         kq, ks, vq, vs = st if len(st) == 4 else _to_host(quant_fn(*st))
         ch.publish(layer, kq[0], ks[0], vq[0], vs[0])
         reqlog.emit("ship_pready", rid, part=layer, overlap=False)
     t1 = time.perf_counter()
-    return first, t1 - t0, t1 - t_head
+    prefill_s, expose_s = t1 - t0, t1 - t_head
+    reqlog.emit("prefill_end", rid, first_token=first, prefill_s=prefill_s)
+    descriptor(_fin_wire(rid, first, int(prefill_s * 1e6),
+                         int(expose_s * 1e6)), DESC_FIN_TAG)
+    reqlog.emit("ship_fin", rid, **side)
+    return first, prefill_s, expose_s
 
 
 def _splice_poll(ch, bucket, heads, head_dim, timeout_s=30.0):
@@ -337,12 +345,6 @@ def _loopback_rt():
     return _loopback_runtime
 
 
-def _family(family):
-    if family is None:
-        from mpi_acx_torch.models import transformer as family  # noqa: N813
-    return family
-
-
 def _host_to(one, dev):
     """The assembled host cache on ``dev``, one copy per array."""
     return {k: torch.from_numpy(v).to(dev) for k, v in one.items()}
@@ -373,10 +375,8 @@ def serve_disagg_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
     the prefill-side variant (see ``_prefill_ship``); ``overlap=False``
     ships only after the full prompt pass. ``ship_fault(rid, layer)`` is a
     failure-injection hook (see ``_prefill_ship``)."""
-    dev = resolve_device(device)
-    fam = _family(family)
+    fam, dev = _family_on(family, params, device)
     _check_dense(fam)
-    fam.check_device(params, dev)
     if os.environ.get("ACX_ROLE", "").strip():
         if rt is None:
             raise ValueError("fleet mode needs an explicit Runtime")
@@ -384,263 +384,101 @@ def serve_disagg_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
             run_prefill_worker(rt, params, cfg, prompts, max_len,
                                family=fam, overlap=overlap,
                                prefill_kv_int8=prefill_kv_int8, device=dev)
-            return ServedBatch([None] * len(prompts),
-                               _finish_handoff_metrics(DisaggMetrics()))
+            return ServedBatch([None] * len(prompts), DisaggMetrics())
         return run_decode_worker(
             rt, params, cfg, prompts, n_new, n_slots, max_len, family=fam,
             eos=eos, chunk=chunk, server_fns=server_fns,
             max_request_retries=max_request_retries,
             poll_timeout_s=poll_timeout_s, device=dev)
-    return _serve_disagg_loopback(
-        params, cfg, prompts, n_new, n_slots, max_len, fam, eos, chunk,
-        server_fns, prefill_kv_int8, max_request_retries,
-        rt if rt is not None else _loopback_rt(), overlap, ship_fault,
-        poll_timeout_s, dev)
+    # Loopback: models/serving.py's serve loop over wire-seated slots. A
+    # request that cannot fit refuses the call instead of being typed.
+    loop = _Loop(prompts, n_new, n_slots, eos, chunk, dev,
+                 max_request_retries,
+                 dict(max_len=max_len, max_seq=cfg.max_seq))
+    if loop.rejected:
+        raise ValueError("; ".join(r.detail for r in loop.rejected.values()))
+    fns = _server_fns(server_fns, params, cfg, fam, chunk, True, None)
+    return loop.run(_LoopbackSlots(
+        loop, fns, params, cfg, fam, max_len,
+        rt if rt is not None else _loopback_rt(), overlap, prefill_kv_int8,
+        ship_fault, poll_timeout_s))
 
 
-def _check_server_fns(server_fns, params, cfg, family, chunk):
-    if server_fns is None:
-        server_fns = make_server_fns(params, cfg, family, chunk=chunk,
-                                     kv_int8=True)
-    (_, step_fn, scatter_fn, fns_chunk, fns_int8, fns_sample) = server_fns
-    if fns_chunk != chunk:
-        raise ValueError(f"server_fns built for chunk={fns_chunk}, this call "
-                         f"uses chunk={chunk}")
-    if not fns_int8:
-        raise ValueError("disagg decode slots are int8 (the wire form): "
-                         "build server_fns with kv_int8=True")
-    if fns_sample is not None:
-        raise ValueError("disagg serving is greedy")
-    return step_fn, scatter_fn
+class _WireSlots(_FixedSlots):
+    """Fixed int8 slots seated from the wire: a handoff's assembled rows
+    land in their slot by ``scatter_fn``. The slot cache is a plain dict,
+    so the step runs eagerly."""
+
+    def fresh(self, rebuild=False):
+        return dict(seat_slots(self.family.init_kv_cache(
+            self.cfg, self.n_slots, self.max_len, kv_int8=True,
+            device=self.dev)))
+
+    def land(self, b, rid, one, S):
+        """Scatter a handoff's rows (on the device) into slot ``b``."""
+        self.slots = self.scatter_fn(self.slots, one, b, S)
+        reqlog.emit("seat", rid, slot=b, pos=S)
 
 
-def _serve_disagg_loopback(params, cfg, prompts, n_new, n_slots, max_len,
-                           family, eos, chunk, server_fns, prefill_kv_int8,
-                           max_request_retries, rt, overlap, ship_fault,
-                           poll_timeout_s, dev):
-    """The single-process disagg scheduler: models/serving.py's ``_serve``
-    with the refill replaced by a real wire handoff (descriptor exchange
-    and partitioned round over the loopback transport). The decode loop is
-    the monolithic one, and the wire carries the codes the monolithic
-    prefill would have made: hence the equal tokens."""
-    n_new = _normalize_requests(prompts, n_new)
-    for p, n in zip(prompts, n_new):
-        if len(p) + n + chunk > min(max_len, cfg.max_seq):
-            raise ValueError(f"request of {len(p)} + {n} + chunk {chunk} "
-                             f"positions exceeds max_len {max_len} or "
-                             f"max_seq {cfg.max_seq}")
-    step_fn, scatter_fn = _check_server_fns(server_fns, params, cfg, family,
-                                            chunk)
-    pfns = make_layerwise_prefill_fns(params, cfg, family)
-    shipper = KvShipper(rt, cfg.n_layers, cfg.n_heads, cfg.head_dim)
-    receiver = KvReceiver(rt, cfg.n_layers, cfg.n_heads, cfg.head_dim)
+class _LoopbackSlots(_WireSlots):
+    """The loopback server's slots: each seat is a real wire handoff
+    (descriptor exchange and partitioned round over the loopback
+    transport). The decode step is the monolithic one, and the wire
+    carries the codes the monolithic prefill would have made: hence the
+    equal tokens."""
 
-    def fresh_slots():
-        s = family.init_kv_cache(cfg, n_slots, max_len, kv_int8=True,
-                                 device=dev)
-        s["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
-        return s
+    def __init__(self, loop, server_fns, params, cfg, family, max_len, rt,
+                 overlap, prefill_kv_int8, ship_fault, poll_timeout_s):
+        super().__init__(loop, server_fns, family, cfg, max_len, True)
+        self.pfns = make_layerwise_prefill_fns(params, cfg, family)
+        self.shipper = KvShipper(rt, cfg.n_layers, cfg.n_heads, cfg.head_dim)
+        self.receiver = KvReceiver(rt, cfg.n_layers, cfg.n_heads,
+                                   cfg.head_dim)
+        self.rt, self.overlap = rt, overlap
+        self.prefill_kv_int8, self.ship_fault = prefill_kv_int8, ship_fault
+        self.poll_timeout_s = poll_timeout_s
+        self.handoffs: List[HandoffTelemetry] = []
 
-    slots = fresh_slots()
-    queue = deque(enumerate(np.asarray(p, np.int32) for p in prompts))
-    for depth, (rid, p) in enumerate(queue):
-        reqlog.emit("admit", rid, prompt_len=len(p), n_new=n_new[rid])
-        reqlog.emit("queue", rid, depth=depth)
-    owner = [-1] * n_slots
-    emitted: List[List[int]] = [[] for _ in prompts]
-    done: List[Optional[np.ndarray]] = [None] * len(prompts)
-    last_tok = np.zeros((n_slots,), np.int32)
-    attempts = [0] * len(prompts)
-
-    t0 = time.perf_counter()
-    ttft = [None] * len(prompts)
-    finish = [None] * len(prompts)
-    slo = RollingSLO()
-    # The rolling SLOs feed only the telemetry sampler: kept when it is
-    # armed as the call starts.
-    feed_slo = _tseries_lib() is not None
-    itl_samples: List[float] = []
-    qd_samples: List[int] = []
-    occ_samples: List[float] = []
-    handoffs: List[HandoffTelemetry] = []
-    n_steps = n_prefills = n_requeues = n_peer_requeues = n_hang_dumps = 0
-
-    def _requeue(rid, prompt, exc, charge=True):
-        nonlocal n_requeues, n_peer_requeues
-        if charge:
-            attempts[rid] += 1
-            if attempts[rid] > max_request_retries:
-                raise RuntimeError(
-                    f"request {rid} failed {attempts[rid]} time(s), past "
-                    f"max_request_retries={max_request_retries}") from exc
-        else:
-            n_peer_requeues += 1
-        emitted[rid] = []
-        ttft[rid] = None
-        n_requeues += 1
-        reqlog.emit("requeue", rid, charged=bool(charge))
-        queue.append((rid, prompt))
-
-    def refill(b):
-        """The handoff refill: the prefill side's layer loop publishes
-        into the loopback channel, the decode side splices and scatters
-        (the role-split fleet's wire path, serialized in one process)."""
-        nonlocal slots, n_prefills
-        rid, prompt = queue.popleft()
+    def seat(self, b, rid, prompt):
+        """The prefill side's layer loop publishes into the loopback
+        channel, the decode side splices and scatters (the role-split
+        fleet's wire path, serialized in one process)."""
+        rt, cfg = self.rt, self.cfg
         S = len(prompt)
-        bucket = min(_bucket(S), max_len, cfg.max_seq)
-        padded = np.zeros((1, bucket), np.int32)
-        padded[0, :S] = prompt
-        send_ch = shipper.channel(rt.rank, bucket)
-        recv_ch = receiver.channel(rt.rank, bucket)
-        spanned = _span_app_begin_best_effort(rid)
-        reqlog.emit("prefill_start", rid, prompt_len=S, bucket=bucket)
+        tokens = torch.from_numpy(
+            _padded(prompt, self.max_len, cfg.max_seq)).to(self.dev)
+        send_ch = self.shipper.channel(rt.rank, tokens.shape[1])
+        recv_ch = self.receiver.channel(rt.rank, tokens.shape[1])
         try:
-            # The descriptor: receive posted first, both waited, so a later
-            # failure never leaves a dangling descriptor in the stream.
-            hdr = np.zeros(4, np.int64)
-            hr = rt.irecv_enqueue(hdr, source=rt.rank, tag=DESC_HDR_TAG)
-            rt.wait(rt.isend_enqueue(_hdr_wire(rid, S, bucket),
-                                     dest=rt.rank, tag=DESC_HDR_TAG))
-            rt.wait(hr)
-            assert int(hdr[0]) == _HDR_MAGIC and int(hdr[1]) == rid, hdr
-            reqlog.emit("ship_hdr", rid, side="loopback", bucket=bucket)
-            recv_ch.begin()
-            send_ch.begin()
             first, prefill_s, expose_s = _prefill_ship(
-                send_ch, pfns, cfg, torch.from_numpy(padded).to(dev), S - 1,
-                overlap, prefill_kv_int8, ship_fault=ship_fault, rid=rid)
-            reqlog.emit("prefill_end", rid, first_token=first,
-                        prefill_s=prefill_s)
-            fin = np.zeros(5, np.int64)
-            fr = rt.irecv_enqueue(fin, source=rt.rank, tag=DESC_FIN_TAG)
-            rt.wait(rt.isend_enqueue(
-                _fin_wire(rid, first, int(prefill_s * 1e6),
-                          int(expose_s * 1e6)),
-                dest=rt.rank, tag=DESC_FIN_TAG))
-            rt.wait(fr)
-            assert int(fin[0]) == _FIN_MAGIC and int(fin[1]) == rid, fin
-            reqlog.emit("ship_fin", rid, side="loopback")
+                rt, send_ch, rt.rank, rid, tokens, S, self.pfns, cfg,
+                self.overlap, self.prefill_kv_int8, self.ship_fault,
+                recv_ch)
             t_ship = time.perf_counter()
-            one = _splice_poll(recv_ch, bucket, cfg.n_heads, cfg.head_dim,
-                               timeout_s=poll_timeout_s)
+            one = _splice_poll(recv_ch, tokens.shape[1], cfg.n_heads,
+                               cfg.head_dim, timeout_s=self.poll_timeout_s)
             send_ch.finish()
             recv_ch.finish()
             ship_s = time.perf_counter() - t_ship
             t_pick = time.perf_counter()
-            slots = scatter_fn(slots, _host_to(one, dev), b, S)
+            self.land(b, rid, _host_to(one, self.dev), S)
             pickup_s = time.perf_counter() - t_pick
-        except Exception as exc:  # noqa: BLE001 — any handoff failure
+        except Exception:
             _abort_rounds(send_ch, recv_ch)
-            _requeue(rid, prompt, exc, charge=not _peer_dead(exc))
-            return False
-        finally:
-            if spanned:
-                _span_app_end_best_effort()
-        owner[b] = rid
-        reqlog.emit("seat", rid, slot=b, pos=S)
-        emitted[rid].append(int(fin[2]))
-        last_tok[b] = int(fin[2])
-        n_prefills += 1
-        ttft[rid] = time.perf_counter() - t0
-        if feed_slo:
-            slo.note_ttft(ttft[rid])
-        reqlog.emit("stream", rid, n=1, ttft_s=ttft[rid])
-        handoffs.append(HandoffTelemetry(
+            raise
+        self.handoffs.append(HandoffTelemetry(
             rid=rid, layers=cfg.n_layers,
             wire_bytes=cfg.n_layers * send_ch.geom.part_bytes,
             prefill_s=prefill_s, ship_s=ship_s, pickup_s=pickup_s,
-            overlap=overlap, expose_s=expose_s))
-        return True
+            overlap=self.overlap, expose_s=expose_s))
+        return first
 
-    def retire(b):
-        rid = owner[b]
-        done[rid] = np.concatenate([np.asarray(prompts[rid], np.int32),
-                                    np.asarray(emitted[rid], np.int32)])
-        finish[rid] = time.perf_counter() - t0
-        reqlog.emit("finish", rid, new_tokens=len(emitted[rid]),
-                    latency_s=finish[rid])
-        owner[b] = -1
-        slots["pos"][b] = 0
+    def metrics(self, fields):
+        return _disagg_metrics(fields, self.handoffs)
 
-    def slot_finished(b):
-        rid = owner[b]
-        return (len(emitted[rid]) >= n_new[rid]
-                or (eos is not None and emitted[rid]
-                    and emitted[rid][-1] == eos))
-
-    def seed_idle_slots():
-        while queue and any(o == -1 for o in owner):
-            b = owner.index(-1)
-            if refill(b) and slot_finished(b):
-                retire(b)
-
-    qd_samples.append(len(queue))
-    seed_idle_slots()
-    while any(o >= 0 for o in owner) or queue:
-        qd_samples.append(len(queue))
-        occ_samples.append(sum(o >= 0 for o in owner) / n_slots)
-        if feed_slo:
-            slo.note_gauges(qd_samples[-1], occ_samples[-1])
-            _tseries_annotate_best_effort(slo)
-        if not any(o >= 0 for o in owner):
-            seed_idle_slots()
-            continue
-        step_t0 = time.perf_counter()
-        try:
-            slots, toks = step_fn(slots, torch.from_numpy(last_tok).to(dev))
-            block = toks.cpu().numpy()               # [chunk, B]; syncs
-        except Exception as exc:  # noqa: BLE001 — any device failure
-            lost_peer = _peer_dead(exc)
-            if _flight_dump_best_effort():
-                n_hang_dumps += 1
-            for b in range(n_slots):
-                if owner[b] >= 0:
-                    rid = owner[b]
-                    owner[b] = -1
-                    _requeue(rid, np.asarray(prompts[rid], np.int32), exc,
-                             charge=not lost_peer)
-            slots = fresh_slots()
-            last_tok = np.zeros((n_slots,), np.int32)
-            continue
-        step_dt = time.perf_counter() - step_t0
-        n_steps += 1
-        reqlog.emit("decode_step", step=n_steps, dt_s=step_dt,
-                    active=sum(o >= 0 for o in owner))
-        for b in range(n_slots):
-            last_tok[b] = block[-1, b]
-            if owner[b] < 0:
-                continue
-            got = 0
-            for c in range(block.shape[0]):
-                if slot_finished(b):
-                    break
-                emitted[owner[b]].append(int(block[c, b]))
-                itl_samples.append(step_dt / chunk)
-                if feed_slo:
-                    slo.note_itl(step_dt / chunk)
-                got += 1
-            if got:
-                reqlog.emit("stream", owner[b], n=got, itl_s=step_dt / chunk)
-        for b in range(n_slots):
-            while owner[b] >= 0 and slot_finished(b):
-                retire(b)
-                if queue:
-                    refill(b)
-
-    if any(d is None for d in done):
-        raise RuntimeError("scheduler exited with unfinished requests")
-    shipper.close()
-    receiver.close()
-    metrics = _disagg_metrics(
-        range(len(prompts)), emitted, ttft, finish, attempts, t0,
-        itl_samples, handoffs, steps=n_steps, prefills=n_prefills,
-        requeues=n_requeues, peer_requeues=n_peer_requeues,
-        hang_dumps=n_hang_dumps, queue_depth_max=max(qd_samples),
-        queue_depth_mean=sum(qd_samples) / len(qd_samples),
-        slot_occupancy_mean=(sum(occ_samples) / len(occ_samples)
-                             if occ_samples else 1.0))
-    return ServedBatch(done, metrics)
+    def finish(self, batch):
+        self.shipper.close()
+        self.receiver.close()
 
 
 # -- fleet-mode role workers (under acxrun, $ACX_ROLE set) -------------------
@@ -660,9 +498,7 @@ def run_prefill_worker(rt, params, cfg, prompts, max_len, family=None,
     rank ``rid % n_decode``), run the layerwise prompt pass and ship it. A
     respawned rank reruns the loop from rid 0; the decode side drops the
     duplicates. Returns the number of handoffs shipped."""
-    dev = resolve_device(device)
-    family = _family(family)
-    family.check_device(params, dev)
+    family, dev = _family_on(family, params, device)
     prefill_ranks, decode_ranks = _fleet_split(rt)
     me = prefill_ranks.index(rt.rank)
     pfns = make_layerwise_prefill_fns(params, cfg, family)
@@ -677,29 +513,13 @@ def run_prefill_worker(rt, params, cfg, prompts, max_len, family=None,
     shipped = 0
     for rid in my_rids:
         dst = decode_ranks[rid % len(decode_ranks)]
-        prompt = np.asarray(prompts[rid], np.int32)
-        S = len(prompt)
-        bucket = min(_bucket(S), max_len, cfg.max_seq)
-        padded = np.zeros((1, bucket), np.int32)
-        padded[0, :S] = prompt
-        ch = shipper.channel(dst, bucket)
+        tokens = torch.from_numpy(
+            _padded(prompts[rid], max_len, cfg.max_seq)).to(dev)
+        ch = shipper.channel(dst, tokens.shape[1])
         spanned = _span_app_begin_best_effort(rid)
-        reqlog.emit("prefill_start", rid, prompt_len=S, bucket=bucket)
         try:
-            rt.wait(rt.isend_enqueue(_hdr_wire(rid, S, bucket), dest=dst,
-                                     tag=DESC_HDR_TAG))
-            reqlog.emit("ship_hdr", rid, side="send", bucket=bucket,
-                        dst=dst)
-            ch.begin()
-            first, prefill_s, expose_s = _prefill_ship(
-                ch, pfns, cfg, torch.from_numpy(padded).to(dev), S - 1,
-                overlap, prefill_kv_int8, rid=rid)
-            reqlog.emit("prefill_end", rid, first_token=first,
-                        prefill_s=prefill_s)
-            rt.wait(rt.isend_enqueue(
-                _fin_wire(rid, first, int(prefill_s * 1e6),
-                          int(expose_s * 1e6)), dest=dst, tag=DESC_FIN_TAG))
-            reqlog.emit("ship_fin", rid, side="send", dst=dst)
+            _prefill_ship(rt, ch, dst, rid, tokens, len(prompts[rid]), pfns,
+                          cfg, overlap, prefill_kv_int8)
             ch.finish()
             shipped += 1
         finally:
@@ -730,96 +550,38 @@ def run_decode_worker(rt, params, cfg, prompts, n_new, n_slots, max_len,
     uncharged when the failure is shaped like peer loss, and a respawned
     prefill rank's re-ship satisfies it; re-shipped duplicates of requests
     already served are drained and dropped."""
-    from mpi_acx_torch.models import kvpage
-    dev = resolve_device(device)
-    family = _family(family)
-    family.check_device(params, dev)
+    family, dev = _family_on(family, params, device)
     prefill_ranks, decode_ranks = _fleet_split(rt)
     if len(prefill_ranks) != 1:
         raise NotImplementedError("a decode rank takes handoffs from one "
                                   "prefill rank")
     src = prefill_ranks[0]
-    n_new = ([int(n_new)] * len(prompts) if np.ndim(n_new) == 0
-             else [int(n) for n in n_new])
     my_rids = [rid for rid in range(len(prompts))
                if decode_ranks[rid % len(decode_ranks)] == rt.rank]
-
-    paged = page_tokens is not None
-    slots = None
-    if paged:
-        pt = int(page_tokens)
-        if n_pages is None:
-            n_pages = n_slots * (max_len // pt)
-        pkv = kvpage.PagedKV(cfg, family, n_slots, max_len, pt, n_pages,
-                             kv_int8=True, device=dev)
-        step_fn = kvpage.make_paged_step_fn(params, cfg, family, chunk, pt)
+    # The serve loop's queue holds the requests awaiting their handoff;
+    # they are seated in the order the wire brings them.
+    loop = _Loop(prompts, n_new, n_slots, eos, chunk, dev,
+                 max_request_retries, rids=my_rids)
+    if page_tokens is None:
+        store = _WireSlots(loop, _server_fns(server_fns, params, cfg, family,
+                                             chunk, True, None),
+                           family, cfg, max_len, True)
     else:
-        step_fn, scatter_fn = _check_server_fns(server_fns, params, cfg,
-                                                family, chunk)
-        slots = family.init_kv_cache(cfg, n_slots, max_len, kv_int8=True,
-                                     device=dev)
-        slots["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
-
+        pt = int(page_tokens)
+        store = _PagedSlots(loop, params, cfg, family, max_len, True, pt,
+                            n_slots * (max_len // pt) if n_pages is None
+                            else n_pages, False)
+    loop.server = store
     receiver = KvReceiver(rt, cfg.n_layers, cfg.n_heads, cfg.head_dim)
-    owner = [-1] * n_slots
-    emitted = {rid: [] for rid in my_rids}
-    done: List[Optional[np.ndarray]] = [None] * len(prompts)
-    last_tok = np.zeros((n_slots,), np.int32)
-    attempts = {rid: 0 for rid in my_rids}
-    pending = set(my_rids)       # not yet retired
-    seated = set()               # owning a slot now
-
-    t0 = time.perf_counter()
-    ttft = {rid: None for rid in my_rids}
-    finish = {rid: None for rid in my_rids}
     handoffs: List[HandoffTelemetry] = []
-    itl_samples: List[float] = []
-    n_steps = n_prefills = n_requeues = n_peer_requeues = n_hang_dumps = 0
 
-    def _note_failure(rid, exc):
-        nonlocal n_requeues, n_peer_requeues
-        charge = not _peer_dead(exc)
-        if charge:
-            attempts[rid] += 1
-            if attempts[rid] > max_request_retries:
-                raise RuntimeError(
-                    f"request {rid} failed {attempts[rid]} time(s), past "
-                    f"max_request_retries={max_request_retries}") from exc
-        else:
-            n_peer_requeues += 1
-        emitted[rid] = []
-        ttft[rid] = None
-        n_requeues += 1
-        reqlog.emit("requeue", rid, charged=bool(charge))
-
-    def seat(b, rid, one, S):
-        """Land the handoff in slot ``b``: fixed slots by ``scatter_fn``,
-        pages by the pool's scatter after reserving the whole budget."""
-        nonlocal slots
-        if not paged:
-            slots = scatter_fn(slots, one, b, S)
-            reqlog.emit("seat", rid, slot=b, pos=S)
-            return
-        need = kvpage.pages_needed(S + n_new[rid] + chunk, pt)
-        pages = pkv.alloc_evicting(need)
-        if pages is None:
-            raise RuntimeError(
-                f"decode rank {rt.rank}: page pool dry seating rid={rid} "
-                f"(need {need} pages, {pkv.alloc.free_count} free): size "
-                "n_pages to n_slots*max_len/page_tokens")
-        try:
-            pkv.scatter_prompt(one, pages[:kvpage.pages_needed(S, pt)])
-            pkv.seat(b, [], pages, S, rid=rid)
-        except Exception:
-            for p in pages:
-                pkv.alloc.decref(p)
-            raise
+    def awaiting(rid):
+        return rid in [r for r, _ in loop.queue]
 
     def intake(b) -> bool:
         """Take the next inbound handoff and seat it in slot ``b`` (True);
         False for a dropped duplicate or a failed handoff (requeued: the
         re-ship will satisfy it)."""
-        nonlocal n_prefills, n_hang_dumps
         hdr = np.zeros(4, np.int64)
         recv_ch = None
         rid = -1
@@ -838,30 +600,25 @@ def run_decode_worker(rt, params, cfg, prompts, n_new, n_slots, max_len,
                     and int(fin[1]) == rid), (fin, rid)
             reqlog.emit("ship_fin", rid, side="recv", src=src)
             recv_ch.finish()
-            if rid not in pending or rid in seated:
+            if not awaiting(rid):
                 return False      # a re-ship's duplicate: drained, dropped
             t_pick = time.perf_counter()
-            seat(b, rid, _host_to(one, dev), S)
+            store.land(b, rid, _host_to(one, dev), S)
             pickup_s = time.perf_counter() - t_pick
         except Exception as exc:  # noqa: BLE001 — any handoff failure
             # The flight dump is the trail tools/acx_doctor.py reads the
             # dead link from: take it before healing.
-            if n_hang_dumps == 0 and _flight_dump_best_effort():
-                n_hang_dumps += 1
+            if loop.hang_dumps == 0 and _flight_dump_best_effort():
+                loop.hang_dumps += 1
             _abort_rounds(None, recv_ch)
-            if rid in pending and rid not in seated:
-                _note_failure(rid, exc)
+            if awaiting(rid):
+                del loop.queue[[r for r, _ in loop.queue].index(rid)]
+                loop._requeue(rid, exc, charge=not _peer_dead(exc))
             elif rid < 0 and not _peer_dead(exc):
                 raise
             return False
-        owner[b] = rid
-        seated.add(rid)
-        first = int(fin[2])
-        emitted[rid].append(first)
-        last_tok[b] = first
-        n_prefills += 1
-        ttft[rid] = time.perf_counter() - t0
-        reqlog.emit("stream", rid, n=1, ttft_s=ttft[rid])
+        del loop.queue[[r for r, _ in loop.queue].index(rid)]
+        loop.take_seat(b, rid, int(fin[2]))
         handoffs.append(HandoffTelemetry(
             rid=rid, layers=cfg.n_layers,
             wire_bytes=cfg.n_layers * recv_ch.geom.part_bytes,
@@ -869,70 +626,15 @@ def run_decode_worker(rt, params, cfg, prompts, n_new, n_slots, max_len,
             overlap=True, expose_s=int(fin[4]) / 1e6))
         return True
 
-    def retire(b):
-        rid = owner[b]
-        done[rid] = np.concatenate([np.asarray(prompts[rid], np.int32),
-                                    np.asarray(emitted[rid], np.int32)])
-        finish[rid] = time.perf_counter() - t0
-        reqlog.emit("finish", rid, new_tokens=len(emitted[rid]),
-                    latency_s=finish[rid])
-        pending.discard(rid)
-        seated.discard(rid)
-        owner[b] = -1
-        if paged:
-            pkv.release(b)        # pages back to the pool, slot parked
-        else:
-            slots["pos"][b] = 0
-
-    def slot_finished(b):
-        rid = owner[b]
-        return (len(emitted[rid]) >= n_new[rid]
-                or (eos is not None and emitted[rid]
-                    and emitted[rid][-1] == eos))
-
-    while pending:
-        # Seat inbound handoffs on every free slot before stepping.
-        while len(seated) < len(pending) and any(o == -1 for o in owner):
-            b = owner.index(-1)
-            if intake(b) and slot_finished(b):
-                retire(b)
-        if not any(o >= 0 for o in owner):
-            continue
-        step_t0 = time.perf_counter()
-        tok = torch.from_numpy(last_tok).to(dev)
-        if paged:
-            state, toks = step_fn(pkv.device_state(), tok)
-            block = toks.cpu().numpy()               # [chunk, B]; syncs
-            pkv.absorb(state, chunk)
-            kvpage.publish_page_stats_best_effort(
-                pkv.alloc.free_count, pkv.alloc.shared_count(), 0, 0, 0)
-        else:
-            slots, toks = step_fn(slots, tok)
-            block = toks.cpu().numpy()
-        step_dt = time.perf_counter() - step_t0
-        n_steps += 1
-        reqlog.emit("decode_step", step=n_steps, dt_s=step_dt,
-                    active=sum(o >= 0 for o in owner))
-        for b in range(n_slots):
-            last_tok[b] = block[-1, b]
-            if owner[b] < 0:
-                continue
-            got = 0
-            for c in range(block.shape[0]):
-                if slot_finished(b):
-                    break
-                emitted[owner[b]].append(int(block[c, b]))
-                itl_samples.append(step_dt / chunk)
-                got += 1
-            if got:
-                reqlog.emit("stream", owner[b], n=got, itl_s=step_dt / chunk)
-        for b in range(n_slots):
-            if owner[b] >= 0 and slot_finished(b):
-                retire(b)
-
+    with profiling.annotate("acx.serve.call"):
+        loop.t0 = time.perf_counter()
+        while loop.busy() or loop.queue:
+            with profiling.annotate("acx.serve.round"):
+                loop.note_gauges()
+                # Seat inbound handoffs on every free slot before stepping.
+                # Paged: the growth finds the whole budget reserved there.
+                loop.seed_idle_slots(intake)
+                if loop.busy():
+                    loop.advance(refill=False)
     receiver.close()
-    metrics = _disagg_metrics(
-        my_rids, emitted, ttft, finish, attempts, t0, itl_samples, handoffs,
-        steps=n_steps, prefills=n_prefills, requeues=n_requeues,
-        peer_requeues=n_peer_requeues, hang_dumps=n_hang_dumps)
-    return ServedBatch(done, metrics)
+    return ServedBatch(loop.done, _disagg_metrics(loop.fields(), handoffs))

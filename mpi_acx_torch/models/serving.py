@@ -29,8 +29,12 @@ tables, with typed admission against the page budget, lazy page growth and
 preemption, radix prefix sharing, an SLO admission gate and per-token
 streaming.
 
-Both servers report to the native runtime (``mpi_acx_torch.runtime``) as
-the JAX package's do, and only when the binding has already loaded the
+Every single-process server, models/disagg.py's loopback included, runs one
+scheduler (:class:`_Loop`) over its own slots (:class:`_Slots`): the loop
+keeps the queue, the slots' owners, the retry rules and the metrics; the
+slots say how a request is seated and how the cache steps. The servers
+report to the native runtime (``mpi_acx_torch.runtime``) as the JAX
+package's do, and only when the binding has already loaded the
 library (telemetry never builds or loads it): a failed step writes a flight
 dump (``ACX_FLIGHT``), each scheduler turn annotates the live telemetry
 samples with the rolling SLOs (``ACX_TSERIES``), each prefill opens a causal
@@ -57,6 +61,7 @@ import torch
 
 from mpi_acx_torch import profiling, reqlog
 from mpi_acx_torch.device import resolve_device
+from mpi_acx_torch.models import kvpage
 from mpi_acx_torch.models.decoding import (SlotCache, filter_logits,
                                            fold_in, gumbel, key_generator,
                                            sample_logits)
@@ -387,6 +392,16 @@ def _bucket(n: int, lo: int = 8) -> int:
     return b
 
 
+def _padded(prompt, max_len: int, max_seq: int) -> np.ndarray:
+    """``prompt`` right-padded to its power-of-two bucket, [1, bucket]. The
+    bucket is capped at ``max_len`` (the rows must fit the slot) and at
+    the model's position ceiling ``max_seq``."""
+    out = np.zeros((1, min(_bucket(len(prompt)), max_len, max_seq)),
+                   np.int32)
+    out[0, :len(prompt)] = prompt
+    return out
+
+
 def make_server_fns(params, cfg, family, chunk: int = 1,
                     kv_int8: bool = False, sample_cfg=None):
     """The serve loop's closures: returns (prefill_fn, step_fn, scatter_fn,
@@ -509,6 +524,17 @@ def seat_slots(cache) -> SlotCache:
     return cache
 
 
+def _family_on(family, params, device):
+    """``(family, device)``: the model module (``None`` means
+    models.transformer) and the resolved device, which the parameters
+    must already be on."""
+    dev = resolve_device(device)
+    if family is None:
+        from mpi_acx_torch.models import transformer as family  # noqa: N813
+    family.check_device(params, dev)
+    return family, dev
+
+
 def _normalize_requests(prompts, n_new):
     """Check the request list; returns ``n_new`` as one int per prompt."""
     if not prompts:
@@ -527,329 +553,467 @@ def _normalize_requests(prompts, n_new):
     return n_new
 
 
-def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
-           chunk, server_fns, kv_int8, sample_cfg, key, dev,
-           max_request_retries=2):
-    """The scheduler shared by serve_greedy and serve_sample: queue, slot
-    ownership, chunk-block consumption, retire/refill. Sampling changes
-    only how a token is picked (the step's ``pick``, the refill's first
-    draw) and gives each seated request its generator. A request whose
-    prefill or step raised is re-queued from scratch (emitted tokens
-    discarded and its generator seeded anew, so the restart replays the
-    same path) up to ``max_request_retries`` times before the failure is
-    re-raised with the request id attached."""
-    n_new = _normalize_requests(prompts, n_new)
-
-    rejected: Dict[int, RequestRejected] = {}
-    for rid, (p, n) in enumerate(zip(prompts, n_new)):
-        rej = _admission_check(rid, p, n, chunk, max_len, cfg.max_seq)
-        if rej is not None:
-            rejected[rid] = rej
-            reqlog.emit("reject", rid, reason=rej.reason)
-        else:
-            reqlog.emit("admit", rid, prompt_len=len(p), n_new=n)
-
+def _server_fns(server_fns, params, cfg, family, chunk, kv_int8,
+                sample_cfg):
+    """``server_fns``, or a :func:`make_server_fns` result when it is None;
+    a tuple built for another chunk, cache type or sampling setting than
+    the call's is refused."""
     if server_fns is None:
-        server_fns = make_server_fns(params, cfg, family, chunk=chunk,
-                                     kv_int8=kv_int8, sample_cfg=sample_cfg)
-    (prefill_fn, step_fn, scatter_fn, fns_chunk, fns_int8,
-     fns_sample) = server_fns
-    if fns_chunk != chunk:
-        raise ValueError(f"server_fns built for chunk={fns_chunk}, this call "
-                         f"uses chunk={chunk}")
-    if fns_int8 != kv_int8:
-        raise ValueError("server_fns built with a different kv_int8 than "
-                         "this call")
-    if fns_sample != sample_cfg:
-        raise ValueError(f"server_fns built for different sampling settings "
-                         f"({fns_sample} vs {sample_cfg})")
+        return make_server_fns(params, cfg, family, chunk=chunk,
+                               kv_int8=kv_int8, sample_cfg=sample_cfg)
+    names = ("chunk", "kv_int8", "sampling settings")
+    differ = [f"{n} {b} (this call: {c})" for n, b, c in
+              zip(names, server_fns[3:], (chunk, kv_int8, sample_cfg))
+              if b != c]
+    if differ:
+        raise ValueError("server_fns built for " + ", ".join(differ))
+    return server_fns
 
-    owned = getattr(server_fns, "slots", None)
-    seated = isinstance(server_fns, ServerFns)
 
-    def fresh_slots(rebuild=False):
-        if owned is not None:
-            return owned.seat(n_slots, max_len, dev, rebuild)
-        return seat_slots(family.init_kv_cache(cfg, n_slots, max_len,
-                                               kv_int8=kv_int8, device=dev))
+class _Loop:
+    """The continuous-batching scheduler that every single-process server
+    runs (:func:`serve_greedy`, :func:`serve_sample`,
+    :func:`serve_paged_greedy`, models/disagg.py's loopback); a disagg
+    decode rank drives its pieces from its own intake loop. What a server
+    does over its slot cache is its :class:`_Slots`. ``owner`` holds the
+    request id per slot: -1 idle, -2 shed after a peer loss (never
+    refilled until the fleet shows capacity back)."""
 
-    slots = fresh_slots()
-    counter_log = ([slots["counts"].clone()] if "counts" in slots
-                   else None)
-    queue = deque((rid, np.asarray(p, np.int32))
-                  for rid, p in enumerate(prompts) if rid not in rejected)
-    for depth, (rid, _p) in enumerate(queue):
-        reqlog.emit("queue", rid, depth=depth)
-    # Request id per slot; -1 = idle, -2 = shed after a peer loss (never
-    # refilled until the fleet shows capacity back).
-    owner = [-1] * n_slots
-    fleet = _FleetSlots(owner)
-    emitted: List[List[int]] = [[] for _ in prompts]
-    done: List[Optional[object]] = [None] * len(prompts)
-    for rid, rej in rejected.items():
-        done[rid] = rej
-    last_tok = np.zeros((n_slots,), np.int32)
-    # Each seated request's generator (sampling); None for an idle slot.
-    keys: List[Optional[torch.Generator]] = [None] * n_slots
-    attempts = [0] * len(prompts)
+    def __init__(self, prompts, n_new, n_slots, eos, chunk, dev,
+                 max_request_retries, admit=None, rids=None, on_token=None,
+                 feed_slo=False):
+        self.n_new = n_new = _normalize_requests(prompts, n_new)
+        self.prompts, self.n_slots = prompts, n_slots
+        self.eos, self.chunk, self.dev = eos, chunk, dev
+        self.max_request_retries = max_request_retries
+        self.done: List[Optional[object]] = [None] * len(prompts)
+        self.slo = RollingSLO()
+        # Typed admission (:func:`_admission_check`, ``admit`` its limits),
+        # each request journaled as admitted or rejected. A decode rank
+        # takes its requests from the prefill rank's admission.
+        self.rejected: Dict[int, RequestRejected] = {}
+        for rid, (p, n) in enumerate(zip(prompts, n_new) if admit else ()):
+            rej = _admission_check(rid, p, n, chunk, **admit)
+            if rej is not None:
+                self.rejected[rid] = self.done[rid] = rej
+                self.slo.note_reject(rej.reason)
+                reqlog.emit("reject", rid, reason=rej.reason)
+            else:
+                reqlog.emit("admit", rid, prompt_len=len(p), n_new=n)
+        # The requests this call serves (a disagg decode rank: its own).
+        self.rids = list(range(len(prompts))) if rids is None else rids
+        self.on_token = on_token
+        self.queue = deque((rid, np.asarray(prompts[rid], np.int32))
+                           for rid in self.rids if rid not in self.rejected)
+        self.owner = [-1] * n_slots
+        self.fleet = _FleetSlots(self.owner)
+        self.emitted: List[List[int]] = [[] for _ in prompts]
+        self.last_tok = np.zeros((n_slots,), np.int32)
+        self.attempts = [0] * len(prompts)
+        self.ttft: List[Optional[float]] = [None] * len(prompts)
+        self.finish: List[Optional[float]] = [None] * len(prompts)
+        # The rolling SLOs feed the telemetry sampler (and the paged
+        # server's refill gate): kept when one is on as the call starts.
+        self.feed_slo = feed_slo or _tseries_lib() is not None
+        self.itl_samples: List[float] = []
+        self.qd_samples: List[int] = []
+        self.occ_samples: List[float] = []
+        self.steps = self.prefills = self.requeues = 0
+        self.peer_requeues = self.hang_dumps = 0
+        self.server: Optional[_Slots] = None
+        self.t0 = time.perf_counter()
 
-    ttft = [None] * len(prompts)      # type: List[Optional[float]]
-    finish = [None] * len(prompts)    # type: List[Optional[float]]
-    slo = RollingSLO()
-    for rej in rejected.values():
-        slo.note_reject(rej.reason)
-    # The rolling SLOs feed only the telemetry sampler: kept when it is
-    # armed as the call starts.
-    feed_slo = _tseries_lib() is not None
-    itl_samples: List[float] = []
-    qd_samples: List[int] = []
-    occ_samples: List[float] = []
-    n_steps = n_prefills = n_requeues = n_peer_requeues = n_hang_dumps = 0
+    def busy(self) -> bool:
+        return any(o >= 0 for o in self.owner)
 
-    def _requeue(rid, prompt, exc, charge=True):
-        """Put a failed request back on the queue for a restart, or
-        re-raise past the retry budget. ``charge=False`` (peer loss)
-        leaves the budget alone."""
-        nonlocal n_requeues, n_peer_requeues
-        if charge:
-            attempts[rid] += 1
-            if attempts[rid] > max_request_retries:
-                raise RuntimeError(
-                    f"request {rid} failed {attempts[rid]} time(s), past "
-                    f"max_request_retries={max_request_retries}") from exc
-        else:
-            n_peer_requeues += 1
-        emitted[rid] = []
-        ttft[rid] = None
-        n_requeues += 1
-        reqlog.emit("requeue", rid, charged=bool(charge))
-        queue.append((rid, prompt))
+    def run(self, server: "_Slots") -> ServedBatch:
+        self.server = server
+        for depth, (rid, _p) in enumerate(self.queue):
+            reqlog.emit("queue", rid, depth=depth)
+        # All requests arrive at entry, so queue wait counts toward TTFT.
+        with profiling.annotate("acx.serve.call"):
+            self.t0 = time.perf_counter()
+            self.qd_samples.append(len(self.queue))
+            self.seed_idle_slots()
+            stalls = 0
+            while self.busy() or self.queue:
+                with profiling.annotate("acx.serve.round"):
+                    stalls = self._round(stalls)
+            if any(self.done[rid] is None for rid in self.rids):
+                raise RuntimeError("scheduler exited with unfinished "
+                                   "requests")
+            batch = ServedBatch(self.done, server.metrics(self.fields()))
+            server.finish(batch)
+            return batch
 
-    def refill(b):
-        """Returns True iff slot b now owns a request; a failed prefill
-        re-queues the request instead of killing the server."""
-        nonlocal slots, n_prefills
-        rid, prompt = queue.popleft()
+    def _round(self, stalls: int) -> int:
+        """One scheduler turn; returns the count of turns in a row that
+        found every slot idle and could seat nothing."""
+        self.note_gauges()
+        if self.queue:
+            # Capacity may have returned (a replacement rank joined):
+            # revive shed slots and refill exactly those.
+            for b in self.fleet.check_rejoin():
+                if self.queue and self.refill(b) and self.slot_finished(b):
+                    self.retire(b)
+        if not self.busy():
+            # All slots idle with requests queued (failure requeues, a
+            # deferred seed, total preemption): reseed. The paged gate
+            # never defers an empty server and admission bounds every
+            # request, so a stall here is a bug: bound it instead of
+            # spinning.
+            stalls = 0 if self.seed_idle_slots() else stalls + 1
+            if stalls > len(self.prompts) + self.n_slots + 2:
+                raise RuntimeError("scheduler stalled: requests queued, no "
+                                   "slot seatable")
+            return stalls
+        self.advance()
+        return 0
+
+    def advance(self, refill: bool = True) -> None:
+        """The round after its seats: ready the slots, step them, take the
+        token block and retire each finished slot, refilling it from the
+        queue. A decode rank's queue is seated by its handoffs alone
+        (``refill=False``): it neither refills here nor requeues after a
+        failed step, since no handoff would come back for the request."""
+        self.server.before_step()
+        if not self.busy():
+            return                  # the paged server preempted every slot
+        try:
+            block, step_dt = self.step()
+        except Exception as exc:  # noqa: BLE001 — any device failure
+            if not refill:
+                raise
+            # The slot cache is updated in place, so after a failed step
+            # it cannot be trusted: requeue every active request (bit-equal
+            # restart, bounded by max_request_retries) and have the server
+            # start its cache over. Peer loss charges no victim and sheds
+            # a slot (the job shrank). The flight dump records the comm
+            # plane as the failure left it.
+            lost_peer = _peer_dead(exc)
+            if _flight_dump_best_effort():
+                self.hang_dumps += 1
+            for b, rid in enumerate(self.owner):
+                if rid >= 0:
+                    self.owner[b] = -1
+                    self._requeue(rid, exc, charge=not lost_peer)
+            if lost_peer:
+                self.fleet.shed_one()
+            self.server.reset()
+            self.last_tok[:] = 0
+            return
+        self.consume(block, step_dt)
+        for b in range(self.n_slots):
+            while self.owner[b] >= 0 and self.slot_finished(b):
+                self.retire(b)
+                if refill and self.queue:
+                    self.refill(b)
+
+    def note_gauges(self) -> None:
+        self.qd_samples.append(len(self.queue))
+        self.occ_samples.append(sum(o >= 0 for o in self.owner)
+                                / self.n_slots)
+        if self.feed_slo:
+            self.slo.note_gauges(self.qd_samples[-1], self.occ_samples[-1])
+            _tseries_annotate_best_effort(self.slo)
+
+    def refill(self, b: int) -> Optional[bool]:
+        """Seat the queue head in slot b; True iff the slot now owns it. A
+        failed seat requeues the request by the retry rules instead of
+        killing the server (False); a seat the server defers puts it back
+        at the head (None)."""
+        rid, prompt = self.queue.popleft()
         with profiling.annotate("acx.serve.refill"):
-            S = len(prompt)
-            # Bucket capped at max_len (the scatter must fit the slot) and
-            # at the model's position ceiling.
-            padded = np.zeros((1, min(_bucket(S), max_len, cfg.max_seq)),
-                              np.int32)
-            padded[0, :S] = prompt
             spanned = _span_app_begin_best_effort(rid)
-            reqlog.emit("prefill_start", rid, prompt_len=S,
-                        bucket=padded.shape[1])
             try:
-                tokens = torch.from_numpy(padded).to(dev)
-                if seated:      # the pass writes its rows into slot b
-                    logits, one = prefill_fn(tokens, S - 1, seat=(slots, b))
-                    if one is not slots:
-                        raise TypeError("a seated prefill returned another "
-                                        "cache than the slot cache")
-                else:
-                    logits, one = prefill_fn(tokens, S - 1)
-                with profiling.annotate("acx.serve.first_token"):
-                    if sample_cfg is None:
-                        first = int(logits[0, 0].argmax())
-                    else:
-                        keys[b] = key_generator(fold_in(key, rid), dev)
-                        first = int(sample_logits(
-                            logits[0, 0][None].float(), keys[b],
-                            *sample_cfg)[0])
-                if seated:
-                    slots["pos"][b] = S
-                else:
-                    slots = scatter_fn(slots, one, b, S)
+                first = self.server.seat(b, rid, prompt)
             except Exception as exc:  # noqa: BLE001 — any device failure
-                # A failed pass may have left a capture half made.
-                if isinstance(slots, SlotCache):
-                    slots.drop_captures()
-                _requeue(rid, prompt, exc, charge=not _peer_dead(exc))
+                self._requeue(rid, exc, charge=not _peer_dead(exc))
                 return False
             finally:
                 if spanned:
                     _span_app_end_best_effort()
-            owner[b] = rid
-            emitted[rid].append(first)
-            last_tok[b] = first
-            n_prefills += 1
-            reqlog.emit("prefill_end", rid, first_token=first)
-            reqlog.emit("seat", rid, slot=b, pos=S)
-            ttft[rid] = time.perf_counter() - t0
-            if feed_slo:
-                slo.note_ttft(ttft[rid])
-            reqlog.emit("stream", rid, n=1, ttft_s=ttft[rid])
+            if first is None:
+                self.queue.appendleft((rid, prompt))
+                return None
+            self.take_seat(b, rid, first)
             return True
 
-    def retire(b):
-        rid = owner[b]
-        done[rid] = np.concatenate(
-            [np.asarray(prompts[rid], np.int32),
-             np.asarray(emitted[rid], np.int32)])
-        finish[rid] = time.perf_counter() - t0
-        reqlog.emit("finish", rid, new_tokens=len(emitted[rid]),
-                    latency_s=finish[rid])
-        owner[b] = -1
-        keys[b] = None
+    def take_seat(self, b: int, rid: int, first: int) -> None:
+        """Slot b now holds request ``rid``, whose prefill gave ``first``:
+        its TTFT ends here."""
+        self.owner[b] = rid
+        self.emitted[rid].append(first)
+        if self.on_token is not None:
+            self.on_token(rid, first)
+        self.last_tok[b] = first
+        self.prefills += 1
+        self.ttft[rid] = time.perf_counter() - self.t0
+        if self.feed_slo:
+            self.slo.note_ttft(self.ttft[rid])
+        reqlog.emit("stream", rid, n=1, ttft_s=self.ttft[rid])
+
+    def seed_idle_slots(self, refill=None) -> bool:
+        """Seat queued requests in idle slots, each by ``refill`` (a decode
+        rank's: its next handoff) or :meth:`refill`; True iff any was
+        seated. 1-token requests retire on the spot, so a slot never enters
+        the decode loop already finished. A deferred seat ends the pass."""
+        progressed = False
+        while self.queue and -1 in self.owner:
+            b = self.owner.index(-1)
+            seated = (refill or self.refill)(b)
+            if seated is None:
+                break
+            if seated:
+                progressed = True
+                if self.slot_finished(b):
+                    self.retire(b)
+        return progressed
+
+    def slot_finished(self, b: int) -> bool:
+        emitted = self.emitted[self.owner[b]]
+        return (len(emitted) >= self.n_new[self.owner[b]]
+                or (self.eos is not None and emitted
+                    and emitted[-1] == self.eos))
+
+    def retire(self, b: int) -> None:
+        rid = self.owner[b]
+        self.done[rid] = np.concatenate(
+            [np.asarray(self.prompts[rid], np.int32),
+             np.asarray(self.emitted[rid], np.int32)])
+        self.finish[rid] = time.perf_counter() - self.t0
+        reqlog.emit("finish", rid, new_tokens=len(self.emitted[rid]),
+                    latency_s=self.finish[rid])
+        self.owner[b] = -1
+        self.server.release(b)
+
+    def restart(self, rid: int) -> None:
+        """Back on the queue with its tokens dropped: the next seat replays
+        the request from its prompt."""
+        self.emitted[rid] = []
+        self.ttft[rid] = None
+        self.queue.append((rid, np.asarray(self.prompts[rid], np.int32)))
+
+    def _requeue(self, rid: int, exc: BaseException, charge=True) -> None:
+        """Put a failed request back on the queue for a restart, or
+        re-raise past the retry budget. ``charge=False`` (peer loss)
+        leaves the budget alone."""
+        if charge:
+            self.attempts[rid] += 1
+            if self.attempts[rid] > self.max_request_retries:
+                raise RuntimeError(
+                    f"request {rid} failed {self.attempts[rid]} time(s), "
+                    f"past max_request_retries={self.max_request_retries}"
+                ) from exc
+        else:
+            self.peer_requeues += 1
+        self.requeues += 1
+        reqlog.emit("requeue", rid, charged=bool(charge))
+        self.restart(rid)
+
+    def step(self):
+        """One step of every slot from its last token: ``(block, dt)``, the
+        ``[chunk, B]`` tokens read back and the seconds it took."""
+        step_t0 = time.perf_counter()
+        with profiling.annotate("acx.serve.issue"):
+            toks = self.server.issue(
+                torch.from_numpy(self.last_tok).to(self.dev))
+        with profiling.annotate("acx.serve.wait"):
+            block = toks.cpu().numpy()       # [chunk, B]; syncs
+        # The copy to the host waited for the device, so this dt covers
+        # the device step; the chunk's tokens share it evenly.
+        step_dt = time.perf_counter() - step_t0
+        self.steps += 1
+        reqlog.emit("decode_step", step=self.steps, dt_s=step_dt,
+                    active=sum(o >= 0 for o in self.owner))
+        return block, step_dt
+
+    def consume(self, block, step_dt: float) -> None:
+        """Take a step's token block: each owned slot's tokens up to its
+        finish (a slot that finishes mid-chunk idles; its further tokens
+        are dropped), each with an inter-token sample."""
+        itl = step_dt / self.chunk
+        finished, on_token = self.slot_finished, self.on_token
+        for b in range(self.n_slots):
+            self.last_tok[b] = block[-1, b]
+            rid = self.owner[b]
+            if rid < 0:
+                continue
+            got = 0
+            for c in range(block.shape[0]):
+                if finished(b):
+                    break
+                tok = int(block[c, b])
+                self.emitted[rid].append(tok)
+                if on_token is not None:
+                    on_token(rid, tok)
+                self.itl_samples.append(itl)
+                if self.feed_slo:
+                    self.slo.note_itl(itl)
+                got += 1
+            if got:
+                reqlog.emit("stream", rid, n=got, itl_s=itl)
+
+    def fields(self) -> dict:
+        wall = time.perf_counter() - self.t0
+        per_request = []
+        for rid in self.rids:
+            if rid in self.rejected:
+                continue
+            nt = len(self.emitted[rid])
+            lat = self.finish[rid] if self.finish[rid] is not None else wall
+            per_request.append(RequestTelemetry(
+                rid=rid,
+                ttft_s=self.ttft[rid] if self.ttft[rid] is not None else lat,
+                latency_s=lat,
+                new_tokens=nt,
+                tokens_per_s=nt / lat if lat > 0 else 0.0,
+                retries=self.attempts[rid]))
+        total_new = sum(r.new_tokens for r in per_request)
+        qd, occ = self.qd_samples, self.occ_samples
+        return dict(
+            requests=len(self.rids),
+            wall_s=wall,
+            new_tokens=total_new,
+            tokens_per_s=total_new / wall if wall > 0 else 0.0,
+            steps=self.steps,
+            prefills=self.prefills,
+            requeues=self.requeues,
+            peer_requeues=self.peer_requeues,
+            slots_shed=self.fleet.shed,
+            slots_revived=self.fleet.revived,
+            hang_dumps=self.hang_dumps,
+            rejections=len(self.rejected),
+            rejection_reasons=_count_reasons(self.rejected.values()),
+            ttft_p50_s=_pct([r.ttft_s for r in per_request], 0.50),
+            ttft_p99_s=_pct([r.ttft_s for r in per_request], 0.99),
+            itl_p50_s=_pct(self.itl_samples, 0.50),
+            itl_p99_s=_pct(self.itl_samples, 0.99),
+            queue_depth_max=max(qd) if qd else 0,
+            queue_depth_mean=sum(qd) / len(qd) if qd else 0.0,
+            slot_occupancy_mean=sum(occ) / len(occ) if occ else 1.0,
+            per_request=per_request)
+
+
+class _Slots:
+    """A server's slot cache as :class:`_Loop` drives it. Subclasses give
+    ``seat(b, rid, prompt)``: request ``rid`` prefilled into slot ``b``,
+    returning its first token, or None to defer it (it goes back to the
+    queue's head), or raising with its own partial state undone (the loop
+    requeues it); ``issue(tok)``: one step of every slot from ``tok`` [B],
+    returning the ``[chunk, B]`` tokens on the device; ``release(b)``:
+    park a freed slot; ``reset()``: start the cache over after a failed
+    step."""
+
+    def before_step(self) -> None:
+        """Ready every owned slot for the step's writes."""
+
+    def metrics(self, fields: dict) -> ServingMetrics:
+        return ServingMetrics(**fields)
+
+    def finish(self, batch: ServedBatch) -> None:
+        """The call served every request; ``batch`` is its result."""
+
+
+class _FixedSlots(_Slots):
+    """Fixed slots: one row of the slot cache a slot. A :class:`ServerFns`
+    prefill writes a prompt's rows straight into its slot (``seat=``) and
+    reuses the result's own cache; a plain tuple's (as
+    ``make_tp_server_fns`` returns) gives a cache that ``scatter_fn``
+    lands there. Sampling gives each seated request its generator."""
+
+    def __init__(self, loop: _Loop, server_fns, family, cfg, max_len,
+                 kv_int8, sample_cfg=None, key=None):
+        self.prefill_fn, self.step_fn, self.scatter_fn = server_fns[:3]
+        self.seated = isinstance(server_fns, ServerFns)
+        self.owned = getattr(server_fns, "slots", None)
+        self.family, self.cfg, self.kv_int8 = family, cfg, kv_int8
+        self.n_slots, self.max_len, self.dev = loop.n_slots, max_len, loop.dev
+        self.sample_cfg, self.key = sample_cfg, key
+        self.slots = self.fresh()
+        self.counter_log = ([self.slots["counts"].clone()]
+                            if "counts" in self.slots else None)
+        # Each seated request's generator (sampling); None for an idle slot.
+        self.keys: List[Optional[torch.Generator]] = [None] * self.n_slots
+
+    def fresh(self, rebuild=False):
+        """The slot cache, ``pos`` at 0: the result's own, its captures
+        dropped on ``rebuild`` (after a failed step), else a new one."""
+        owned = self.owned or OwnedSlots(self.family, self.cfg, self.kv_int8)
+        return owned.seat(self.n_slots, self.max_len, self.dev, rebuild)
+
+    def seat(self, b, rid, prompt):
+        slots, S = self.slots, len(prompt)
+        padded = _padded(prompt, self.max_len, self.cfg.max_seq)
+        reqlog.emit("prefill_start", rid, prompt_len=S,
+                    bucket=padded.shape[1])
+        try:
+            tokens = torch.from_numpy(padded).to(self.dev)
+            if self.seated:         # the pass writes its rows into slot b
+                logits, one = self.prefill_fn(tokens, S - 1, seat=(slots, b))
+                if one is not slots:
+                    raise TypeError("a seated prefill returned another "
+                                    "cache than the slot cache")
+            else:
+                logits, one = self.prefill_fn(tokens, S - 1)
+            with profiling.annotate("acx.serve.first_token"):
+                if self.sample_cfg is None:
+                    first = int(logits[0, 0].argmax())
+                else:
+                    self.keys[b] = key_generator(fold_in(self.key, rid),
+                                                 self.dev)
+                    first = int(sample_logits(
+                        logits[0, 0][None].float(), self.keys[b],
+                        *self.sample_cfg)[0])
+            if self.seated:
+                slots["pos"][b] = S
+            else:
+                self.slots = self.scatter_fn(slots, one, b, S)
+        except Exception:
+            # A failed pass may have left a capture half made.
+            if isinstance(self.slots, SlotCache):
+                self.slots.drop_captures()
+            raise
+        reqlog.emit("prefill_end", rid, first_token=first)
+        reqlog.emit("seat", rid, slot=b, pos=S)
+        return first
+
+    def issue(self, tok):
+        self.slots, toks = self.step_fn(self.slots, tok, self.keys)
+        if self.counter_log is not None:
+            self.counter_log.append(self.slots["counts"].clone())
+        return toks
+
+    def release(self, b):
+        self.keys[b] = None
         # Park the freed slot at pos 0: an idle slot keeps stepping in the
         # batch, and a stale pos would walk toward max_len.
-        slots["pos"][b] = 0
+        self.slots["pos"][b] = 0
 
-    def slot_finished(b):
-        rid = owner[b]
-        return (len(emitted[rid]) >= n_new[rid]
-                or (eos is not None and emitted[rid]
-                    and emitted[rid][-1] == eos))
+    def reset(self):
+        self.slots = self.fresh(rebuild=True)
+        self.keys = [None] * self.n_slots
 
-    def seed_idle_slots():
-        # Retire 1-token requests on the spot so a slot never enters the
-        # decode loop already finished.
-        while queue and any(o == -1 for o in owner):
-            b = owner.index(-1)
-            if refill(b) and slot_finished(b):
-                retire(b)
-
-    # All requests arrive at entry, so queue wait counts toward TTFT.
-    with profiling.annotate("acx.serve.call"):
-        t0 = time.perf_counter()
-        qd_samples.append(len(queue))
-        seed_idle_slots()
-        while any(o >= 0 for o in owner) or queue:
-            with profiling.annotate("acx.serve.round"):
-                qd_samples.append(len(queue))
-                occ_samples.append(sum(o >= 0 for o in owner) / n_slots)
-                if feed_slo:
-                    slo.note_gauges(qd_samples[-1], occ_samples[-1])
-                    _tseries_annotate_best_effort(slo)
-                if queue:
-                    # Capacity may have returned (a replacement rank joined):
-                    # revive shed slots and refill exactly those.
-                    for b in fleet.check_rejoin():
-                        if queue and refill(b) and slot_finished(b):
-                            retire(b)
-                if not any(o >= 0 for o in owner):
-                    # All slots idle with requests queued: only reachable
-                    # after a failure re-queued them — reseed and keep
-                    # serving.
-                    seed_idle_slots()
-                    continue
-                step_t0 = time.perf_counter()
-                try:
-                    with profiling.annotate("acx.serve.issue"):
-                        slots, toks = step_fn(
-                            slots, torch.from_numpy(last_tok).to(dev), keys)
-                        if counter_log is not None:
-                            counter_log.append(slots["counts"].clone())
-                    with profiling.annotate("acx.serve.wait"):
-                        block = toks.cpu().numpy()   # [chunk, B]; syncs
-                except Exception as exc:  # noqa: BLE001 — any device failure
-                    # The slot cache is updated in place, so after a failed
-                    # step it cannot be trusted: re-queue every active
-                    # request (bit-equal restart, bounded by
-                    # max_request_retries), reset it and drop its captured
-                    # step. Peer loss charges no victim and sheds a slot
-                    # (the job shrank).
-                    lost_peer = _peer_dead(exc)
-                    # The flight dump records the comm plane as the
-                    # failure left it.
-                    if _flight_dump_best_effort():
-                        n_hang_dumps += 1
-                    for b in range(n_slots):
-                        if owner[b] >= 0:
-                            rid = owner[b]
-                            owner[b] = -1
-                            _requeue(rid, np.asarray(prompts[rid], np.int32),
-                                     exc, charge=not lost_peer)
-                    if lost_peer:
-                        fleet.shed_one()
-                    slots = fresh_slots(rebuild=True)
-                    keys = [None] * n_slots
-                    last_tok = np.zeros((n_slots,), np.int32)
-                    continue
-                # The copy to the host waited for the device, so this dt
-                # covers the device step; the chunk's tokens share it
-                # evenly.
-                step_dt = time.perf_counter() - step_t0
-                n_steps += 1
-                reqlog.emit("decode_step", step=n_steps, dt_s=step_dt,
-                            active=sum(o >= 0 for o in owner))
-                for b in range(n_slots):
-                    last_tok[b] = block[-1, b]
-                    if owner[b] < 0:
-                        continue
-                    got = 0
-                    for c in range(block.shape[0]):
-                        # A slot that finishes mid-chunk idles; its further
-                        # tokens are dropped.
-                        if slot_finished(b):
-                            break
-                        emitted[owner[b]].append(int(block[c, b]))
-                        itl_samples.append(step_dt / chunk)
-                        if feed_slo:
-                            slo.note_itl(step_dt / chunk)
-                        got += 1
-                    if got:
-                        reqlog.emit("stream", owner[b], n=got,
-                                    itl_s=step_dt / chunk)
-                for b in range(n_slots):
-                    while owner[b] >= 0 and slot_finished(b):
-                        retire(b)
-                        if queue:
-                            refill(b)
-
-        if any(d is None for d in done):
-            raise RuntimeError("scheduler exited with unfinished requests")
-        batch = ServedBatch(done, _batch_metrics(
-            prompts, rejected, emitted, ttft, finish, attempts, t0,
-            itl_samples, qd_samples, occ_samples, steps=n_steps,
-            prefills=n_prefills, requeues=n_requeues,
-            peer_requeues=n_peer_requeues, slots_shed=fleet.shed,
-            slots_revived=fleet.revived, hang_dumps=n_hang_dumps))
-        if counter_log is not None:
-            batch.round_counters = torch.stack(counter_log).tolist()
-        return batch
+    def finish(self, batch):
+        if self.counter_log is not None:
+            batch.round_counters = torch.stack(self.counter_log).tolist()
 
 
-def _batch_metrics(prompts, rejected, emitted, ttft, finish, attempts, t0,
-                   itl_samples, qd_samples, occ_samples, **counters
-                   ) -> ServingMetrics:
-    """The batch's ServingMetrics from the scheduler's per-request records
-    and samples; ``counters`` are the loop's own counts (steps, prefills,
-    requeues, and the paged server's)."""
-    wall = time.perf_counter() - t0
-    per_request = []
-    total_new = 0
-    for rid in range(len(prompts)):
-        if rid in rejected:
-            continue
-        nt = len(emitted[rid])
-        total_new += nt
-        lat = finish[rid] if finish[rid] is not None else wall
-        per_request.append(RequestTelemetry(
-            rid=rid,
-            ttft_s=ttft[rid] if ttft[rid] is not None else lat,
-            latency_s=lat,
-            new_tokens=nt,
-            tokens_per_s=nt / lat if lat > 0 else 0.0,
-            retries=attempts[rid]))
-    return ServingMetrics(
-        requests=len(prompts),
-        wall_s=wall,
-        new_tokens=total_new,
-        tokens_per_s=total_new / wall if wall > 0 else 0.0,
-        rejections=len(rejected),
-        rejection_reasons=_count_reasons(rejected.values()),
-        ttft_p50_s=_pct([r.ttft_s for r in per_request], 0.50),
-        ttft_p99_s=_pct([r.ttft_s for r in per_request], 0.99),
-        itl_p50_s=_pct(itl_samples, 0.50),
-        itl_p99_s=_pct(itl_samples, 0.99),
-        queue_depth_max=max(qd_samples) if qd_samples else 0,
-        queue_depth_mean=(sum(qd_samples) / len(qd_samples)
-                          if qd_samples else 0.0),
-        slot_occupancy_mean=(sum(occ_samples) / len(occ_samples)
-                             if occ_samples else 1.0),
-        per_request=per_request, **counters)
+def _serve(params, cfg, prompts, n_new, n_slots, max_len, family, eos,
+           chunk, server_fns, kv_int8, sample_cfg, key, device,
+           max_request_retries=2):
+    """serve_greedy and serve_sample over fixed slots. Sampling changes
+    only how a token is picked (the step's ``pick``, the refill's first
+    draw) and gives each seated request its generator, seeded anew when a
+    failure requeues it, so the restart replays the same path."""
+    family, dev = _family_on(family, params, device)
+    loop = _Loop(prompts, n_new, n_slots, eos, chunk, dev,
+                 max_request_retries,
+                 dict(max_len=max_len, max_seq=cfg.max_seq))
+    server_fns = _server_fns(server_fns, params, cfg, family, chunk,
+                             kv_int8, sample_cfg)
+    return loop.run(_FixedSlots(loop, server_fns, family, cfg, max_len,
+                                kv_int8, sample_cfg, key))
 
 
 def serve_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
@@ -882,13 +1046,8 @@ def serve_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
     The result is a ``ServedBatch``: a list of outputs carrying
     ``.metrics`` (per-request TTFT and tokens/s, inter-token latency
     percentiles, queue depth, slot occupancy, requeues)."""
-    dev = resolve_device(device)
-    fam = family
-    if fam is None:
-        from mpi_acx_torch.models import transformer as fam  # noqa: N813
-    fam.check_device(params, dev)
-    return _serve(params, cfg, prompts, n_new, n_slots, max_len, fam, eos,
-                  chunk, server_fns, kv_int8, None, None, dev,
+    return _serve(params, cfg, prompts, n_new, n_slots, max_len, family,
+                  eos, chunk, server_fns, kv_int8, None, None, device,
                   max_request_retries=max_request_retries)
 
 
@@ -911,17 +1070,10 @@ def serve_sample(params, cfg, prompts: Sequence[np.ndarray], n_new,
     request's sample path. ``temperature=0`` is the argmax. Everything
     else (parameters, the ``ServedBatch`` and its telemetry) as
     :func:`serve_greedy`."""
-    dev = resolve_device(device)
-    fam = family
-    if fam is None:
-        from mpi_acx_torch.models import transformer as fam  # noqa: N813
-    fam.check_device(params, dev)
-    return _serve(params, cfg, prompts, n_new, n_slots, max_len, fam, eos,
-                  chunk, server_fns, kv_int8, (temperature, top_k, top_p),
-                  operator.index(key), dev,
+    return _serve(params, cfg, prompts, n_new, n_slots, max_len, family,
+                  eos, chunk, server_fns, kv_int8, (temperature, top_k, top_p),
+                  operator.index(key), device,
                   max_request_retries=max_request_retries)
-
-
 
 
 def _slo_admit_targets(slo_admit) -> tuple:
@@ -938,6 +1090,213 @@ def _slo_admit_targets(slo_admit) -> tuple:
     itl_ms = float(os.environ.get("ACX_SERVE_ADMIT_ITL_MS", "0") or 0)
     return (ttft_ms / 1e3 if ttft_ms > 0 else None,
             itl_ms / 1e3 if itl_ms > 0 else None)
+
+
+class _PagedSlots(_Slots):
+    """Paged slots (models/kvpage.py): the slots share a pool of pages
+    through block tables. Its own policies: the SLO refill gate, radix
+    prefix hits, lazy page growth with preemption of the latest arrival
+    and the copy-on-write guard (page-budget admission is at the call's
+    entry)."""
+
+    def __init__(self, loop: _Loop, params, cfg, family, max_len, kv_int8,
+                 page_tokens, n_pages, prefix_cache, slo_targets=(None, None)):
+        self.loop, self.params, self.cfg, self.family = (loop, params, cfg,
+                                                         family)
+        self.max_len, self.pt, self.kv_int8 = max_len, page_tokens, kv_int8
+        self.chunk, self.dev = loop.chunk, loop.dev
+        self.ttft_target, self.itl_target = slo_targets
+        self.pkv = kvpage.PagedKV(cfg, family, loop.n_slots, max_len,
+                                  page_tokens, n_pages, kv_int8=kv_int8,
+                                  prefix_cache=prefix_cache, device=loop.dev)
+        self.step_fn = kvpage.make_paged_step_fn(params, cfg, family,
+                                                 loop.chunk, page_tokens)
+        # Requests evicted by page pressure: their next seat is a "resume".
+        self.preempted: set = set()
+        self.slo_deferrals = 0
+
+    def _slo_defers(self) -> bool:
+        """With a target set, a violating rolling window defers refills
+        while work is in flight (an empty server always admits)."""
+        if self.ttft_target is None and self.itl_target is None:
+            return False
+        if not self.loop.busy():
+            return False
+        live = self.loop.slo.live_slos()
+        if (self.itl_target is not None and live["itl_n"]
+                and live["itl_p50_s"] > self.itl_target):
+            return True
+        return bool(self.ttft_target is not None and live["ttft_n"]
+                    and live["ttft_p50_s"] > self.ttft_target)
+
+    def _prefill(self, prompt, S, hit_pages):
+        """(logits, the prompt's cache rows to scatter): the whole prompt
+        cold, or on a prefix hit only the suffix against the cached pages'
+        gathered history."""
+        cfg = self.cfg
+        if not hit_pages:
+            tokens = torch.from_numpy(
+                _padded(prompt, self.max_len, cfg.max_seq)).to(self.dev)
+            return self.family.prefill(
+                self.params, cfg, tokens, tokens.shape[1],
+                kv_int8=self.kv_int8, last_index=S - 1)
+        P = len(hit_pages) * self.pt
+        suffix = prompt[P:]
+        padded = _padded(suffix, self.max_len - P, cfg.max_seq - P)
+        hk, hv = self.pkv.gather_history(hit_pages)
+        logits, sk, sv = kvpage.prefill_with_history(
+            self.params, cfg, torch.from_numpy(padded).to(self.dev), hk, hv,
+            len(suffix) - 1)
+        one = {"k": sk, "v": sv}
+        if self.kv_int8:
+            one["k"], one["ks"] = kv_quant(sk)
+            one["v"], one["vs"] = kv_quant(sv)
+        return logits, one
+
+    def seat(self, b, rid, prompt):
+        """Deferred while the SLO gate holds or the pool cannot cover the
+        prompt (the request keeps the queue's head)."""
+        pkv = self.pkv
+        if self._slo_defers():
+            self.slo_deferrals += 1
+            return None
+        S = len(prompt)
+        hit_pages = (pkv.prefix.match(prompt) if pkv.prefix is not None
+                     else [])
+        if hit_pages:
+            reqlog.emit("prefix_hit", rid, pages=len(hit_pages))
+        fresh = pkv.alloc_evicting(kvpage.pages_needed(S, self.pt)
+                                   - len(hit_pages))
+        if fresh is None:
+            # Page pressure at admission: back to the head (arrival order
+            # kept), the match's references released; a retire frees pages.
+            for p in hit_pages:
+                pkv.alloc.decref(p)
+            return None
+        reqlog.emit("prefill_start", rid, prompt_len=S,
+                    hit_pages=len(hit_pages), fresh_pages=len(fresh))
+        try:
+            logits, one = self._prefill(prompt, S, hit_pages)
+            with profiling.annotate("acx.serve.first_token"):
+                first = int(logits[0, 0].argmax())
+        except Exception:
+            for p in hit_pages + fresh:
+                pkv.alloc.decref(p)
+            raise
+        reqlog.emit("prefill_end", rid, first_token=first)
+        self._place(b, rid, one, S, hit_pages, fresh)
+        if pkv.prefix is not None:
+            pkv.prefix.insert(prompt, pkv.pages[b])
+        if rid in self.preempted:
+            self.preempted.discard(rid)
+            self.loop.slo.note_resume()
+            reqlog.emit("resume", rid, slot=b)
+        return first
+
+    def land(self, b, rid, one, S):
+        """Seat a handoff's rows (on the device) in slot ``b``, in fresh
+        pages that reserve the request's whole budget (prompt + n_new +
+        chunk), so that a later arrival cannot starve it."""
+        need = kvpage.pages_needed(S + self.loop.n_new[rid] + self.chunk,
+                                   self.pt)
+        pages = self.pkv.alloc_evicting(need)
+        if pages is None:
+            raise RuntimeError(
+                f"page pool dry seating rid={rid} (need {need} pages, "
+                f"{self.pkv.alloc.free_count} free): size n_pages to "
+                "n_slots*max_len/page_tokens")
+        self._place(b, rid, one, S, [], pages,
+                    kvpage.pages_needed(S, self.pt))
+
+    def _place(self, b, rid, one, S, hit_pages, pages, n_rows=None):
+        """Scatter the prompt's rows ``one`` into the first ``n_rows`` of
+        ``pages`` (all by default) and give slot b ``hit_pages + pages``
+        at position S; a failure drops their references."""
+        try:
+            self.pkv.scatter_prompt(one, pages[:n_rows])
+            self.pkv.seat(b, hit_pages, pages, S, rid=rid)
+        except Exception:
+            for p in hit_pages + pages:
+                self.pkv.alloc.decref(p)
+            raise
+
+    def _preempt(self, b):
+        """Page-pressure eviction: slot b's request requeues uncharged
+        (pressure is the server's doing, not the request's) with its pages
+        freed; the replay gives the same tokens."""
+        loop = self.loop
+        rid = loop.owner[b]
+        loop.owner[b] = -1
+        self.pkv.release(b)
+        loop.restart(rid)
+        self.pkv.preemptions += 1
+        self.preempted.add(rid)
+        loop.slo.note_preempt()
+        reqlog.emit("preempt", rid, slot=b)
+
+    def _publish(self):
+        pkv = self.pkv
+        kvpage.publish_page_stats_best_effort(
+            pkv.alloc.free_count, pkv.alloc.shared_count(),
+            pkv.prefix.hits if pkv.prefix else 0,
+            pkv.prefix.evictions if pkv.prefix else 0, pkv.preemptions)
+
+    def before_step(self):
+        """Publish the pool's stats; then every active slot's table must
+        cover the chunk's writes (positions pos..pos+chunk-1) with pages
+        of its own. A pool dry even after trie eviction preempts the
+        latest arrival and rescans; admission guarantees a lone request
+        fits, so this ends."""
+        pkv, owner, pt = self.pkv, self.loop.owner, self.pt
+        self._publish()
+        while True:
+            for b, rid in enumerate(owner):
+                if rid < 0:
+                    continue
+                if not pkv.grow(b, (int(pkv.pos[b]) + self.chunk - 1) // pt
+                                + 1):
+                    victims = [s for s, o in enumerate(owner) if o >= 0]
+                    if len(victims) <= 1:
+                        raise RuntimeError(
+                            "page pool dry for a lone request (admission "
+                            "should have rejected it)")
+                    self._preempt(max(victims, key=lambda s: owner[s]))
+                    break
+            else:
+                break
+        # Copy-on-write guard (unreachable under the radix policy): the
+        # pages this chunk writes must be privately owned.
+        for b, rid in enumerate(owner):
+            if rid < 0:
+                continue
+            for j in range(int(pkv.pos[b]) // pt,
+                           (int(pkv.pos[b]) + self.chunk - 1) // pt + 1):
+                if j < len(pkv.pages[b]):
+                    pkv.ensure_writable(b, j)
+
+    def issue(self, tok):
+        state, toks = self.step_fn(self.pkv.device_state(), tok)
+        self.pkv.absorb(state, self.chunk)
+        return toks
+
+    def release(self, b):
+        self.pkv.release(b)         # pages back to the pool, slot parked
+
+    def reset(self):
+        # The prefix cache's pages lived in the pool too.
+        self.pkv.reset_pool()
+
+    def metrics(self, fields):
+        pkv, prefix = self.pkv, self.pkv.prefix
+        return ServingMetrics(
+            **fields, preemptions=pkv.preemptions,
+            prefix_hits=prefix.hits if prefix else 0,
+            prefix_evictions=prefix.evictions if prefix else 0,
+            prefix_pages_reused=prefix.pages_reused if prefix else 0,
+            pages_hwm=pkv.pages_hwm, slo_deferrals=self.slo_deferrals)
+
+    def finish(self, batch):
+        self._publish()
 
 
 def serve_paged_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
@@ -986,361 +1345,22 @@ def serve_paged_greedy(params, cfg, prompts: Sequence[np.ndarray], n_new,
     prefix_hits, prefix_evictions, prefix_pages_reused, pages_hwm,
     slo_deferrals); ``return_paged_state=True`` exposes the
     :class:`~mpi_acx_torch.models.kvpage.PagedKV` as ``.paged_state``."""
-    from mpi_acx_torch.models import kvpage
-
-    dev = resolve_device(device)
-    if family is None:
-        from mpi_acx_torch.models import transformer as family  # noqa: N813
+    family, dev = _family_on(family, params, device)
     if getattr(family, "LATENT_CACHE", False):
         raise ValueError(f"serve_paged_greedy: {family.__name__} keeps a "
                          f"latent cache, which is not served from pages")
-    family.check_device(params, dev)
-    n_new = _normalize_requests(prompts, n_new)
     pt = page_tokens or kvpage.default_page_tokens(max_len)
-    if max_len % pt:
-        raise ValueError(f"page_tokens={pt} must divide max_len={max_len}")
     if n_pages is None:
         n_pages = n_slots * (max_len // pt)
-    ttft_target, itl_target = _slo_admit_targets(slo_admit)
-
-    rejected: Dict[int, RequestRejected] = {}
-    for rid, (p, n) in enumerate(zip(prompts, n_new)):
-        rej = _admission_check(rid, p, n, chunk, max_len, cfg.max_seq,
-                               page_budget=n_pages, page_tokens=pt)
-        if rej is not None:
-            rejected[rid] = rej
-            reqlog.emit("reject", rid, reason=rej.reason)
-        else:
-            reqlog.emit("admit", rid, prompt_len=len(p), n_new=n)
-
-    pkv = kvpage.PagedKV(cfg, family, n_slots, max_len, pt, n_pages,
-                         kv_int8=kv_int8, prefix_cache=prefix_cache,
-                         device=dev)
-    step_fn = kvpage.make_paged_step_fn(params, cfg, family, chunk, pt)
-
-    queue = deque((rid, np.asarray(p, np.int32))
-                  for rid, p in enumerate(prompts) if rid not in rejected)
-    for depth, (rid, _p) in enumerate(queue):
-        reqlog.emit("queue", rid, depth=depth)
-    owner = [-1] * n_slots          # -1 idle, -2 shed (as _serve)
-    fleet = _FleetSlots(owner)
-    emitted: List[List[int]] = [[] for _ in prompts]
-    done: List[Optional[object]] = [None] * len(prompts)
-    for rid, rej in rejected.items():
-        done[rid] = rej
-    last_tok = np.zeros((n_slots,), np.int32)
-    attempts = [0] * len(prompts)
-
-    t0 = time.perf_counter()
-    ttft = [None] * len(prompts)      # type: List[Optional[float]]
-    finish = [None] * len(prompts)    # type: List[Optional[float]]
-    slo = RollingSLO()
-    for rej in rejected.values():
-        slo.note_reject(rej.reason)
-    # The rolling SLOs feed the refill gate and the telemetry sampler:
-    # kept when either is on as the call starts.
-    feed_slo = (ttft_target is not None or itl_target is not None
-                or _tseries_lib() is not None)
-    itl_samples: List[float] = []
-    qd_samples: List[int] = []
-    occ_samples: List[float] = []
-    n_steps = n_prefills = n_requeues = n_preempts = n_slo_defer = 0
-    n_peer_requeues = n_hang_dumps = 0
-    # Requests evicted by page pressure: their next seat is a "resume".
-    preempted_rids: set = set()
-
-    def _requeue(rid, prompt, exc, charge=True):
-        nonlocal n_requeues, n_peer_requeues
-        if charge:
-            attempts[rid] += 1
-            if attempts[rid] > max_request_retries:
-                raise RuntimeError(
-                    f"request {rid} failed {attempts[rid]} time(s), past "
-                    f"max_request_retries={max_request_retries}") from exc
-        else:
-            n_peer_requeues += 1
-        emitted[rid] = []
-        ttft[rid] = None
-        n_requeues += 1
-        reqlog.emit("requeue", rid, charged=bool(charge))
-        queue.append((rid, prompt))
-
-    def _slo_defers() -> bool:
-        """With a target set, a violating rolling window defers refills
-        while work is in flight (an empty server always admits)."""
-        if ttft_target is None and itl_target is None:
-            return False
-        if not any(o >= 0 for o in owner):
-            return False
-        live = slo.live_slos()
-        if (itl_target is not None and live["itl_n"]
-                and live["itl_p50_s"] > itl_target):
-            return True
-        return bool(ttft_target is not None and live["ttft_n"]
-                    and live["ttft_p50_s"] > ttft_target)
-
-    def prefill(prompt, S, hit_pages):
-        """(first token, the prompt's cache rows to scatter): the whole
-        prompt cold, or on a prefix hit only the suffix against the cached
-        pages' gathered history."""
-        if not hit_pages:
-            padded = np.zeros((1, min(_bucket(S), max_len, cfg.max_seq)),
-                              np.int32)
-            padded[0, :S] = prompt
-            logits, one = family.prefill(
-                params, cfg, torch.from_numpy(padded).to(dev),
-                padded.shape[1], kv_int8=kv_int8, last_index=S - 1)
-            one.pop("pos")
-            return int(logits[0, 0].argmax()), one
-        P = len(hit_pages) * pt
-        suffix = prompt[P:]
-        Sb = min(_bucket(len(suffix)), max_len - P, cfg.max_seq - P)
-        padded = np.zeros((1, Sb), np.int32)
-        padded[0, :len(suffix)] = suffix
-        hk, hv = pkv.gather_history(hit_pages)
-        logits, sk, sv = kvpage.prefill_with_history(
-            params, cfg, torch.from_numpy(padded).to(dev), hk, hv,
-            len(suffix) - 1)
-        one = {"k": sk, "v": sv}
-        if kv_int8:
-            one["k"], one["ks"] = kv_quant(sk)
-            one["v"], one["vs"] = kv_quant(sv)
-        return int(logits[0, 0].argmax()), one
-
-    def refill(b):
-        """Seat the queue head in slot b. True iff the slot now owns a
-        request; False when the SLO gate deferred or the pool cannot cover
-        the prompt (the request stays at the queue head) or the prefill
-        failed (the request is requeued by the retry rules)."""
-        nonlocal n_prefills, n_slo_defer
-        if _slo_defers():
-            n_slo_defer += 1
-            return False
-        rid, prompt = queue.popleft()
-        S = len(prompt)
-        hit_pages = (pkv.prefix.match(prompt) if pkv.prefix is not None
-                     else [])
-        if hit_pages:
-            reqlog.emit("prefix_hit", rid, pages=len(hit_pages))
-        fresh = pkv.alloc_evicting(kvpage.pages_needed(S, pt)
-                                   - len(hit_pages))
-        if fresh is None:
-            # Page pressure at admission: back to the head (arrival order
-            # kept), the match's references released; a retire frees pages.
-            for p in hit_pages:
-                pkv.alloc.decref(p)
-            queue.appendleft((rid, prompt))
-            return False
-        spanned = _span_app_begin_best_effort(rid)
-        reqlog.emit("prefill_start", rid, prompt_len=S,
-                    hit_pages=len(hit_pages), fresh_pages=len(fresh))
-        try:
-            first, one = prefill(prompt, S, hit_pages)
-            pkv.scatter_prompt(one, fresh)
-        except Exception as exc:  # noqa: BLE001 — any device failure
-            for p in hit_pages + fresh:
-                pkv.alloc.decref(p)
-            _requeue(rid, prompt, exc, charge=not _peer_dead(exc))
-            return False
-        finally:
-            if spanned:
-                _span_app_end_best_effort()
-        reqlog.emit("prefill_end", rid, first_token=first)
-        pkv.seat(b, hit_pages, fresh, S, rid=rid)
-        if pkv.prefix is not None:
-            pkv.prefix.insert(prompt, pkv.pages[b])
-        owner[b] = rid
-        if rid in preempted_rids:
-            preempted_rids.discard(rid)
-            slo.note_resume()
-            reqlog.emit("resume", rid, slot=b)
-        emitted[rid].append(first)
-        if on_token is not None:
-            on_token(rid, first)
-        last_tok[b] = first
-        n_prefills += 1
-        ttft[rid] = time.perf_counter() - t0
-        if feed_slo:
-            slo.note_ttft(ttft[rid])
-        reqlog.emit("stream", rid, n=1, ttft_s=ttft[rid])
-        return True
-
-    def retire(b):
-        rid = owner[b]
-        done[rid] = np.concatenate(
-            [np.asarray(prompts[rid], np.int32),
-             np.asarray(emitted[rid], np.int32)])
-        finish[rid] = time.perf_counter() - t0
-        reqlog.emit("finish", rid, new_tokens=len(emitted[rid]),
-                    latency_s=finish[rid])
-        owner[b] = -1
-        pkv.release(b)              # pages back to the pool, slot parked
-
-    def preempt(b):
-        """Page-pressure eviction: slot b's request requeues uncharged
-        (pressure is the server's doing, not the request's) with its pages
-        freed; the replay gives the same tokens."""
-        nonlocal n_preempts
-        rid = owner[b]
-        owner[b] = -1
-        pkv.release(b)
-        emitted[rid] = []
-        ttft[rid] = None
-        queue.append((rid, np.asarray(prompts[rid], np.int32)))
-        n_preempts += 1
-        pkv.preemptions += 1
-        preempted_rids.add(rid)
-        slo.note_preempt()
-        reqlog.emit("preempt", rid, slot=b)
-
-    def grow_for_chunk():
-        """Before each step every active slot's table must cover the
-        chunk's writes (positions pos..pos+chunk-1). A pool dry even after
-        trie eviction preempts the latest arrival and rescans; admission
-        guarantees a lone request fits, so this ends."""
-        while True:
-            for b in range(n_slots):
-                if owner[b] < 0:
-                    continue
-                if not pkv.grow(b, (int(pkv.pos[b]) + chunk - 1) // pt + 1):
-                    victims = [s for s in range(n_slots) if owner[s] >= 0]
-                    if len(victims) <= 1:
-                        raise RuntimeError(
-                            "page pool dry for a lone request (admission "
-                            "should have rejected it)")
-                    preempt(max(victims, key=lambda s: owner[s]))
-                    break
-            else:
-                return
-
-    def slot_finished(b):
-        rid = owner[b]
-        return (len(emitted[rid]) >= n_new[rid]
-                or (eos is not None and emitted[rid]
-                    and emitted[rid][-1] == eos))
-
-    def publish():
-        kvpage.publish_page_stats_best_effort(
-            pkv.alloc.free_count, pkv.alloc.shared_count(),
-            pkv.prefix.hits if pkv.prefix else 0,
-            pkv.prefix.evictions if pkv.prefix else 0, pkv.preemptions)
-
-    def seed_idle_slots() -> bool:
-        """Seat queued requests in idle slots until one cannot be seated;
-        True iff any was."""
-        progressed = False
-        while queue and any(o == -1 for o in owner):
-            b = owner.index(-1)
-            if not refill(b):
-                break
-            progressed = True
-            if slot_finished(b):
-                retire(b)
-        return progressed
-
-    qd_samples.append(len(queue))
-    seed_idle_slots()
-    stalls = 0
-    while any(o >= 0 for o in owner) or queue:
-        qd_samples.append(len(queue))
-        occ_samples.append(sum(o >= 0 for o in owner) / n_slots)
-        if feed_slo:
-            slo.note_gauges(qd_samples[-1], occ_samples[-1])
-            _tseries_annotate_best_effort(slo)
-        publish()
-        if queue:
-            for b in fleet.check_rejoin():
-                if queue and refill(b) and slot_finished(b):
-                    retire(b)
-        if not any(o >= 0 for o in owner):
-            # All slots idle with requests queued (failure requeues, a
-            # deferred seed, total preemption): reseed. The gate never
-            # defers an empty server and admission bounds every request,
-            # so a stall here is a bug: bound it instead of spinning.
-            stalls = 0 if seed_idle_slots() else stalls + 1
-            if stalls > len(prompts) + n_slots + 2:
-                raise RuntimeError(
-                    "paged scheduler stalled: requests queued, no slot "
-                    "seatable")
-            continue
-        stalls = 0
-        grow_for_chunk()
-        if not any(o >= 0 for o in owner):
-            continue                # grow_for_chunk preempted everyone
-        # Copy-on-write guard (unreachable under the radix policy): the
-        # pages this chunk writes must be privately owned.
-        for b in range(n_slots):
-            if owner[b] < 0:
-                continue
-            for j in range(int(pkv.pos[b]) // pt,
-                           (int(pkv.pos[b]) + chunk - 1) // pt + 1):
-                if j < len(pkv.pages[b]):
-                    pkv.ensure_writable(b, j)
-        step_t0 = time.perf_counter()
-        try:
-            state, toks = step_fn(pkv.device_state(),
-                                  torch.from_numpy(last_tok).to(dev))
-            block = toks.cpu().numpy()               # [chunk, B]; syncs
-            pkv.absorb(state, chunk)
-        except Exception as exc:  # noqa: BLE001 — any device failure
-            # The pool is written in place, so after a failed step it
-            # cannot be trusted: requeue every active request and start
-            # the pool over (the prefix cache's pages lived in it too).
-            lost_peer = _peer_dead(exc)
-            if _flight_dump_best_effort():
-                n_hang_dumps += 1
-            for b in range(n_slots):
-                if owner[b] >= 0:
-                    rid = owner[b]
-                    owner[b] = -1
-                    _requeue(rid, np.asarray(prompts[rid], np.int32), exc,
-                             charge=not lost_peer)
-            if lost_peer:
-                fleet.shed_one()
-            pkv.reset_pool()
-            last_tok = np.zeros((n_slots,), np.int32)
-            continue
-        step_dt = time.perf_counter() - step_t0
-        n_steps += 1
-        reqlog.emit("decode_step", step=n_steps, dt_s=step_dt,
-                    active=sum(o >= 0 for o in owner))
-        for b in range(n_slots):
-            last_tok[b] = block[-1, b]
-            if owner[b] < 0:
-                continue
-            got = 0
-            for c in range(block.shape[0]):
-                if slot_finished(b):
-                    break
-                tok = int(block[c, b])
-                emitted[owner[b]].append(tok)
-                if on_token is not None:
-                    on_token(owner[b], tok)
-                itl_samples.append(step_dt / chunk)
-                if feed_slo:
-                    slo.note_itl(step_dt / chunk)
-                got += 1
-            if got:
-                reqlog.emit("stream", owner[b], n=got, itl_s=step_dt / chunk)
-        for b in range(n_slots):
-            while owner[b] >= 0 and slot_finished(b):
-                retire(b)
-                if queue:
-                    refill(b)
-
-    publish()
-    if any(d is None for d in done):
-        raise RuntimeError("scheduler exited with unfinished requests")
-    batch = ServedBatch(done, _batch_metrics(
-        prompts, rejected, emitted, ttft, finish, attempts, t0, itl_samples,
-        qd_samples, occ_samples, steps=n_steps, prefills=n_prefills,
-        requeues=n_requeues, peer_requeues=n_peer_requeues,
-        slots_shed=fleet.shed, slots_revived=fleet.revived,
-        hang_dumps=n_hang_dumps, preemptions=n_preempts,
-        prefix_hits=pkv.prefix.hits if pkv.prefix else 0,
-        prefix_evictions=pkv.prefix.evictions if pkv.prefix else 0,
-        prefix_pages_reused=pkv.prefix.pages_reused if pkv.prefix else 0,
-        pages_hwm=pkv.pages_hwm, slo_deferrals=n_slo_defer))
+    targets = _slo_admit_targets(slo_admit)
+    loop = _Loop(prompts, n_new, n_slots, eos, chunk, dev,
+                 max_request_retries,
+                 dict(max_len=max_len, max_seq=cfg.max_seq,
+                      page_budget=n_pages, page_tokens=pt),
+                 on_token=on_token, feed_slo=targets != (None, None))
+    server = _PagedSlots(loop, params, cfg, family, max_len, kv_int8, pt,
+                         n_pages, prefix_cache, targets)
+    batch = loop.run(server)
     if return_paged_state:
-        batch.paged_state = pkv
+        batch.paged_state = server.pkv
     return batch

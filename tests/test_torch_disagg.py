@@ -199,6 +199,40 @@ def test_midhandoff_fault_is_charged(rt, setup):
                                device="cpu")
 
 
+@pytest.fixture
+def one_thread():
+    """Tiny serves on one intra-op thread: on a loaded host a pool of
+    threads turns each small op into a wait of milliseconds."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("chunk", [1, 3])
+def test_servers_share_one_schedule(rt, setup, chunk, one_thread):
+    """The fixed-slot, paged and loopback servers run one scheduler: on
+    the same requests, with the paged defaults (no prefix cache, no SLO
+    gate, enough pages), they step, prefill and fill their slots alike,
+    and give the same tokens."""
+    _, _, tcfg, tparams, prompts, _, _ = setup
+    kw = dict(n_slots=2, max_len=64, chunk=chunk, device="cpu")
+    served = [ts.serve_greedy(tparams, tcfg, prompts, N_NEW, kv_int8=True,
+                              **kw),
+              ts.serve_paged_greedy(tparams, tcfg, prompts, N_NEW,
+                                    kv_int8=True, **kw),
+              td.serve_disagg_greedy(tparams, tcfg, prompts, N_NEW, rt=rt,
+                                     **kw)]
+    fixed = served[0]
+    for got in served[1:]:
+        _assert_equal(fixed, got)
+        assert [(b.metrics.steps, b.metrics.prefills,
+                 b.metrics.slot_occupancy_mean) for b in (fixed, got)] == \
+            [(fixed.metrics.steps, len(prompts),
+              fixed.metrics.slot_occupancy_mean)] * 2
+    assert fixed.metrics.steps > 0
+
+
 def test_server_fns_must_be_int8(rt, setup):
     _, _, tcfg, tparams, prompts, _, _ = setup
     bf = ts.make_server_fns(tparams, tcfg, tt, chunk=1)

@@ -1,29 +1,59 @@
 """The port's own spans (``profiling.annotate``, named ``acx.<layer>.<what>``).
 
 With no profiler running ``annotate`` builds no range at all. Under a
-CPU ``torch.profiler`` run, a tiny served batch and a tiny train step show
-every span at the boundary it is placed at, in the counts the program's
-own counters give, nested and never overlapping. The serve loops compute
-the rolling SLOs only for an armed telemetry sampler.
+CPU ``torch.profiler`` run, a tiny served batch (fixed-slot, paged and
+loopback-disagg: one serve loop) and a tiny train step show every span at
+the boundary it is placed at, in the counts the program's own counters
+give, nested and never overlapping. The serve loops compute the rolling
+SLOs only for an armed telemetry sampler.
 """
 
 import dataclasses
 import json
+import os
+import subprocess
 
 import numpy as np
+import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from mpi_acx_torch import profiling, train
-from mpi_acx_torch.models import serving
+from mpi_acx_torch.models import disagg, serving
 from mpi_acx_torch.models import transformer as tfm
 from mpi_acx_torch.parallel.mesh import mesh_from_devices
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SERVE_SPANS = ("acx.serve.call", "acx.serve.round", "acx.serve.issue",
                "acx.serve.wait", "acx.serve.refill",
-               "acx.serve.first_token", "acx.model.prefill",
-               "acx.model.decode", "acx.model.layers", "acx.model.head")
+               "acx.serve.first_token")
+# The model's own spans under each server: the paged step and the
+# loopback's layerwise prefill have none.
+MODEL_SPANS = {"fixed": ("acx.model.prefill", "acx.model.decode"),
+               "paged": ("acx.model.prefill",),
+               "loopback": ("acx.model.decode",)}
 N_SLOTS, CHUNK = 4, 2
+
+
+@pytest.fixture
+def one_thread():
+    """Tiny serves on one intra-op thread: on a loaded host a pool of
+    threads turns each small op into a wait of milliseconds, which the
+    TTFT check below would read as the loop's own time."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def rt():
+    subprocess.run(["make", "-C", REPO, "lib", "tools"], check=True,
+                   capture_output=True, timeout=600)
+    from mpi_acx_torch import runtime
+    r = runtime.Runtime()
+    yield r
+    r.finalize()
 
 
 def _ranges(prof):
@@ -49,15 +79,20 @@ def _tiny():
     return cfg, tfm.init_params(cfg, seed=0, device="cpu")
 
 
-def _tiny_serve(n_requests=10):
+def _tiny_serve(n_requests=10, server="fixed", rt=None):
     cfg, params = _tiny()
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, int(n), dtype=np.int32)
                for n in rng.integers(3, 20, n_requests)]
     n_new = [int(n) for n in rng.integers(1, 9, n_requests)]
-    return cfg, serving.serve_greedy(
-        params, cfg, prompts, n_new, n_slots=N_SLOTS, max_len=48,
-        chunk=CHUNK, device="cpu")
+    kw = dict(n_slots=N_SLOTS, max_len=48, chunk=CHUNK, device="cpu")
+    if server == "paged":
+        return cfg, serving.serve_paged_greedy(params, cfg, prompts, n_new,
+                                               **kw)
+    if server == "loopback":
+        return cfg, disagg.serve_disagg_greedy(params, cfg, prompts, n_new,
+                                               rt=rt, **kw)
+    return cfg, serving.serve_greedy(params, cfg, prompts, n_new, **kw)
 
 
 def test_annotate_builds_no_range_without_a_profiler(monkeypatch):
@@ -84,40 +119,60 @@ def test_annotate_records_a_range():
     assert list(_ranges(prof)) == ["acx.test.on"]
 
 
-def test_serve_spans_count_and_nest():
+@pytest.mark.parametrize("server", ["fixed", "paged", "loopback"])
+def test_serve_spans_count_and_nest(server, request, one_thread):
+    loop_rt = request.getfixturevalue("rt") if server == "loopback" else None
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        cfg, out = _tiny_serve()
+        # A profiler's first range takes about a millisecond to open
+        # after it stamps its start, which would skew the TTFT check.
+        with profiling.annotate("acx.test.warm"):
+            pass
+        cfg, out = _tiny_serve(server=server, rt=loop_rt)
     r = _ranges(prof)
     m = out.metrics
-    assert set(SERVE_SPANS) <= set(r), sorted(r)
+    model = MODEL_SPANS[server]
+    assert set(SERVE_SPANS + model) <= set(r), sorted(r)
     assert len(r["acx.serve.call"]) == 1
     assert len(r["acx.serve.round"]) == m.steps
     assert len(r["acx.serve.issue"]) == len(r["acx.serve.wait"]) == m.steps
     assert len(r["acx.serve.refill"]) == m.prefills == 10
     assert len(r["acx.serve.first_token"]) == m.prefills
-    assert len(r["acx.model.prefill"]) == m.prefills
-    assert len(r["acx.model.decode"]) == m.steps * CHUNK
-    assert len(r["acx.model.layers"]) == len(r["acx.model.head"]) \
-        == m.steps * CHUNK
-    for name, outer in (("acx.serve.issue", "acx.serve.round"),
-                        ("acx.serve.wait", "acx.serve.round"),
-                        ("acx.serve.round", "acx.serve.call"),
-                        ("acx.serve.refill", "acx.serve.call"),
-                        ("acx.serve.first_token", "acx.serve.refill"),
-                        ("acx.model.prefill", "acx.serve.refill"),
-                        ("acx.model.decode", "acx.serve.issue"),
-                        ("acx.model.layers", "acx.model.decode"),
-                        ("acx.model.head", "acx.model.decode")):
+    nests = [("acx.serve.issue", "acx.serve.round"),
+             ("acx.serve.wait", "acx.serve.round"),
+             ("acx.serve.round", "acx.serve.call"),
+             ("acx.serve.refill", "acx.serve.call"),
+             ("acx.serve.first_token", "acx.serve.refill")]
+    if "acx.model.prefill" in model:
+        assert len(r["acx.model.prefill"]) == m.prefills
+        nests.append(("acx.model.prefill", "acx.serve.refill"))
+    if "acx.model.decode" in model:
+        assert len(r["acx.model.decode"]) == m.steps * CHUNK
+        assert len(r["acx.model.layers"]) == len(r["acx.model.head"]) \
+            == m.steps * CHUNK
+        nests += [("acx.model.decode", "acx.serve.issue"),
+                  ("acx.model.layers", "acx.model.decode"),
+                  ("acx.model.head", "acx.model.decode")]
+    for name, outer in nests:
         assert all(_within(iv, r[outer]) for iv in r[name]), (name, outer)
     # Ranges of one name never overlap.
     for name, iv in r.items():
         assert all(a[1] <= b[0] for a, b in zip(iv, iv[1:])), name
-    # TTFT is measured from the call's start to the first token's end
-    # (its scatter and bookkeeping after it take microseconds).
     call0 = r["acx.serve.call"][0][0]
     firsts = sorted(e - call0 for _, e in r["acx.serve.first_token"])
     ttfts = sorted(1e9 * q.ttft_s for q in m.per_request)
-    assert np.allclose(ttfts, firsts, rtol=0, atol=1e6)
+    if server == "fixed":
+        # TTFT is measured from the call's start to the first token's end
+        # (its scatter and bookkeeping after it take microseconds).
+        assert np.allclose(ttfts, firsts, rtol=0, atol=1e6)
+        return
+    # The paged server lands the prompt's pages and the loopback ships its
+    # cache after the first token: TTFT ends at the request's seat, inside
+    # its refill and after its first token (1 ms for the profiler's clock
+    # against the loop's).
+    refills = sorted(e - call0 for _, e in r["acx.serve.refill"])
+    assert all(f - 1e6 <= t <= e + 1e6
+               for f, t, e in zip(firsts, ttfts, refills)), \
+        (firsts, ttfts, refills)
 
 
 def test_train_spans():
