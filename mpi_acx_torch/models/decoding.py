@@ -501,11 +501,26 @@ def _prefill_segment(parts, lps, cache, i, tokens, x, o, slots, last,
     return x, ops
 
 
+# The longest prompt pass :class:`PrefillGraphs` captures: the serve loop
+# pads a prompt of at most this many tokens to its power-of-two bucket
+# and runs a longer one at its own length, eagerly (models/serving.py:
+# _padded). The trade is the replay's saved host issue against the pad
+# rows' device time. On an H100 (probes/prefill_graphs.py long), a
+# Mistral-7B pass of 1025, 1280 and 1536 tokens takes 37, 46 and 57 ms
+# at its own length against 66 ms replayed at 2048, and 69 against 67 at
+# 2048 itself. DeepSeek-V2-Lite's eager pass waits on its routing each
+# layer: 63 ms against 76 at 1025 tokens, but 81-100 against 73-75 from
+# 1280 to 2048, so there the rule costs it up to 37% a pass.
+PREFILL_CAPTURE_MAX = 1024
+
+
 class PrefillGraphs(_Captures):
     """The prompt passes into one served slot cache, replayed from CUDA
     graphs between their prefill-attention calls, one capture per prompt
     length (the serve loop's power-of-two bucket), and how often that
-    engaged.
+    engaged. A pass longer than :data:`PREFILL_CAPTURE_MAX` is never
+    captured: it runs the segments eagerly at its own length, counted in
+    ``exact``.
 
     A pass splits at its L attention calls into L + 1 segments as the
     decode step does (:class:`DecodeGraphs`): segment 0 is the embedding
@@ -532,11 +547,13 @@ class PrefillGraphs(_Captures):
     the family's ``key`` stay the same; :meth:`drop` forgets them. On a
     CPU cache every pass runs the segments eagerly, in the same order.
     ``replayed``, ``eager`` and ``captures`` count the passes replayed,
-    run eagerly and the lengths captured; ``buckets`` the same by prompt
-    length."""
+    run eagerly (the warm pass; on a CPU cache every pass of at most the
+    cap) and the lengths captured, ``exact`` the passes above the cap;
+    ``buckets`` the four by prompt length."""
 
     def __init__(self):
         self.buckets = {}
+        self.exact = 0
         super().__init__()
 
     def drop(self) -> None:
@@ -549,7 +566,7 @@ class PrefillGraphs(_Captures):
     def _count(self, bucket, what):
         setattr(self, what, getattr(self, what) + 1)
         n = self.buckets.setdefault(
-            bucket, dict(replayed=0, eager=0, captures=0))
+            bucket, dict(replayed=0, eager=0, captures=0, exact=0))
         n[what] += 1
 
     def run(self, params, cache, slot, tokens, last, parts: PrefillParts,
@@ -558,8 +575,9 @@ class PrefillGraphs(_Captures):
         vocab] of row ``last``."""
         S, dev = tokens.shape[1], tokens.device
         with torch.no_grad():
-            if not cache["k"].is_cuda:
-                self._count(S, "eager")
+            exact = S > PREFILL_CAPTURE_MAX
+            if exact or not cache["k"].is_cuda:
+                self._count(S, "exact" if exact else "eager")
                 return _prefill_eager(
                     _step_layers(params, parts), cache,
                     torch.full((1, 1), slot, device=dev), tokens, last,

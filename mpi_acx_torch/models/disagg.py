@@ -68,7 +68,7 @@ import torch
 from mpi_acx_torch import profiling, reqlog
 from mpi_acx_torch.models.serving import (
     ServedBatch, ServingMetrics, _family_on, _FixedSlots, _Loop,
-    _PagedSlots, _flight_dump_best_effort, _padded, _pct, _peer_dead,
+    _PagedSlots, _bucketed, _flight_dump_best_effort, _pct, _peer_dead,
     _server_fns, _span_app_begin_best_effort, _span_app_end_best_effort,
     seat_slots)
 from mpi_acx_torch.parallel.kv_ship import (DESC_FIN_TAG, DESC_HDR_TAG,
@@ -446,7 +446,7 @@ class _LoopbackSlots(_WireSlots):
         rt, cfg = self.rt, self.cfg
         S = len(prompt)
         tokens = torch.from_numpy(
-            _padded(prompt, self.max_len, cfg.max_seq)).to(self.dev)
+            _bucketed(prompt, self.max_len, cfg.max_seq)).to(self.dev)
         send_ch = self.shipper.channel(rt.rank, tokens.shape[1])
         recv_ch = self.receiver.channel(rt.rank, tokens.shape[1])
         try:
@@ -514,7 +514,7 @@ def run_prefill_worker(rt, params, cfg, prompts, max_len, family=None,
     for rid in my_rids:
         dst = decode_ranks[rid % len(decode_ranks)]
         tokens = torch.from_numpy(
-            _padded(prompts[rid], max_len, cfg.max_seq)).to(dev)
+            _bucketed(prompts[rid], max_len, cfg.max_seq)).to(dev)
         ch = shipper.channel(dst, tokens.shape[1])
         spanned = _span_app_begin_best_effort(rid)
         try:

@@ -7,9 +7,10 @@ so the device never waits for the slowest request. The mechanism is
 per-slot positions: each slot's fresh K/V lands at its own ``pos[b]`` and
 decode attention masks each slot at ``cols <= pos[b]``, so every slot's
 math is its solo run's and greedy outputs equal per-request
-``generate()``. Prompts are right-padded to a power-of-two bucket; pad
-rows are never attended (they sit past ``pos[b]`` until decode overwrites
-them).
+``generate()``. A prompt of at most ``decoding.PREFILL_CAPTURE_MAX``
+tokens is right-padded to a power-of-two bucket (pad rows are never
+attended: they sit past ``pos[b]`` until decode overwrites them); a longer
+one runs its pass at its own length, with no pad rows.
 
 Slot caches are bf16/f32 or int8 (``kv_int8``, ops/kvquant.py), seated
 as ``decoding.SlotCache``: on the GPU the decode step over one replays
@@ -17,8 +18,8 @@ from CUDA graphs between its K2 calls, captured once per slot cache
 (``decoding.DecodeGraphs``), and the prefill of a :func:`make_server_fns`
 result writes a prompt's rows straight into its slot, replayed from CUDA
 graphs between its K1 calls, captured once per bucket
-(``decoding.PrefillGraphs``); a result reused across calls keeps the cache
-and the captures.
+(``decoding.PrefillGraphs``; a prompt above the cap runs eagerly); a
+result reused across calls keeps the cache and the captures.
 :func:`serve_sample` samples (temperature / top-k / top-p) where
 :func:`serve_greedy` takes the argmax: request ``rid`` draws from its own
 generator, seeded ``decoding.fold_in(key, rid)``, so its tokens equal its
@@ -61,7 +62,7 @@ import torch
 
 from mpi_acx_torch import profiling, reqlog
 from mpi_acx_torch.device import resolve_device
-from mpi_acx_torch.models import kvpage
+from mpi_acx_torch.models import decoding, kvpage
 from mpi_acx_torch.models.decoding import (SlotCache, filter_logits,
                                            fold_in, gumbel, key_generator,
                                            sample_logits)
@@ -392,14 +393,28 @@ def _bucket(n: int, lo: int = 8) -> int:
     return b
 
 
-def _padded(prompt, max_len: int, max_seq: int) -> np.ndarray:
+def _bucketed(prompt, max_len: int, max_seq: int) -> np.ndarray:
     """``prompt`` right-padded to its power-of-two bucket, [1, bucket]. The
     bucket is capped at ``max_len`` (the rows must fit the slot) and at
-    the model's position ceiling ``max_seq``."""
+    the model's position ceiling ``max_seq``. The disaggregated servers
+    ship every prompt this way: the KV wire keeps one channel and one tag
+    per power-of-two bucket (parallel/kv_ship.py)."""
     out = np.zeros((1, min(_bucket(len(prompt)), max_len, max_seq)),
                    np.int32)
     out[0, :len(prompt)] = prompt
     return out
+
+
+def _padded(prompt, max_len: int, max_seq: int) -> np.ndarray:
+    """The tokens of ``prompt``'s pass, [1, S]: bucketed
+    (:func:`_bucketed`) up to ``decoding.PREFILL_CAPTURE_MAX`` tokens, the
+    longest pass replayed from a capture; a longer prompt at its own
+    length, eagerly, since past the cap the pad rows cost more device time
+    than a replay saves host time (the constant's comment has the
+    measured trade)."""
+    if len(prompt) > decoding.PREFILL_CAPTURE_MAX:
+        return np.asarray(prompt, np.int32)[None]
+    return _bucketed(prompt, max_len, max_seq)
 
 
 def make_server_fns(params, cfg, family, chunk: int = 1,

@@ -8,7 +8,10 @@ JAX tree cast to bf16, through ``llama.params_from_jax``); the tokens must
 be equal, bf16 and int8 KV, stepwise and in chunks of 4: five requests
 through two slots (refills mid-stream), with requests longer than one
 chunk. Every prompt fits one prefill bucket (8 tokens), so each JAX serve
-compiles one prefill.
+compiles one prefill. With the port's capture cap
+(``decoding.PREFILL_CAPTURE_MAX``) lowered to 4, the same requests are
+served with every prompt above 4 tokens prefilled at its own length, and
+the tokens must still equal the JAX server's (which pads every prompt).
 """
 
 import dataclasses
@@ -21,6 +24,7 @@ import torch
 
 from mpi_acx_tpu.models import llama as jl
 from mpi_acx_tpu.models import serving as js
+from mpi_acx_torch.models import decoding
 from mpi_acx_torch.models import llama as tl
 from mpi_acx_torch.models import serving as ts
 
@@ -63,6 +67,37 @@ def test_serve_greedy_llama_matches_jax(models, chunk, kv_int8):
         np.testing.assert_array_equal(g, np.asarray(w))
     assert got.metrics.prefills == want.metrics.prefills == 5
     assert got.metrics.new_tokens == sum(N_NEW)
+    assert got.metrics.steps == want.metrics.steps
+
+
+@pytest.mark.parametrize("kv_int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("chunk", [1, 4])
+def test_unpadded_prefill_matches_jax(models, monkeypatch, chunk, kv_int8):
+    """The cap at 4 tokens: prompts of 5, 8 and 7 tokens are seated at
+    their own length (the 3-token one still in its 8 bucket), bf16 and
+    int8 slot caches, and the tokens equal the JAX server's, whose every
+    prefill is padded to 8."""
+    jcfg, jparams, tcfg, tparams = models
+    monkeypatch.setattr(decoding, "PREFILL_CAPTURE_MAX", 4)
+    widths = []
+    padded = ts._padded
+
+    def spy(prompt, *a):
+        out = padded(prompt, *a)
+        widths.append(out.shape[1])
+        return out
+
+    monkeypatch.setattr(ts, "_padded", spy)
+    prompts = _prompts(1, 5, [5, 8, 3, 7])
+    want = js.serve_greedy(jparams, jcfg, prompts, N_NEW, n_slots=2,
+                           max_len=32, family=jl, chunk=chunk,
+                           kv_int8=kv_int8)
+    got = ts.serve_greedy(tparams, tcfg, prompts, N_NEW, n_slots=2,
+                          max_len=32, family=tl, chunk=chunk,
+                          kv_int8=kv_int8, device="cpu")
+    assert widths == [5, 8, 8, 7, 5]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
     assert got.metrics.steps == want.metrics.steps
 
 

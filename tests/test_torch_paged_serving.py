@@ -6,6 +6,9 @@ Both servers get the same prompts (numpy seed) and the same weights (the
 JAX tree through ``params_from_jax``) on a tiny bf16 config; tokens must be
 equal, and so must the paged counters (preemptions, prefix hits, pages
 reused, the pages' high-water mark), which depend only on the schedule.
+With the port's capture cap (``decoding.PREFILL_CAPTURE_MAX``) lowered to
+4, cold prompts and prefix-hit suffixes above it are prefilled at their
+own length, and must still give the JAX server's tokens and counters.
 """
 
 import dataclasses
@@ -18,6 +21,7 @@ import torch
 
 from mpi_acx_tpu.models import serving as js
 from mpi_acx_tpu.models import transformer as jt
+from mpi_acx_torch.models import decoding
 from mpi_acx_torch.models import kvpage as tkp
 from mpi_acx_torch.models import serving as ts
 from mpi_acx_torch.models import transformer as tt
@@ -120,6 +124,51 @@ def test_prefix_hits_match_jax(models):
     again = ts.serve_paged_greedy(tparams, tcfg, prompts, 4,
                                   prefix_cache=True, device="cpu", **kw)
     _same(again, got)
+
+
+def _shared_system(seed=11, vocab=61):
+    """Four prompts sharing a 20-token system prompt (two full 8-token
+    pages), with suffixes of 4 to 7 tokens."""
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, 20).astype(np.int32)
+    return [np.concatenate([system, rng.integers(0, vocab, 4 + i).astype(
+        np.int32)]) for i in range(4)]
+
+
+@pytest.mark.parametrize("case", ["cold-bf16", "cold-int8", "prefix-int8"])
+def test_unpadded_prefill_matches_jax(models, monkeypatch, case):
+    """The cap at 4 tokens: the cold prompts of 5 to 8 tokens (those of 3
+    and 4 still padded to 8), and with the prefix cache on (int8 pages)
+    the first 24-token prompt and, on the three hits, the suffixes of 9
+    to 11 tokens past the two cached pages, are prefilled at their own
+    length; the tokens and paged counters equal the JAX server's, whose
+    every prefill is padded to its bucket."""
+    jcfg, jparams, tcfg, tparams = models
+    monkeypatch.setattr(decoding, "PREFILL_CAPTURE_MAX", 4)
+    widths = []
+    padded = ts._padded
+
+    def spy(prompt, *a):
+        out = padded(prompt, *a)
+        widths.append(out.shape[1])
+        return out
+
+    monkeypatch.setattr(ts, "_padded", spy)
+    kv_int8 = case.endswith("int8")
+    if case.startswith("cold"):
+        prompts, n_new, widths_want = _prompts(), 6, [5, 8, 8, 7, 6, 8, 8]
+        kw = dict(n_slots=3, max_len=32, chunk=3, page_tokens=8,
+                  kv_int8=kv_int8)
+    else:
+        prompts, n_new, widths_want = _shared_system(), 4, [24, 9, 10, 11]
+        kw = dict(n_slots=2, max_len=40, page_tokens=8, kv_int8=kv_int8,
+                  prefix_cache=True)
+    want = js.serve_paged_greedy(jparams, jcfg, prompts, n_new, **kw)
+    got = ts.serve_paged_greedy(tparams, tcfg, prompts, n_new,
+                                device="cpu", **kw)
+    _same(got, want)
+    assert widths == widths_want
+    assert got.metrics.prefix_hits == (0 if case.startswith("cold") else 3)
 
 
 def test_page_budget_rejection_matches_jax(models):

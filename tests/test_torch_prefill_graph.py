@@ -9,14 +9,17 @@ below the bucket, both as a plain call (a fresh cache) and seated in a
 slot of the serve loop's cache. ``serve_greedy`` over prompts in three
 buckets still equals ``generate``; only the fixed-slot server's prefill
 reaches the runner; a prefill that raises re-queues its request and drops
-the captures.
+the captures. With the capture cap (``decoding.PREFILL_CAPTURE_MAX``)
+lowered to 16, prompts above it are served unpadded, counted ``exact``,
+to the tokens of the all-padded path (the fixed-slot and paged servers).
 
 Tests marked ``chip`` need a CUDA device and skip without one; run them on
 the card with ``python -m pytest --noconftest -m chip
 tests/test_torch_prefill_graph.py`` (``tests/conftest.py`` imports JAX):
 each bucket's first seated pass captures (the first after a warm pass),
 the others replay, and every pass's logits and slot rows equal a plain
-pass's bit for bit.
+pass's bit for bit; prompts of 1500 and 1501 tokens run at their own
+length, uncaptured, near their pass padded to 2048.
 """
 
 import dataclasses
@@ -172,7 +175,8 @@ def test_segmented_prefill_equals_monolithic(family, kv_int8):
     assert torch.equal(slots["pos"], before["pos"])
     pg = slots.prefills
     assert (pg.eager, pg.replayed, pg.captures) == (1, 0, 0)
-    assert pg.buckets == {16: dict(replayed=0, eager=1, captures=0)}
+    assert pg.buckets == {16: dict(replayed=0, eager=1, captures=0,
+                                   exact=0)}
 
     # A slot cache the family's own step handed back as a plain dict.
     plain = {k: t.clone() for k, t in before.items()}
@@ -210,6 +214,77 @@ def test_served_prefill_equals_generate(family):
     assert {b: n["eager"] for b, n in pg.buckets.items()} == {8: 2, 16: 2,
                                                               32: 2}
     assert (pg.replayed, pg.captures) == (0, 0)
+
+
+@pytest.mark.parametrize("n,width", [(3, 8), (11, 16), (16, 16), (17, 17),
+                                     (30, 30)])
+def test_padded_keeps_long_prompts_at_their_length(monkeypatch, n, width):
+    """With the capture cap at 16, a prompt of at most 16 tokens is padded
+    with zeros to its power-of-two bucket and a longer one keeps its own
+    length; the disaggregated servers' ``_bucketed`` still pads it."""
+    monkeypatch.setattr(decoding, "PREFILL_CAPTURE_MAX", 16)
+    prompt = np.arange(1, n + 1, dtype=np.int32)
+    got = serving._padded(prompt, 64, 128)
+    assert got.dtype == np.int32 and got.shape == (1, width)
+    np.testing.assert_array_equal(got[0, :n], prompt)
+    assert not got[0, n:].any()
+    assert serving._bucketed(prompt, 64, 128).shape == (1, max(8, 1 << (
+        n - 1).bit_length()))
+
+
+def _shared_prefix_requests(vocab, seed=3):
+    """Prompts for the paged server with a prefix cache: two share their
+    first 16 tokens (two pages of 8) before suffixes of 20 and 5."""
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, vocab, 16)
+    prompts = [np.concatenate([head, rng.integers(0, vocab, 20)]),
+               np.concatenate([head, rng.integers(0, vocab, 5)]),
+               rng.integers(0, vocab, 27), rng.integers(0, vocab, 4)]
+    return [p.astype(np.int32) for p in prompts], [3, 4, 2, 3]
+
+
+SERVERS = [(f, "fixed") for f in FAMILIES] + [("gpt2", "paged")]
+
+
+@pytest.mark.parametrize("family,server", SERVERS,
+                         ids=[f"{f}-{s}" for f, s in SERVERS])
+def test_long_prompts_served_at_their_length(monkeypatch, family, server):
+    """f32 serving with the capture cap at 16: prompts above it (31 and 20
+    tokens; on the paged server a 36-token cold prompt and a 20-token
+    suffix after a two-page prefix hit) give the tokens of the all-padded
+    path (the cap at its own value); the fixed-slot server's capture state
+    counts them ``exact`` under their own lengths, the others ``eager``
+    under their buckets, and captures nothing."""
+    fam, cfg, params = _model(family, "cpu", dtype=torch.float32)
+    kw = dict(n_slots=3, max_len=64, chunk=2, device="cpu")
+    if server == "paged":
+        prompts, n_new = _shared_prefix_requests(cfg.vocab)
+
+        def serve():
+            return serving.serve_paged_greedy(
+                params, cfg, prompts, n_new, page_tokens=8,
+                prefix_cache=True, **kw)
+    else:
+        prompts, n_new = _requests(cfg.vocab)
+        fns = serving.make_server_fns(params, cfg, fam, chunk=2)
+
+        def serve():
+            return serving.serve_greedy(params, cfg, prompts, n_new,
+                                        family=fam, server_fns=fns, **kw)
+    want = serve()
+    monkeypatch.setattr(decoding, "PREFILL_CAPTURE_MAX", 16)
+    got = serve()
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(w, g)
+    if server == "paged":
+        assert got.metrics.prefix_hits == want.metrics.prefix_hits == 1
+        return
+    pg = fns.slots.cache.prefills
+    assert {b: n["exact"] for b, n in pg.buckets.items()} == {
+        8: 0, 16: 0, 32: 0, 31: 1, 20: 1}
+    assert {b: n["eager"] for b, n in pg.buckets.items()} == {
+        8: 4, 16: 4, 32: 2, 31: 0, 20: 0}
+    assert (pg.exact, pg.captures, pg.replayed) == (2, 0, 0)
 
 
 def test_only_the_served_prefill_reaches_the_runner(monkeypatch):
@@ -348,8 +423,8 @@ def test_captured_prefill_equals_plain_cuda(cuda, family, kv_int8):
                                    wcache[key][:, 0]), (n, key)
     pg = slots.prefills
     assert (pg.eager, pg.replayed, pg.captures) == (1, 7, 2)
-    assert pg.buckets == {8: dict(replayed=3, eager=1, captures=1),
-                          32: dict(replayed=4, eager=0, captures=1)}
+    assert pg.buckets == {8: dict(replayed=3, eager=1, captures=1, exact=0),
+                          32: dict(replayed=4, eager=0, captures=1, exact=0)}
 
 
 @pytest.mark.chip
@@ -374,3 +449,83 @@ def test_served_tokens_with_captured_prefill_cuda(cuda, family):
         pg = fns.slots.cache.prefills
         assert (pg.captures, pg.eager) == (3, 1)
         assert pg.replayed == (call + 1) * len(prompts) - 1
+
+
+@pytest.mark.chip
+def test_long_prompt_prefills_at_its_length_cuda(cuda):
+    """A small bf16 Llama at head dim 128 (K1's served width) on the card:
+    after a 1000-token prompt captures the 1024 bucket, prompts of 1500
+    and 1501 tokens run their seated passes at their own length,
+    uncaptured. Each pass's last-row logits are held to the family's
+    ``forward`` over the prompt alone (one unsegmented pass, no cache):
+    within K1's bf16 row error (``chip_smoke.TOL_ROW``, over the
+    reference's RMS), the same first token or the reference's two within
+    ``chip_smoke.TIE_LLAMA``. The long passes are also held, logits and
+    slot rows, to the same prompt's pass padded to its 2048 bucket, and a
+    served call of both long prompts gives ``forward``'s greedy tokens up
+    to the first near tie."""
+    import chip_smoke
+    tol, tie = chip_smoke.TOL_ROW[torch.bfloat16], chip_smoke.TIE_LLAMA
+    cfg = lm.tiny_llama(vocab=97, d_model=512, n_heads=4, n_kv_heads=2,
+                        n_layers=3, d_ff=64, max_seq=2048)
+    params = tfm.cast_params(lm.init_params(cfg, seed=0, device=cuda),
+                             torch.bfloat16)
+    cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
+
+    def row_error(want, got):
+        want, got = want.float(), got.float()
+        return float((want - got).abs().max() / want.square().mean().sqrt())
+
+    def same_or_tie(want, got):
+        a, b = int(want.argmax()), int(got.argmax())
+        return a == b or float(want[a] - want[b]) < tie
+
+    fns = serving.make_server_fns(params, cfg, lm)
+    slots = serving.seat_slots(lm.init_kv_cache(cfg, 2, 2048, device=cuda))
+    rng = np.random.default_rng(4)
+    prompts = {}
+    with torch.no_grad():
+        for n, real in enumerate((1000, 1500, 1501)):
+            prompt = rng.integers(0, cfg.vocab, real).astype(np.int32)
+            prompts[real] = prompt
+            tok = torch.from_numpy(serving._padded(prompt, 2048,
+                                                   cfg.max_seq)).to(cuda)
+            assert tok.shape[1] == (1024 if real < 1024 else real)
+            got = fns[0](tok, real - 1, seat=(slots, n % 2))[0][0, 0]
+            ref = lm.forward(params, cfg, tok[:, :real])[0, -1]
+            assert row_error(ref, got) <= tol, (real, row_error(ref, got))
+            assert same_or_tie(ref.float(), got.float()), real
+            if real < 1024:
+                continue
+            padded = torch.from_numpy(serving._bucketed(
+                prompt, 2048, cfg.max_seq)).to(cuda)
+            want, wcache = lm.prefill(params, cfg, padded, 2048,
+                                      last_index=real - 1)
+            assert row_error(want[0, 0], got) <= tol, real
+            for key in ("k", "v"):
+                w = wcache[key][:, 0, :real]
+                assert row_error(w, slots[key][:, n % 2, :real]) <= tol, (
+                    real, key)
+    pg = slots.prefills
+    assert (pg.eager, pg.captures, pg.exact) == (1, 1, 2)
+    assert pg.buckets == {
+        1024: dict(replayed=0, eager=1, captures=1, exact=0),
+        1500: dict(replayed=0, eager=0, captures=0, exact=1),
+        1501: dict(replayed=0, eager=0, captures=0, exact=1)}
+
+    long = [prompts[1500], prompts[1501]]
+    served = serving.serve_greedy(params, cfg, long, 4, n_slots=2,
+                                  max_len=2048, family=lm, server_fns=fns,
+                                  device=cuda)
+    with torch.no_grad():
+        for prompt, out in zip(long, served):
+            seq = torch.from_numpy(prompt).to(cuda)[None]
+            for t in out[len(prompt):].tolist():
+                ref = lm.forward(params, cfg, seq)[0, -1].float()
+                top = ref.topk(2).values
+                if float(top[0] - top[1]) < tie:
+                    break
+                assert t == int(ref.argmax()), (len(prompt), seq.shape[1])
+                seq = torch.cat([seq, seq.new_tensor([[t]])], 1)
+    pg = fns.slots.cache.prefills
+    assert (pg.exact, pg.captures, pg.replayed) == (2, 0, 0)
